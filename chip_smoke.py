@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+  1. the card's name and power limit (nvidia-smi);
+  2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each, all
+     at once) and print the build time and ptxas's register/shared-memory lines;
+  3. hold each kernel against its plain PyTorch version on the card: the main
+     path's shapes plus GQA, window, ragged-S and float32 cases;
+  4. full-width deepseek-7b in bf16 with seeded random weights: prefill logits
+     on the kernel path against the plain path, then the main path — the
+     engine's ``generate`` and the ``ContinuousServer`` — with every kernel's
+     launch count set to 0 just before and read just after;
+  5. each kernel's time at the main path's shape (CUDA events, inputs rotated
+     through copies that span four times the L2), its bound, the plain
+     version's time and one PyTorch library call's time;
+  6. where a full-width prefill's and decode step's time goes: host wall,
+     device time by kernel (torch.profiler) and each one's bound;
+  7. one JSON line with the kernels, then the last line ``{"ok": true, ...}``.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+L2_BYTES = 50 * 2**20
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# kernel path vs plain path at full width: the plain path rounds attention
+# probabilities to bf16 before PV, the kernels do not; over 30 bf16 layers
+# the last logits may differ by this much relative to their L2 norm
+LOGITS_REL_TOL = 5e-2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, arg_sets: list, iters: int = 60, warm: int = 5) -> float:
+    """Mean time of ``fn(*args)`` over CUDA events, cycling through
+    ``arg_sets`` so that each launch reads inputs the L2 no longer holds,
+    as in the model, where a layer's weights pass between two calls."""
+    for i in range(warm):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cold_copies(make, nbytes: int) -> list:
+    """Enough copies of ``make()``'s inputs (``nbytes`` each) to span four
+    times the card's L2."""
+    return [make() for _ in range(max(2, math.ceil(4 * L2_BYTES / nbytes)))]
+
+
+def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rand(shape, dtype, gen, dev):
+    return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+
+def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    log(f"[check] {name}: max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
+    if not ok or not torch.isfinite(got).all():
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def kernel_checks(dev) -> dict:
+    """Phase 3: every kernel against its plain version.  Returns the
+    largest error at the main path's shapes, per kernel."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.decode.ref import flash_decode_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    main_err = {"flash_attention": 0.0, "flash_decode": 0.0}
+    for (b, s, h, kh, hd, win, dt, main) in [
+            (4, 128, 32, 32, 128, 0, torch.bfloat16, True),   # engine prefill
+            (4, 512, 32, 32, 128, 0, torch.bfloat16, True),   # server prefill
+            (2, 256, 8, 2, 64, 0, torch.bfloat16, False),     # GQA
+            (1, 256, 4, 4, 128, 64, torch.bfloat16, False),   # window 64
+            (1, 300, 4, 1, 128, 0, torch.float32, False),     # ragged, MQA, f32
+            (2, 192, 8, 2, 64, 64, torch.float32, False),     # GQA window f32
+            (1, 70, 4, 4, 32, 0, torch.float32, False)]:      # head dim 32
+        q = rand((b, s, h, hd), dt, gen, dev)
+        k, v = rand((b, s, kh, hd), dt, gen, dev), rand((b, s, kh, hd), dt, gen, dev)
+        err = check(f"K1 flash_attention q{(b, s, h, hd)} kv{kh} window={win} {dt}",
+                    flash.flash_attention(q, k, v, window=win),
+                    flash_attention_ref(q, k, v, window=win), TOL[dt])
+        if main:
+            main_err["flash_attention"] = max(main_err["flash_attention"], err)
+    for (b, s, h, kh, hd, per_row, win, dt, main) in [
+            (4, 256, 32, 32, 128, False, 0, torch.bfloat16, True),   # engine decode
+            (4, 256, 32, 32, 128, True, 0, torch.bfloat16, True),    # same, per row
+            (4, 512, 32, 32, 128, True, 0, torch.bfloat16, True),    # server decode
+            (2, 1024, 8, 2, 64, False, 0, torch.bfloat16, False),    # GQA
+            (2, 512, 8, 8, 128, True, 64, torch.bfloat16, False),    # window 64
+            (3, 300, 4, 1, 128, True, 0, torch.float32, False),      # ragged, MQA, f32
+            (2, 700, 8, 2, 64, True, 0, torch.float32, False)]:      # GQA, f32
+        q = rand((b, 1, h, hd), dt, gen, dev)
+        k, v = rand((b, s, kh, hd), dt, gen, dev), rand((b, s, kh, hd), dt, gen, dev)
+        kv = torch.arange(s, device=dev)
+        if per_row:
+            pos = torch.randint(0, s, (b,), generator=gen, device=dev)
+            valid = kv[None, :] <= pos[:, None]
+            if win:
+                valid &= (pos[:, None] - kv[None, :]) < win
+        else:
+            valid = kv <= (2 * s) // 3
+        form = "(B,S)" if per_row else "(S,)"
+        err = check(f"K2 flash_decode q{(b, 1, h, hd)} cache{(b, s, kh, hd)} mask {form} "
+                    f"window={win} {dt}",
+                    fd.flash_decode(q, k, v, valid),
+                    flash_decode_ref(q, k, v, valid), TOL[dt])
+        if main:
+            main_err["flash_decode"] = max(main_err["flash_decode"], err)
+    return main_err
+
+
+def logits_check(eng, cfg, dev) -> None:
+    """Phase 4a: full-width prefill and one decode step, kernel path against
+    plain path on the same weights and tokens."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.decode.ref import flash_decode_ref
+    from repro_torch.models import api
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen, device=dev)
+    nxt = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device=dev)
+
+    def run():
+        last, cache = api.prefill(eng.params, {"tokens": tokens}, cfg, 256, last_pos=99)
+        step, _ = api.decode_step(eng.params, cache, nxt, 100, cfg)
+        return last.float(), step.float()
+
+    kern = run()
+    with mock.patch.object(dispatch, "flash_attention", flash_attention_ref), \
+            mock.patch.object(dispatch, "flash_decode", flash_decode_ref):
+        plain = run()
+    for what, a, b in zip(("prefill last logits", "decode-step logits"), kern, plain):
+        rel = ((a - b).norm() / b.norm()).item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        log(f"[model] {what} (4,{cfg.vocab_size}): kernel vs plain rel_l2={rel:.3e} "
+            f"(tol {LOGITS_REL_TOL:g}) max_abs={(a - b).abs().max().item():.3e} "
+            f"argmax agreement={agree:.2f}")
+        if not torch.isfinite(a).all() or rel > LOGITS_REL_TOL:
+            raise SystemExit(f"full-width {what}: kernel path disagrees with plain path")
+
+
+def main_path(eng, cfg, dev) -> dict:
+    """Phase 4b: the engine and the continuous server at full width."""
+    from repro_torch.serving.continuous import ContinuousServer, Request
+
+    gen = torch.Generator().manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 100), generator=gen)
+    first = eng.generate(prompts, 32)
+    res = eng.generate(prompts, 32)
+    toks = res.tokens
+    if toks.shape != (4, 32) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise SystemExit(f"generate: bad tokens {toks.shape}")
+    if not torch.equal(first.tokens, toks):
+        raise SystemExit("generate: two greedy runs on the same prompts differ")
+    log(f"[engine] generate batch 4, prompt 100 (bucket 128), max_cache 256, 32 new: "
+        f"prefill {res.prefill_s * 1e3:.3f} ms, decode {res.decode_s * 1e3:.3f} ms, "
+        f"{res.tokens_per_s:.1f} tok/s")
+
+    srv = ContinuousServer(cfg, slots=4, max_seq=512, params=eng.params)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=int(rng.integers(20, 301))).tolist(),
+                    n_new=int(rng.integers(8, 25))) for i in range(8)]
+    for r in reqs:
+        srv.submit(r)
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = {r.rid: r.n_new for r in reqs}
+    got = {c.rid: c.tokens for c in done}
+    if sorted(got) != sorted(want) or any(len(got[r]) != n for r, n in want.items()):
+        raise SystemExit(f"continuous server: completions {[(c.rid, len(c.tokens)) for c in done]}"
+                         f" do not match the requests {want}")
+    if any(not 0 <= t < cfg.vocab_size for c in done for t in c.tokens):
+        raise SystemExit("continuous server: token out of the vocabulary")
+    n_tok = sum(want.values())
+    log(f"[server] 8 requests, prompts {min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)} tokens, 4 slots, max_seq 512: {n_tok} tokens "
+        f"in {wall:.3f} s ({n_tok / wall:.1f} tok/s), {srv.steps} decode steps")
+    return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s}
+
+
+def timings(dev) -> dict:
+    """Phase 5: each kernel at the main path's shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.decode.ref import flash_decode_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dt, out = torch.bfloat16, {}
+
+    def bhsd(*xs):   # the library's (B,H,S,hd) layout, as views
+        return tuple(x.transpose(1, 2) for x in xs)
+
+    b, s, h, kh, hd = 4, 128, 32, 32, 128        # the engine's prefill
+    nbytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * 2   # q, k, v in; o out
+    flops = 4 * hd * h * b * s * (s + 1) // 2   # QK^T and PV over the causal pairs
+    sets = cold_copies(lambda: (rand((b, s, h, hd), dt, gen, dev),
+                                rand((b, s, kh, hd), dt, gen, dev),
+                                rand((b, s, kh, hd), dt, gen, dev)), nbytes)
+    out["flash_attention"] = dict(
+        shape=f"q {(b, s, h, hd)} bf16 causal",
+        ms=time_ms(lambda q, k, v: flash.flash_attention(q, k, v), sets),
+        plain_ms=time_ms(lambda q, k, v: flash_attention_ref(q, k, v), sets),
+        library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            *bhsd(q, k, v), is_causal=True), sets),
+        bound=bound(nbytes, flops, dt))
+
+    b, s, n_valid = 4, 256, 132   # the engine's last decode step: 100 + 32 positions
+    # the valid positions of the cache are read, q read and o written once
+    nbytes = (2 * b * h * hd + 2 * b * n_valid * kh * hd) * 2 + s
+    flops = 4 * hd * h * b * n_valid
+    valid = torch.arange(s, device=dev) < n_valid
+    mask = valid[None, None, None, :]
+    sets = cold_copies(lambda: (rand((b, 1, h, hd), dt, gen, dev),
+                                rand((b, s, kh, hd), dt, gen, dev),
+                                rand((b, s, kh, hd), dt, gen, dev)), 4 * b * s * kh * hd)
+    out["flash_decode"] = dict(
+        shape=f"q {(b, 1, h, hd)} cache {(b, s, kh, hd)} bf16, {n_valid} valid",
+        ms=time_ms(lambda q, k, v: fd.flash_decode(q, k, v, valid), sets),
+        plain_ms=time_ms(lambda q, k, v: flash_decode_ref(q, k, v, valid), sets),
+        library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            *bhsd(q, k, v), attn_mask=mask), sets),
+        bound=bound(nbytes, flops, dt))
+    return out
+
+
+def breakdown(eng, cfg, dev) -> None:
+    """Phase 6: where the engine's time goes at full width, for a prefill
+    (batch 4, bucket 128) and for a decode step (batch 4, 100..115 cached
+    positions): the host wall, the device time by kernel from
+    torch.profiler, and the least time the card could take (every weight
+    but the embedding table read once, the cache read or written once, the
+    matrix products at the bf16 peak)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.common import count_params, param_bytes
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, s, last = 4, 128, 99
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    table = eng.params["embed"]["embedding"]
+    w_bytes = param_bytes(eng.params) - table.numel() * table.element_size()
+    layer_params = count_params(eng.params["layers"])
+    head_params = count_params(eng.params["embed"]) - table.numel()
+    kv_row = 2 * cfg.num_layers * cfg.kv_dim * 2       # k and v of one position, bf16
+
+    def profiled(tag, setup, body, n, nbytes, flops) -> None:
+        def once(around=contextlib.nullcontext()) -> float:
+            state = setup()
+            torch.cuda.synchronize()
+            with around:
+                t0 = time.perf_counter()
+                body(state)
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        once()
+        wall_ms = once()
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        once(prof)
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
+        bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+        log(f"[{tag}] host wall {wall_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by})")
+        if device_ms == 0:
+            log(f"[{tag}] device time: not measured (the trace holds no device time)")
+            return
+        log(f"[{tag}] device time {device_ms:.3f} ms, busy share of the host wall "
+            f"{device_ms / wall_ms:.3f}; by kernel, per call:")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+            log(f"[{tag}]   {e.self_device_time_total / 1e3 / n:8.4f} ms  "
+                f"{e.count / n:6.1f} launches  {e.key[:90]}")
+
+    def prefills(_):
+        for _ in range(4):
+            eng._prefill(tokens, last)
+
+    attn_flops = 4 * cfg.num_layers * cfg.q_dim * b * s * (s + 1) // 2
+    profiled("prefill", lambda: None, prefills, 4,
+             w_bytes + kv_row * b * s,
+             2 * layer_params * b * s + 2 * head_params * b + attn_flops)
+
+    n = 16
+
+    def decode(state):
+        logits, cache = state
+        tok = logits.argmax(-1)
+        for i in range(n):
+            logits, cache = eng._decode(cache, tok, last + 1 + i)
+            tok = logits.argmax(-1)
+
+    profiled("decode", lambda: eng._prefill(tokens, last), decode, n,
+             w_bytes + kv_row * b * (last + 1 + n // 2),
+             2 * (layer_params + head_params) * b)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.serving.engine import InferenceEngine
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(card, flush=True)
+    log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    log(f"[build] {sorted(logs) or 'up to date'} in {time.perf_counter() - t0:.1f} s "
+        f"into {build.BUILD_DIR}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"[ptxas] {name}: {line.strip()}")
+
+    main_err = kernel_checks(dev)
+
+    cfg = get("deepseek-7b").config
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, seed=0, max_cache=256)
+    log(f"[model] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{eng.stats()['params'] / 1e9:.3f} B params {cfg.param_dtype}, "
+        f"seeded init {time.perf_counter() - t0:.1f} s")
+    logits_check(eng, cfg, dev)
+
+    flash.launches = fd.launches = 0
+    e2e = main_path(eng, cfg, dev)
+    launches = {"flash_attention": flash.launches, "flash_decode": fd.launches}
+    log(f"[kernels] launches on the main path: {launches}")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"a kernel of the main path never launched: {launches}")
+    log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    times = timings(dev)
+    meta = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/attention/flash.py:69"),
+            "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                             "src/repro/kernels/decode/flash_decode.py:62")}
+    rows = []
+    for name, t in times.items():
+        bound_ms, bound_by = t["bound"]
+        log(f"[time] {name} at {t['shape']}: {t['ms']:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}); plain {t['plain_ms']:.4f} ms; library {t['library_ms']:.4f} ms")
+        rows.append({"name": name, "route": "cuda", "source": meta[name][0],
+                     "replaces": meta[name][1], "launches": launches[name],
+                     "max_abs_err": main_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": t["library_ms"]})
+    breakdown(eng, cfg, dev)
+    log(f"[engine] full width: prefill {e2e['prefill_ms']:.3f} ms, "
+        f"decode {e2e['decode_tok_s']:.1f} tok/s ({card})")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,31 @@
+"""PyTorch and CUDA port of the dense serving path of ``repro`` (see ROADMAP.md).
+
+The package imports ``torch`` and nothing of ``jax`` or ``repro``; its tests hold
+it against the JAX package on the same weights and inputs.  Entry points run on
+the card (``device="cuda"``) unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import torch
+
+# float32 matmuls and convolutions in full float32: TF32 keeps about three
+# decimal digits, and the float32 parity bar against the reference (logits
+# within 1e-5) depends on these staying off.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on.  Raises, rather than falling back
+    to the CPU, when the card is asked for and there is none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,43 @@
+"""Family dispatch: one uniform API over the ported architecture families.
+
+Every family module exposes:
+    init_params(cfg, generator, device) -> params
+    prefill(params, tokens, cfg, cache_len, last_pos=, cache=) -> (last_logits, cache)
+    decode_step(params, cache, token, pos, cfg) -> (logits, cache)
+    init_cache(cfg, batch, seq, dtype, device)
+Only the dense family is ported so far.
+"""
+from __future__ import annotations
+
+from . import transformer
+from .common import ModelConfig
+
+_FAMILIES = {"dense": transformer}
+
+
+def module_for(cfg: ModelConfig):
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  "(ROADMAP.md Queue 1)")
+    return _FAMILIES[cfg.family]
+
+
+def init_params(cfg: ModelConfig, generator, device):
+    return module_for(cfg).init_params(cfg, generator, device)
+
+
+def prefill(params, inputs, cfg: ModelConfig, cache_len: int | None = None,
+            last_pos=None, cache: dict | None = None):
+    """``last_pos`` (int or (B,) int tensor) selects which position's logits
+    to return — the bucketed-prefill hook (right-padded prompts read their
+    real last token, not the pad tail)."""
+    return module_for(cfg).prefill(params, inputs["tokens"], cfg, cache_len,
+                                   last_pos=last_pos, cache=cache)
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig):
+    return module_for(cfg).decode_step(params, cache, token, pos, cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cpu"):
+    return module_for(cfg).init_cache(cfg, batch, seq, dtype, device)

@@ -1,0 +1,55 @@
+"""Weights bridge: the reference's parameter tree -> the port's.
+
+The reference tree (``repro.models.transformer.init_params``) is nested dicts
+of arrays whose layer params are stacked on a leading axis of length
+``num_layers`` (built by ``vmap``).  The caller hands it over as numpy arrays
+(this module imports neither JAX nor the reference); the converter unstacks
+the layers into a list of per-layer dicts and keeps every other key.
+
+Dense weights stay ``(d_in, d_out)`` and the port applies them as ``x @ w``,
+as the reference does, so nothing is transposed.  bfloat16 arrays (numpy's
+``ml_dtypes.bfloat16``) are carried over bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from .common import ModelConfig
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a, order="C")   # a writable copy: torch shares numpy's memory
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def from_reference(np_params: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """np_params: the reference dense param tree with numpy leaves."""
+    if cfg.is_moe or cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: only the dense family is ported "
+                                  "(ROADMAP.md Queue 1)")
+    dev = resolve_device(device)
+    layers = np_params["layers"]
+    n = len(layers["ln1"]["scale"])
+    if n != cfg.num_layers:
+        raise ValueError(f"the tree has {n} layers, {cfg.name} has {cfg.num_layers}")
+    return {
+        "embed": _convert(np_params["embed"], dev),
+        "layers": [_convert(_layer(layers, i), dev) for i in range(n)],
+        "final_norm": _convert(np_params["final_norm"], dev),
+    }

@@ -1,0 +1,146 @@
+"""Decoder-only transformer LM, dense branch: GQA / QKV-bias / sliding window.
+
+The reference stacks layers on a leading axis and scans them; here the layer
+stack is a list of per-layer param dicts walked by a Python loop.  The KV
+cache keeps the reference layout, a dict of (L,B,S,K,hd) tensors, and is
+written in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from .common import ModelConfig, apply_norm, norm_init
+from .layers import (attn_init, attention_decode, attention_full, embed,
+                     embed_init, mlp_apply, mlp_init, unembed)
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE branch of the transformer is not ported yet "
+            "(ROADMAP.md Queue 1)")
+
+
+# ----------------------------------------------------------------------
+# init
+# ----------------------------------------------------------------------
+
+def layer_init(generator, cfg: ModelConfig, device) -> dict:
+    return {
+        "ln1": norm_init(cfg.d_model, cfg.norm, cfg.pdt, device),
+        "ln2": norm_init(cfg.d_model, cfg.norm, cfg.pdt, device),
+        "attn": attn_init(generator, cfg, device),
+        "mlp": mlp_init(generator, cfg, device),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Random weights with the reference's distributions, drawn from
+    ``generator`` (torch's draws, not JAX's: tests convert reference weights
+    with ``repro_torch.models.convert.from_reference`` instead)."""
+    _dense_only(cfg)
+    return {
+        "embed": embed_init(generator, cfg, device),
+        "layers": [layer_init(generator, cfg, device) for _ in range(cfg.num_layers)],
+        "final_norm": norm_init(cfg.d_model, cfg.norm, cfg.pdt, device),
+    }
+
+
+# ----------------------------------------------------------------------
+# forward (prefill)
+# ----------------------------------------------------------------------
+
+def _block(x, lp, positions, cfg: ModelConfig):
+    h = apply_norm(lp["ln1"], x, cfg.norm)
+    a, kv = attention_full(lp["attn"], h, positions, cfg, return_kv=True)
+    x = x + a
+    h = apply_norm(lp["ln2"], x, cfg.norm)
+    return x + mlp_apply(lp["mlp"], h, cfg), kv
+
+
+def _hidden(params, tokens, cfg: ModelConfig, on_kv=None):
+    """The layer stack; calls ``on_kv(layer, k, v)`` with each layer's
+    (B,S,K,hd) keys and values.  -> final hidden states before the norm."""
+    _dense_only(cfg)
+    x = embed(params["embed"], tokens, cfg).to(cfg.cdt)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        x, (k, v) = _block(x, lp, positions, cfg)
+        if on_kv is not None:
+            on_kv(i, k, v)
+    return x
+
+
+def forward(params, tokens, cfg: ModelConfig):
+    """tokens: (B,S) int.  -> (logits (B,S,V), aux); aux is 0 for dense."""
+    x = _hidden(params, tokens, cfg)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return unembed(params["embed"], x, cfg), torch.zeros((), device=x.device)
+
+
+# ----------------------------------------------------------------------
+# KV cache + decode
+# ----------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
+               device="cpu") -> dict:
+    dt = dtype or cfg.cdt
+    shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None,
+            *, last_pos=None, cache: dict | None = None):
+    """Returns (last_logits (B,V), cache dict (L,B,cache_len,K,hd)).
+
+    ``last_pos`` selects which position's logits count as "last": an int or
+    a (B,) int tensor of per-row indices.  Bucketed serving right-pads
+    prompts to a shared length, so the real last token sits at
+    ``length - 1``; causal masking keeps the logits there identical to an
+    exact-length prefill (pad tokens only influence positions after
+    themselves, which decode overwrites before they are ever attended).
+
+    ``cache``, when given, is a preallocated cache that the prompt's keys and
+    values are written into in place (positions past the prompt are zeroed,
+    as the reference's padding leaves them); otherwise a new one is made.
+    Only the last positions are normed and unembedded."""
+    b, s = tokens.shape
+    cache_len = cache_len or s
+    if cache is None:
+        cache = init_cache(cfg, b, cache_len, device=tokens.device)
+    elif cache["k"].shape[2] != cache_len:
+        raise ValueError(f"cache holds {cache['k'].shape[2]} positions, "
+                         f"cache_len is {cache_len}")
+
+    def on_kv(i, k, v):
+        cache["k"][i, :, :s] = k.to(cache["k"].dtype)
+        cache["v"][i, :, :s] = v.to(cache["v"].dtype)
+
+    x = _hidden(params, tokens, cfg, on_kv)
+    cache["k"][:, :, s:] = 0
+    cache["v"][:, :, s:] = 0
+    if last_pos is None:
+        last = x[:, -1]
+    elif isinstance(last_pos, torch.Tensor) and last_pos.dim() == 1:
+        last = x[torch.arange(b, device=x.device), last_pos]
+    else:
+        last = x[:, int(last_pos)]
+    last = apply_norm(params["final_norm"], last, cfg.norm)
+    return unembed(params["embed"], last, cfg), cache
+
+
+def decode_step(params, cache: dict, token: torch.Tensor, pos, cfg: ModelConfig):
+    """token: (B,) int; pos: int or (B,) int tensor.  -> (logits (B,V), cache),
+    where cache is the argument, updated in place."""
+    _dense_only(cfg)
+    x = embed(params["embed"], token[:, None], cfg).to(cfg.cdt)
+    for i, lp in enumerate(params["layers"]):
+        h = apply_norm(lp["ln1"], x, cfg.norm)
+        a, _, _ = attention_decode(lp["attn"], h, pos, cache["k"][i],
+                                   cache["v"][i], cfg)
+        y = x + a
+        h = apply_norm(lp["ln2"], y, cfg.norm)
+        x = y + mlp_apply(lp["mlp"], h, cfg)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return unembed(params["embed"], x, cfg)[:, 0], cache

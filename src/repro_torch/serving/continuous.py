@@ -1,0 +1,240 @@
+"""Continuous batching (slot-based, vLLM-style scheduling), on the card.
+
+The fixed-size decode batch is a set of *slots*; sequences at different
+positions decode together through the per-row-position decode path.  When a
+sequence finishes its slot is refilled from the queue at once.
+
+Device state (the (L,slots,max_seq,K,hd) KV cache, last tokens, per-row
+positions) lives on the device and is updated in place.  Control state
+(``active``/``remaining``/``rid``) is host bookkeeping that evolves
+deterministically, copied from the reference unchanged.  ``run()`` decodes
+``min(remaining)`` steps between admissions, in power-of-two chunks, and
+fetches each chunk's token block in one device-to-host copy; rows outside
+``active`` are frozen with ``where(active, ...)`` so the token streams equal
+a per-step loop's.  Admission runs one batched prefill per round (prompts
+right-padded to a power-of-two bucket) and one in-place slot scatter.
+Greedy decoding.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import api
+from repro_torch.models.common import ModelConfig
+from repro_torch.serving.engine import bucket_len
+
+# fused-step chunk cap: step counts decompose into powers of two up to this
+MAX_CHUNK = 64
+
+
+def _chunks(k: int):
+    """Decompose k into power-of-two pieces (largest first, capped)."""
+    while k > 0:
+        c = min(MAX_CHUNK, 1 << (k.bit_length() - 1))
+        yield c
+        k -= c
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list
+    n_new: int = 16
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: list
+    steps_in_flight: int
+
+
+class ContinuousServer:
+    def __init__(self, cfg: ModelConfig, *, slots: int = 4, max_seq: int = 128,
+                 seed: int = 0, params: dict | None = None, device="cuda"):
+        """``params`` (converted reference weights, or an engine's) replaces
+        the seeded random draw."""
+        self.cfg = cfg
+        self.slots = slots
+        self.max_seq = max_seq
+        self.device = resolve_device(device)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = api.init_params(cfg, gen, self.device)
+        self.params = params
+        self.cache = api.init_cache(cfg, slots, max_seq, device=self.device)
+        # host control plane: deterministic bookkeeping, never syncs device
+        self.pos = np.zeros(slots, np.int32)
+        self.active = np.zeros(slots, bool)
+        self.rid = [-1] * slots
+        self.remaining = np.zeros(slots, np.int32)
+        self.last_tok = np.zeros(slots, np.int32)
+        # device compute state, updated by the fused chunks
+        self._tok_dev = torch.zeros((slots,), dtype=torch.long, device=self.device)
+        self._pos_dev = torch.zeros((slots,), dtype=torch.long, device=self.device)
+        self.out: dict[int, list] = {}
+        self.queue: deque[Request] = deque()
+        self._done: list[Completion] = []
+        self._steps = 0
+        self._shapes = {"prefill": set(), "fused_step": set(), "scatter": set()}
+
+    # ------------------------------------------------------------------
+    def _prefill(self, tokens: np.ndarray, last_pos, cache_len: int):
+        self._shapes["prefill"].add((tokens.shape, last_pos is None, cache_len))
+        toks = torch.as_tensor(tokens, device=self.device).long()
+        if last_pos is not None:
+            last_pos = torch.as_tensor(last_pos, device=self.device).long()
+        return api.prefill(self.params, {"tokens": toks}, self.cfg,
+                           cache_len=cache_len, last_pos=last_pos)
+
+    def _scatter(self, rows: dict, idx: list):
+        """Write admitted rows (L,m,s,K,hd) into slots ``idx`` in place, and
+        zero the slots past s, as the reference's padded rows do."""
+        self._shapes["scatter"].add((len(idx), rows["k"].shape[2]))
+        slots = torch.as_tensor(idx, device=self.device)
+        s = rows["k"].shape[2]
+        for name in ("k", "v"):
+            full = self.cache[name]
+            full[:, slots, :s] = rows[name].to(full.dtype)
+            full[:, slots, s:] = 0
+
+    def _run_chunk(self, n_steps: int) -> np.ndarray:
+        """n_steps decode steps on device; returns the (n_steps, slots) token
+        block — the single device-to-host copy."""
+        self._shapes["fused_step"].add(n_steps)
+        active = torch.as_tensor(self.active, device=self.device)
+        tok, pos = self._tok_dev, self._pos_dev
+        toks = torch.empty((n_steps, self.slots), dtype=torch.long, device=self.device)
+        for i in range(n_steps):
+            logits, self.cache = api.decode_step(self.params, self.cache, tok, pos,
+                                                 self.cfg)
+            nxt = torch.argmax(logits, dim=-1)
+            toks[i] = nxt
+            tok = torch.where(active, nxt, tok)
+            pos = torch.where(active, pos + 1, pos)
+        self._tok_dev, self._pos_dev = tok, pos
+        self._steps += n_steps
+        return toks.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    @property
+    def steps(self) -> int:
+        """Fused decode steps taken so far (the throughput denominator)."""
+        return self._steps
+
+    def prefill_pending(self) -> None:
+        """Admit queued requests into free slots without decoding."""
+        self._admit()
+
+    # ------------------------------------------------------------------
+    def _prefill_bucketed(self, reqs):
+        """One batched prefill for the whole admission round: batch padded
+        to the slot count, prompts right-padded to a shared power-of-two
+        bucket."""
+        m = len(reqs)
+        bucket = min(bucket_len(max(len(r.prompt) for r in reqs)), self.max_seq)
+        toks = np.zeros((self.slots, bucket), np.int64)
+        last = np.zeros((self.slots,), np.int64)
+        for j, r in enumerate(reqs):
+            toks[j, :len(r.prompt)] = r.prompt
+            last[j] = len(r.prompt) - 1
+        logits, pc = self._prefill(toks, last, bucket)
+        return logits[:m], {n: t[:, :m] for n, t in pc.items()}
+
+    def _prefill_exact(self, reqs):
+        """Per-request exact-length prefills, for families whose pad tokens
+        would change real tokens (MoE routing); the caches still merge into
+        one per-round scatter."""
+        logits, rows = [], []
+        for r in reqs:
+            lg, pc = self._prefill(np.asarray([r.prompt], np.int64), None, self.max_seq)
+            logits.append(lg)
+            rows.append(pc)
+        return (torch.cat(logits, dim=0),
+                {n: torch.cat([pc[n] for pc in rows], dim=1) for n in ("k", "v")})
+
+    def _admit(self):
+        free = [s for s in range(self.slots) if not self.active[s]]
+        m = min(len(free), len(self.queue))
+        if m == 0:
+            return
+        reqs = [self.queue.popleft() for _ in range(m)]
+        idx = free[:m]
+        if self.cfg.family == "dense":
+            logits, rows = self._prefill_bucketed(reqs)
+        else:
+            logits, rows = self._prefill_exact(reqs)
+        self._scatter(rows, idx)
+        first = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+        for j, (s, req) in enumerate(zip(idx, reqs)):
+            tok = int(first[j])
+            self.active[s] = True
+            self.rid[s] = req.rid
+            self.pos[s] = len(req.prompt)
+            self.remaining[s] = req.n_new - 1
+            self.last_tok[s] = tok
+            self.out[req.rid] = [tok]
+            if req.n_new == 1:
+                self._finish(s)
+        # resync the device compute state from the host mirrors (H2D only)
+        self._tok_dev = torch.as_tensor(self.last_tok, device=self.device).long()
+        self._pos_dev = torch.as_tensor(self.pos, device=self.device).long()
+
+    def _finish(self, s: int):
+        rid = self.rid[s]
+        self._done.append(Completion(rid, list(self.out[rid]), self._steps))
+        self.active[s] = False
+        self.rid[s] = -1
+
+    # ------------------------------------------------------------------
+    def _settle(self, toks: np.ndarray):
+        """Apply a token block to the host control plane; finish slots
+        whose budget (or cache) ran out."""
+        for row in toks:
+            for s in range(self.slots):
+                if not self.active[s]:
+                    continue
+                t = int(row[s])
+                self.out[self.rid[s]].append(t)
+                self.pos[s] += 1
+                self.last_tok[s] = t
+                self.remaining[s] -= 1
+                if self.remaining[s] <= 0 or self.pos[s] >= self.max_seq - 1:
+                    self._finish(s)
+
+    def step(self):
+        """One fused decode step across all active slots."""
+        self._settle(self._run_chunk(1))
+
+    # ------------------------------------------------------------------
+    def run(self) -> list:
+        """Drain the queue; returns Completions in finish order.
+
+        Between admissions every active slot survives exactly
+        ``min(steps-to-finish)`` more steps, so that many are run in chunks
+        with one copy each, and settlement is pure host arithmetic."""
+        while self.queue or self.active.any():
+            self._admit()
+            if not self.active.any():
+                continue
+            k = min(min(int(self.remaining[s]),
+                        self.max_seq - 1 - int(self.pos[s]))
+                    for s in range(self.slots) if self.active[s])
+            for c in _chunks(max(1, k)):
+                self._settle(self._run_chunk(c))
+        done, self._done = self._done, []
+        return done
+
+    # ------------------------------------------------------------------
+    def compile_stats(self) -> dict:
+        """Distinct prefill shapes, chunk lengths and scatter shapes seen —
+        the counterparts of the reference's jit-cache sizes."""
+        return {k: len(v) for k, v in self._shapes.items()}

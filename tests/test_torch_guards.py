@@ -1,0 +1,73 @@
+"""Guards of the port: it stands apart from the JAX package, and its entry
+points run on the card unless the caller asks for the CPU."""
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import deepseek_7b
+from repro_torch.serving.continuous import ContinuousServer
+from repro_torch.serving.engine import InferenceEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_the_reference(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_scan_sees_the_whole_port():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
+    for module in ("models/transformer.py", "kernels/dispatch.py", "serving/continuous.py",
+                   "launch/serve.py", "configs/registry.py"):
+        assert module in names
+    assert "torch" in _imported_roots(ROOT / "src" / "repro_torch" / "__init__.py")
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_default_to_the_card():
+    cfg = deepseek_7b.SMOKE
+    if torch.cuda.is_available():
+        assert InferenceEngine(cfg, max_cache=16).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(cfg, max_cache=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousServer(cfg, slots=2, max_seq=16)
+    assert InferenceEngine(cfg, max_cache=16, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; chip_smoke.py would run")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode != 0
+        for line in out.stdout.splitlines():
+            with pytest.raises(ValueError):
+                json.loads(line)

@@ -1,0 +1,254 @@
+"""The port's kernels: plain versions against the reference's Pallas kernels
+(interpret mode on the CPU), device dispatch, and, on a card, the Hopper
+kernels against their plain versions (``pytest -m gpu``)."""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build, dispatch
+from repro_torch.kernels.attention import flash
+from repro_torch.kernels.attention.ref import flash_attention_ref
+from repro_torch.kernels.decode import flash_decode as fd
+from repro_torch.kernels.decode.ref import flash_decode_ref
+
+F32_TOL = 2e-5    # same algorithm, float32: summation order only
+BF16_TOL = 2e-2   # the reference kernel keeps probabilities in float32, the
+                  # plain version casts them to bf16 before PV
+GPU_F32_TOL = 1e-4  # kernel vs plain on the card: another summation order
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's Pallas kernels (interpret mode) and sdpa, on JAX's
+    CPU backend.  Imported here, not at the top: the card's machine runs
+    this file's gpu tests without JAX."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.attention.ops import flash_attention
+    from repro.kernels.decode.ops import flash_decode
+    from repro.models.layers import sdpa
+    return SimpleNamespace(jnp=jnp, flash_attention=flash_attention,
+                           flash_decode=flash_decode, sdpa=sdpa)
+
+
+def _both(ref, a, dtype):
+    """The same numbers as a JAX array and a torch tensor of one dtype."""
+    t = torch.from_numpy(a).to(dtype)
+    jdt = ref.jnp.bfloat16 if dtype == torch.bfloat16 else ref.jnp.float32
+    return ref.jnp.asarray(a).astype(jdt), t
+
+
+def _close(got: torch.Tensor, want, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+# ----------------------------------------------------------------------
+# K1 plain version vs Pallas (interpret)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,kh,hd", [
+    (2, 256, 4, 2, 64),     # GQA
+    (1, 128, 4, 4, 128),    # MHA, wide head
+    (1, 256, 4, 1, 32),     # MQA
+    (1, 300, 2, 2, 64),     # ragged S (reference pads, port masks)
+    (1, 384, 2, 1, 32),     # ragged S, several blocks
+])
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_attention_plain_matches_pallas(ref, b, s, h, kh, hd, window):
+    q, tq = _both(ref, _rand((b, s, h, hd), 1), torch.float32)
+    k, tk = _both(ref, _rand((b, s, kh, hd), 2), torch.float32)
+    v, tv = _both(ref, _rand((b, s, kh, hd), 3), torch.float32)
+    want = ref.flash_attention(q, k, v, window=window, interpret=True)
+    _close(flash_attention_ref(tq, tk, tv, window=window), want, F32_TOL)
+
+
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_attention_plain_matches_pallas_bf16(ref, window):
+    q, tq = _both(ref, _rand((1, 256, 4, 64), 1), torch.bfloat16)
+    k, tk = _both(ref, _rand((1, 256, 2, 64), 2), torch.bfloat16)
+    v, tv = _both(ref, _rand((1, 256, 2, 64), 3), torch.bfloat16)
+    want = ref.flash_attention(q, k, v, window=window, interpret=True)
+    _close(flash_attention_ref(tq, tk, tv, window=window), want, BF16_TOL)
+
+
+# ----------------------------------------------------------------------
+# K2 plain version vs Pallas (interpret), (S,) form, and (B,S) vs sdpa
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,kh,hd", [
+    (2, 1024, 4, 2, 64),    # GQA
+    (1, 512, 8, 8, 128),    # MHA
+    (3, 768, 4, 1, 64),     # MQA
+    (1, 300, 2, 2, 64),     # ragged S
+])
+def test_flash_decode_plain_matches_pallas(ref, b, s, h, kh, hd):
+    q, tq = _both(ref, _rand((b, 1, h, hd), 1), torch.float32)
+    k, tk = _both(ref, _rand((b, s, kh, hd), 2), torch.float32)
+    v, tv = _both(ref, _rand((b, s, kh, hd), 3), torch.float32)
+    valid = np.arange(s) <= (3 * s) // 4
+    want = ref.flash_decode(q, k, v, ref.jnp.asarray(valid), interpret=True)
+    _close(flash_decode_ref(tq, tk, tv, torch.from_numpy(valid)), want, F32_TOL)
+
+
+def test_flash_decode_plain_matches_pallas_bf16(ref):
+    q, tq = _both(ref, _rand((2, 1, 4, 64), 1), torch.bfloat16)
+    k, tk = _both(ref, _rand((2, 512, 2, 64), 2), torch.bfloat16)
+    v, tv = _both(ref, _rand((2, 512, 2, 64), 3), torch.bfloat16)
+    valid = np.arange(512) < 300
+    want = ref.flash_decode(q, k, v, ref.jnp.asarray(valid), interpret=True)
+    _close(flash_decode_ref(tq, tk, tv, torch.from_numpy(valid)), want, BF16_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd,window", [
+    (3, 48, 4, 4, 32, 0),      # the continuous server's smoke shape
+    (4, 300, 8, 2, 64, 0),     # GQA, ragged
+    (2, 256, 4, 1, 64, 64),    # MQA, windowed per-row band
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_decode_per_row_mask_matches_sdpa(ref, b, s, h, kh, hd, window, dtype, tol):
+    q, tq = _both(ref, _rand((b, 1, h, hd), 4), dtype)
+    k, tk = _both(ref, _rand((b, s, kh, hd), 5), dtype)
+    v, tv = _both(ref, _rand((b, s, kh, hd), 6), dtype)
+    pos = np.random.default_rng(7).integers(0, s, size=b)
+    kv = np.arange(s)
+    valid = kv[None, :] <= pos[:, None]
+    if window:
+        valid &= (pos[:, None] - kv[None, :]) < window
+    want = ref.sdpa(q, k, v, ref.jnp.asarray(valid)[:, None, :])
+    _close(flash_decode_ref(tq, tk, tv, torch.from_numpy(valid)), want, tol)
+
+
+def test_flash_decode_shared_mask_equals_per_row_broadcast():
+    tq, tk, tv = (torch.from_numpy(_rand(sh, i)) for i, sh in
+                  enumerate([(2, 1, 4, 32), (2, 100, 2, 32), (2, 100, 2, 32)]))
+    valid = torch.arange(100) < 70
+    shared = flash_decode_ref(tq, tk, tv, valid)
+    per_row = flash_decode_ref(tq, tk, tv, valid[None].expand(2, 100))
+    assert torch.equal(shared, per_row)
+
+
+# ----------------------------------------------------------------------
+# dispatch and wrappers on the CPU
+# ----------------------------------------------------------------------
+
+def test_dispatch_takes_plain_versions_on_cpu_without_counting():
+    before = (flash.launches, fd.launches)
+    tq, tk, tv = (torch.from_numpy(_rand(sh, i)) for i, sh in
+                  enumerate([(1, 40, 4, 32), (1, 40, 2, 32), (1, 40, 2, 32)]))
+    assert torch.equal(dispatch.flash_attention(tq, tk, tv, window=8),
+                       flash_attention_ref(tq, tk, tv, window=8))
+    valid = torch.arange(40) < 30
+    q1 = tq[:, :1].contiguous()
+    assert torch.equal(dispatch.flash_decode(q1, tk, tv, valid),
+                       flash_decode_ref(q1, tk, tv, valid))
+    assert (flash.launches, fd.launches) == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    t = torch.zeros((1, 8, 2, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="CUDA"):
+        fd.flash_decode(t[:, :1], t, t, torch.ones(8, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("b,kh,s", [(1, 1, 1), (4, 32, 256), (4, 32, 512),
+                                     (1, 8, 1024), (64, 32, 2048), (3, 4, 300)])
+def test_split_plan_covers_every_tile_once(b, kh, s):
+    splits, per = fd.split_plan(b, kh, s)
+    tiles = -(-s // fd.TILE)
+    assert splits * per >= tiles > (splits - 1) * per    # no empty split
+    assert splits == 1 or b * kh * (splits - 1) < 2 * fd.SMS
+
+
+def test_build_targets_hopper_from_repo_sources():
+    assert build.sources() == ["flash_attention", "flash_decode"]
+    assert "arch=compute_90a,code=sm_90a" in build.FLAGS
+    for name in build.sources():
+        path = build.target(name)
+        assert path.parent == build.BUILD_DIR and path.name.startswith(name + "-")
+        assert (build.CSRC / f"{name}.cu").read_text().count("extern \"C\"") == 1
+
+
+# ----------------------------------------------------------------------
+# on the card: the Hopper kernels against their plain versions
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run with -m gpu on the card)")
+    return torch.device("cuda")
+
+
+def _dev(a, dtype, dev):
+    return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kh,hd,window", [
+    (4, 128, 32, 32, 128, 0),   # the main path's prefill shape
+    (2, 256, 8, 2, 64, 0),      # GQA
+    (1, 300, 4, 1, 128, 0),     # MQA, ragged S
+    (1, 256, 4, 4, 128, 64),    # window
+    (2, 70, 4, 4, 32, 0),       # smoke head dim, ragged
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kh, hd, window, dtype, tol):
+    q = _dev(_rand((b, s, h, hd), 1), dtype, cuda)
+    k = _dev(_rand((b, s, kh, hd), 2), dtype, cuda)
+    v = _dev(_rand((b, s, kh, hd), 3), dtype, cuda)
+    n = flash.launches
+    got = flash.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash.launches == n + 1
+    want = flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kh,hd,per_row", [
+    (4, 256, 32, 32, 128, False),   # the engine's decode shape, (S,) mask
+    (4, 512, 32, 32, 128, True),    # the server's decode shape, (B,S) mask
+    (2, 1024, 8, 2, 64, False),     # GQA
+    (3, 300, 4, 1, 64, True),       # MQA, ragged S
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_decode_kernel_matches_plain(cuda, b, s, h, kh, hd, per_row, dtype, tol):
+    q = _dev(_rand((b, 1, h, hd), 1), dtype, cuda)
+    k = _dev(_rand((b, s, kh, hd), 2), dtype, cuda)
+    v = _dev(_rand((b, s, kh, hd), 3), dtype, cuda)
+    kv = torch.arange(s, device=cuda)
+    if per_row:
+        pos = torch.tensor(np.random.default_rng(0).integers(0, s, size=b), device=cuda)
+        valid = kv[None, :] <= pos[:, None]
+    else:
+        valid = kv <= (2 * s) // 3
+    n = fd.launches
+    got = fd.flash_decode(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert fd.launches == n + 1
+    want = flash_decode_ref(q, k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_decode_kernel_takes_a_band_slice_without_copy(cuda):
+    cache_k = _dev(_rand((2, 512, 4, 64), 2), torch.float32, cuda)
+    cache_v = _dev(_rand((2, 512, 4, 64), 3), torch.float32, cuda)
+    q = _dev(_rand((2, 1, 8, 64), 1), torch.float32, cuda)
+    band_k, band_v = cache_k[:, 100:228], cache_v[:, 100:228]
+    valid = torch.arange(128, device=cuda) < 90
+    got = fd.flash_decode(q, band_k, band_v, valid)
+    want = flash_decode_ref(q, band_k, band_v, valid)
+    torch.testing.assert_close(got, want, atol=GPU_F32_TOL, rtol=GPU_F32_TOL)
