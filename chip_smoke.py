@@ -3,21 +3,25 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero:
+Two paths, each at full width: deepseek-7b (the dense path, kernels K1
+flash-attention and K2 flash-decode) and rwkv6-1.6b (the RWKV-6 path, kernel
+K3 WKV-6).  Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each, all
      at once) and print the build time and ptxas's register/shared-memory lines;
-  3. hold each kernel against its plain PyTorch version on the card: the main
-     path's shapes plus GQA, window, ragged-S and float32 cases;
-  4. full-width deepseek-7b in bf16 with seeded random weights: prefill logits
-     on the kernel path against the plain path, then the main path — the
-     engine's ``generate`` and the ``ContinuousServer`` — with every kernel's
-     launch count set to 0 just before and read just after;
-  5. each kernel's time at the main path's shape (CUDA events, inputs rotated
+  3. hold each kernel against its plain PyTorch version on the card: each
+     path's shapes plus GQA, window, ragged-S, head-dim and float32 cases;
+  4. each path in bf16 with seeded random weights: logits (and for rwkv the
+     recurrent state) on the kernel path against the plain path, then the
+     path itself — deepseek through the engine's ``generate`` and the
+     ``ContinuousServer``, rwkv through ``generate`` and ``generate_stream``
+     — with every kernel's launch count set to 0 just before and read just
+     after;
+  5. each kernel's time at its path's shape (CUDA events, inputs rotated
      through copies that span four times the L2), its bound, the plain
-     version's time and one PyTorch library call's time;
-  6. where a full-width prefill's and decode step's time goes: host wall,
-     device time by kernel (torch.profiler) and each one's bound;
+     version's time and one PyTorch library call's time where there is one;
+  6. where a full-width prefill's and decode step's time goes, per path: host
+     wall, device time by kernel (torch.profiler) and each one's bound;
   7. one JSON line with the kernels, then the last line ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -42,6 +46,18 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # probabilities to bf16 before PV, the kernels do not; over 30 bf16 layers
 # the last logits may differ by this much relative to their L2 norm
 LOGITS_REL_TOL = 5e-2
+# rwkv6-1.6b, kernel path vs plain path.  In bf16, K3's float32 sums round
+# differently by about 2e-7 (phase 3), and the bf16 casts after it turn some
+# of those into one-ulp flips (2^-8) that compound over 24 layers and a state
+# that keeps about 150 steps of memory (w0 = -5): on an H100 the logits
+# differ by about 4.6e-2 (PERF.md).  So the bf16 bar only catches a broken
+# kernel (its error is of order 1), and the sharp check is the same
+# comparison with the weights in float32, where nothing is rounded to bf16.
+RWKV_REL_TOL = {torch.bfloat16: 1e-1, torch.float32: 1e-3}
+# K3 against its plain version: float32 on both sides, sums in another order;
+# the error of the recurrence grows with the state, so it is held relative
+# to the largest magnitude of each output (o, and the final state)
+WKV_REL_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -97,16 +113,51 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float
     return err
 
 
+def check_rel(name: str, got: torch.Tensor, want: torch.Tensor, rel_tol: float) -> float:
+    """Max abs error, held to ``rel_tol`` times the largest magnitude of
+    ``want``."""
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= rel_tol * scale
+    log(f"[check] {name}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
+        f"relative={err / scale:.3e} tol={rel_tol:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def wkv_inputs(b, t, h, hd, gen, dev):
+    """r, k, v ~ N(0,1); realistic decays w = exp(-exp(randn - 2)); u and a
+    small initial state, all float32."""
+    shape = (b, t, h, hd)
+    r, k, v = (rand(shape, torch.float32, gen, dev) for _ in range(3))
+    w = torch.exp(-torch.exp(rand(shape, torch.float32, gen, dev) - 2.0))
+    u = rand((h, hd), torch.float32, gen, dev) * 0.5
+    s0 = rand((b, h, hd, hd), torch.float32, gen, dev) * 0.1
+    return r, k, v, w, u, s0
+
+
+def plain_scan(r, k, v, w, u, state, *, out_state=None):
+    """``dispatch.rwkv_scan`` through K3's plain version, on the card."""
+    from repro_torch.kernels.rwkv.ref import wkv6_ref
+
+    o, s = wkv6_ref(r, k, v, w, u, state)
+    return o, (s if out_state is None else out_state.copy_(s))
+
+
 def kernel_checks(dev) -> dict:
     """Phase 3: every kernel against its plain version.  Returns the
-    largest error at the main path's shapes, per kernel."""
+    largest error at the main paths' shapes, per kernel."""
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.attention.ref import flash_attention_ref
     from repro_torch.kernels.decode import flash_decode as fd
     from repro_torch.kernels.decode.ref import flash_decode_ref
+    from repro_torch.kernels.rwkv import wkv
+    from repro_torch.kernels.rwkv.ref import wkv6_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    main_err = {"flash_attention": 0.0, "flash_decode": 0.0}
+    main_err = {"flash_attention": 0.0, "flash_decode": 0.0, "wkv6": 0.0}
     for (b, s, h, kh, hd, win, dt, main) in [
             (4, 128, 32, 32, 128, 0, torch.bfloat16, True),   # engine prefill
             (4, 512, 32, 32, 128, 0, torch.bfloat16, True),   # server prefill
@@ -147,6 +198,26 @@ def kernel_checks(dev) -> dict:
                     flash_decode_ref(q, k, v, valid), TOL[dt])
         if main:
             main_err["flash_decode"] = max(main_err["flash_decode"], err)
+    for (b, t, h, hd, main) in [
+            (4, 100, 32, 64, True),     # the rwkv engine's prefill
+            (4, 1, 32, 64, True),       # its decode step
+            (1, 2048, 32, 64, False),   # a long prompt
+            (2, 96, 2, 32, False),
+            (1, 256, 1, 16, False),
+            (2, 128, 4, 128, False)]:
+        r, k, v, w, u, s0 = wkv_inputs(b, t, h, hd, gen, dev)
+        o, s = wkv.wkv6(r, k, v, w, u, s0)
+        want_o, want_s = wkv6_ref(r, k, v, w, u, s0)
+        errs = [check_rel(f"K3 wkv6 {(b, t, h, hd)} {what}", got, want, WKV_REL_TOL)
+                for what, got, want in (("o", o, want_o), ("final state", s, want_s))]
+        if main:
+            main_err["wkv6"] = max(main_err["wkv6"], *errs)
+    state = s0.clone()      # the last shape, the state updated in place
+    o_in, _ = wkv.wkv6(r, k, v, w, u, state, out_state=state)
+    torch.cuda.synchronize()
+    if not (torch.equal(o_in, o) and torch.equal(state, s)):
+        raise SystemExit("K3 wkv6: the in-place state differs from a separate one")
+    log("[check] K3 wkv6 in place over s0 equals a separate state buffer: ok")
     return main_err
 
 
@@ -223,14 +294,103 @@ def main_path(eng, cfg, dev) -> dict:
     return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s}
 
 
+def rwkv_engine(cfg, dev):
+    """The rwkv engine on seeded weights, with each layer's time-mix output
+    projection ``wo`` drawn anew from N(0, 1/d).  The model's own init
+    draws ``wo`` at scale 0, and then the whole WKV branch — K3 included —
+    adds exactly nothing to the logits, so no check of the logits would
+    see K3."""
+    from repro_torch.serving.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, seed=0, max_cache=256)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for lp in eng.params["layers"]:
+        lp["tmix"]["wo"]["w"] = (rand((cfg.d_model, cfg.d_model), torch.float32, gen, dev)
+                                 * cfg.d_model ** -0.5).to(cfg.pdt)
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{eng.stats()['params'] / 1e9:.3f} B params {cfg.param_dtype}, seeded init "
+        f"with wo redrawn {time.perf_counter() - t0:.1f} s")
+    return eng
+
+
+def to_float32(tree):
+    if isinstance(tree, dict):
+        return {k: to_float32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_float32(v) for v in tree]
+    return tree.float()
+
+
+def rwkv_logits_check(params, cfg, dev) -> None:
+    """Phase 4a for rwkv: a full-width prefill of 100 tokens and one decode
+    step, kernel path against plain path on the same weights and tokens;
+    the logits and the wkv state after each, held to ``RWKV_REL_TOL`` of
+    the compute dtype."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import api
+
+    tol = RWKV_REL_TOL[cfg.cdt]
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 100), generator=gen, device=dev)
+    nxt = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device=dev)
+
+    def run():
+        last, state = api.prefill(params, {"tokens": tokens}, cfg)
+        wkv_prefill = state["wkv"].clone()
+        step, state = api.decode_step(params, state, nxt, 100, cfg)
+        return last.float(), wkv_prefill, step.float(), state["wkv"]
+
+    kern = run()
+    with mock.patch.object(dispatch, "rwkv_scan", plain_scan):
+        plain = run()
+    for what, a, b in zip(("prefill last logits", "wkv state after prefill",
+                           "decode-step logits", "wkv state after decode"), kern, plain):
+        rel = ((a - b).norm() / b.norm()).item()
+        agree = ""
+        if "logits" in what:
+            agree = f" argmax agreement={(a.argmax(-1) == b.argmax(-1)).float().mean().item():.2f}"
+        log(f"[model] {cfg.name} {cfg.compute_dtype} {what} {tuple(a.shape)}: kernel vs "
+            f"plain rel_l2={rel:.3e} (tol {tol:g}) max_abs={(a - b).abs().max().item():.3e}"
+            f"{agree}")
+        if not torch.isfinite(a).all() or rel > tol:
+            raise SystemExit(f"full-width {cfg.name} {cfg.compute_dtype} {what}: kernel "
+                             "path disagrees with plain path")
+
+
+def rwkv_main_path(eng, cfg) -> dict:
+    """Phase 4b for rwkv: the engine at batch 4, prompt 100 (exact, no
+    bucket), 32 new tokens, through ``generate`` twice and ``generate_stream``."""
+    gen = torch.Generator().manual_seed(8)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 100), generator=gen)
+    first = eng.generate(prompts, 32)
+    res = eng.generate(prompts, 32)
+    toks = res.tokens
+    if toks.shape != (4, 32) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise SystemExit(f"{cfg.name} generate: bad tokens {toks.shape}")
+    if not torch.equal(first.tokens, toks):
+        raise SystemExit(f"{cfg.name} generate: two greedy runs on the same prompts differ")
+    stream = eng.generate_stream(prompts, 32)
+    if not torch.equal(stream.tokens, toks):
+        raise SystemExit(f"{cfg.name}: generate_stream's tokens differ from generate's")
+    log(f"[engine] {cfg.name} generate batch 4, prompt 100 (exact), 32 new: prefill "
+        f"{res.prefill_s * 1e3:.3f} ms, decode {res.decode_s * 1e3:.3f} ms, "
+        f"{res.tokens_per_s:.1f} tok/s; generate_stream equal, "
+        f"{stream.tokens_per_s:.1f} tok/s")
+    return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s}
+
+
 def timings(dev) -> dict:
-    """Phase 5: each kernel at the main path's shape."""
+    """Phase 5: each kernel at its path's shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.attention.ref import flash_attention_ref
     from repro_torch.kernels.decode import flash_decode as fd
     from repro_torch.kernels.decode.ref import flash_decode_ref
+    from repro_torch.kernels.rwkv import wkv
 
     gen = torch.Generator(device=dev).manual_seed(4)
     dt, out = torch.bfloat16, {}
@@ -268,65 +428,94 @@ def timings(dev) -> dict:
         library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             *bhsd(q, k, v), attn_mask=mask), sets),
         bound=bound(nbytes, flops, dt))
+
+    # K3 at the rwkv engine's prefill (the row) and decode-step shapes, the
+    # state updated in place as the model does; no PyTorch call computes the
+    # WKV recurrence, so there is no library time
+    for tag, (b, t, h, hd) in (("", (4, 100, 32, 64)), ("decode", (4, 1, 32, 64))):
+        seq_bytes, state_bytes = 4 * b * t * h * hd, 4 * b * h * hd * hd
+        # r, k, v, w in and o out; u in; the state in and out
+        nbytes = 5 * seq_bytes + 4 * h * hd + 2 * state_bytes
+        flops = 7 * hd * hd * b * t * h        # per (i, j): kv, u*kv, +, r*, sum, w*S, +kv
+        sets = cold_copies(lambda: wkv_inputs(b, t, h, hd, gen, dev),
+                           4 * seq_bytes + state_bytes)
+        out["wkv6" + (f" {tag}" if tag else "")] = dict(
+            shape=f"r/k/v/w {(b, t, h, hd)} float32, state in place",
+            ms=time_ms(lambda r, k, v, w, u, s0: wkv.wkv6(r, k, v, w, u, s0, out_state=s0),
+                       sets),
+            plain_ms=time_ms(lambda r, k, v, w, u, s0: plain_scan(r, k, v, w, u, s0,
+                                                                   out_state=s0), sets),
+            library_ms=None, bound=bound(nbytes, flops, torch.float32))
     return out
 
 
-def breakdown(eng, cfg, dev) -> None:
-    """Phase 6: where the engine's time goes at full width, for a prefill
-    (batch 4, bucket 128) and for a decode step (batch 4, 100..115 cached
-    positions): the host wall, the device time by kernel from
-    torch.profiler, and the least time the card could take (every weight
-    but the embedding table read once, the cache read or written once, the
-    matrix products at the bf16 peak)."""
+def profiled(tag, setup, body, n, nbytes, flops, watch=()) -> None:
+    """Host wall of ``body(setup())`` per one of its ``n`` calls, then its
+    device time by kernel from torch.profiler, beside the bound: the ten
+    largest kernels, and any kernel whose name holds a string of ``watch``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models.common import count_params, param_bytes
-
-    gen = torch.Generator(device=dev).manual_seed(5)
-    b, s, last = 4, 128, 99
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
-    table = eng.params["embed"]["embedding"]
-    w_bytes = param_bytes(eng.params) - table.numel() * table.element_size()
-    layer_params = count_params(eng.params["layers"])
-    head_params = count_params(eng.params["embed"]) - table.numel()
-    kv_row = 2 * cfg.num_layers * cfg.kv_dim * 2       # k and v of one position, bf16
-
-    def profiled(tag, setup, body, n, nbytes, flops) -> None:
-        def once(around=contextlib.nullcontext()) -> float:
-            state = setup()
+    def once(around=contextlib.nullcontext()) -> float:
+        state = setup()
+        torch.cuda.synchronize()
+        with around:
+            t0 = time.perf_counter()
+            body(state)
             torch.cuda.synchronize()
-            with around:
-                t0 = time.perf_counter()
-                body(state)
-                torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / n * 1e3
+        return (time.perf_counter() - t0) / n * 1e3
 
-        once()
-        wall_ms = once()
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        once(prof)
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
-        bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
-        log(f"[{tag}] host wall {wall_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by})")
-        if device_ms == 0:
-            log(f"[{tag}] device time: not measured (the trace holds no device time)")
-            return
-        log(f"[{tag}] device time {device_ms:.3f} ms, busy share of the host wall "
-            f"{device_ms / wall_ms:.3f}; by kernel, per call:")
-        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+    once()
+    wall_ms = once()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    once(prof)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
+    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+    log(f"[{tag}] host wall {wall_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by})")
+    if device_ms == 0:
+        log(f"[{tag}] device time: not measured (the trace holds no device time)")
+        return
+    log(f"[{tag}] device time {device_ms:.3f} ms, busy share of the host wall "
+        f"{device_ms / wall_ms:.3f}; by kernel, per call:")
+    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < 10 or any(w in e.key for w in watch):
             log(f"[{tag}]   {e.self_device_time_total / 1e3 / n:8.4f} ms  "
                 f"{e.count / n:6.1f} launches  {e.key[:90]}")
 
+
+def weight_counts(params) -> tuple[int, int, int]:
+    """(bytes of every weight but the embedding table, layer params, head
+    params): what a step reads, and what its matrix products multiply."""
+    from repro_torch.models.common import count_params, param_bytes
+
+    table = params["embed"]["embedding"]
+    return (param_bytes(params) - table.numel() * table.element_size(),
+            count_params(params["layers"]), count_params(params["embed"]) - table.numel())
+
+
+def breakdown(eng, cfg, dev) -> None:
+    """Phase 6 for deepseek: where the engine's time goes at full width, for
+    a prefill (batch 4, bucket 128) and for a decode step (batch 4, 100..115
+    cached positions): the host wall, the device time by kernel from
+    torch.profiler, and the least time the card could take (every weight
+    but the embedding table read once, the cache read or written once, the
+    matrix products at the bf16 peak)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, s, last = 4, 128, 99
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    w_bytes, layer_params, head_params = weight_counts(eng.params)
+    kv_row = 2 * cfg.num_layers * cfg.kv_dim * 2       # k and v of one position, bf16
+
     def prefills(_):
         for _ in range(4):
-            eng._prefill(tokens, last)
+            eng._prefill(tokens, last, eng.max_cache)
 
     attn_flops = 4 * cfg.num_layers * cfg.q_dim * b * s * (s + 1) // 2
     profiled("prefill", lambda: None, prefills, 4,
              w_bytes + kv_row * b * s,
-             2 * layer_params * b * s + 2 * head_params * b + attn_flops)
+             2 * layer_params * b * s + 2 * head_params * b + attn_flops, ("flash_fwd",))
 
     n = 16
 
@@ -337,9 +526,44 @@ def breakdown(eng, cfg, dev) -> None:
             logits, cache = eng._decode(cache, tok, last + 1 + i)
             tok = logits.argmax(-1)
 
-    profiled("decode", lambda: eng._prefill(tokens, last), decode, n,
+    profiled("decode", lambda: eng._prefill(tokens, last, eng.max_cache), decode, n,
              w_bytes + kv_row * b * (last + 1 + n // 2),
-             2 * (layer_params + head_params) * b)
+             2 * (layer_params + head_params) * b, ("decode_split", "decode_combine"))
+
+
+def rwkv_breakdown(eng, cfg, dev) -> None:
+    """Phase 6 for rwkv: a full-width prefill (batch 4, 100 tokens, exact)
+    and a decode step (batch 4).  Bound: every weight but the embedding
+    table read once, the recurrent state written (prefill) or read and
+    written (decode) once, the matrix products at the bf16 peak and K3's
+    operations."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, s = 4, 100
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    w_bytes, layer_params, head_params = weight_counts(eng.params)
+    hd = cfg.d_model // cfg.num_heads
+    state_bytes = cfg.num_layers * b * (cfg.num_heads * hd * hd * 4 + 2 * cfg.d_model * 2)
+    wkv_flops = 7 * hd * cfg.d_model * cfg.num_layers * b   # per token, K3
+
+    def prefills(_):
+        for _ in range(4):
+            eng._prefill(tokens, None, s)
+
+    profiled("rwkv prefill", lambda: None, prefills, 4, w_bytes + state_bytes,
+             (2 * layer_params + wkv_flops) * b * s + 2 * head_params * b, ("wkv6_kernel",))
+
+    n = 16
+
+    def decode(state):
+        logits, cache = state
+        tok = logits.argmax(-1)
+        for i in range(n):
+            logits, cache = eng._decode(cache, tok, s + i)
+            tok = logits.argmax(-1)
+
+    profiled("rwkv decode", lambda: eng._prefill(tokens, None, s), decode, n,
+             w_bytes + 2 * state_bytes, (2 * (layer_params + head_params) + wkv_flops) * b,
+             ("wkv6_kernel",))
 
 
 def main() -> int:
@@ -352,6 +576,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.rwkv import wkv
     from repro_torch.serving.engine import InferenceEngine
 
     dev = torch.device("cuda")
@@ -378,32 +603,51 @@ def main() -> int:
         f"seeded init {time.perf_counter() - t0:.1f} s")
     logits_check(eng, cfg, dev)
 
-    flash.launches = fd.launches = 0
+    flash.launches = fd.launches = wkv.launches = 0
     e2e = main_path(eng, cfg, dev)
     launches = {"flash_attention": flash.launches, "flash_decode": fd.launches}
-    log(f"[kernels] launches on the main path: {launches}")
+    log(f"[kernels] launches on the {cfg.name} path: {launches}, wkv6 {wkv.launches}")
     if min(launches.values()) == 0:
-        raise SystemExit(f"a kernel of the main path never launched: {launches}")
+        raise SystemExit(f"a kernel of the {cfg.name} path never launched: {launches}")
+
+    rcfg = get("rwkv6-1.6b").config
+    reng = rwkv_engine(rcfg, dev)
+    rwkv_logits_check(reng.params, rcfg, dev)
+    rwkv_logits_check(to_float32(reng.params),
+                      rcfg.replace(param_dtype="float32", compute_dtype="float32"), dev)
+    flash.launches = fd.launches = wkv.launches = 0
+    rwkv_e2e = rwkv_main_path(reng, rcfg)
+    launches["wkv6"] = wkv.launches
+    log(f"[kernels] launches on the {rcfg.name} path: wkv6 {wkv.launches}, "
+        f"flash_attention {flash.launches}, flash_decode {fd.launches}")
+    if wkv.launches == 0:
+        raise SystemExit(f"K3 never launched on the {rcfg.name} path")
     log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     times = timings(dev)
     meta = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/attention/flash.py:69"),
             "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
-                             "src/repro/kernels/decode/flash_decode.py:62")}
+                             "src/repro/kernels/decode/flash_decode.py:62"),
+            "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv/wkv.py:57")}
     rows = []
     for name, t in times.items():
         bound_ms, bound_by = t["bound"]
+        library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         log(f"[time] {name} at {t['shape']}: {t['ms']:.4f} ms; bound {bound_ms:.4f} ms "
-            f"({bound_by}); plain {t['plain_ms']:.4f} ms; library {t['library_ms']:.4f} ms")
-        rows.append({"name": name, "route": "cuda", "source": meta[name][0],
-                     "replaces": meta[name][1], "launches": launches[name],
-                     "max_abs_err": main_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": t["library_ms"]})
+            f"({bound_by}); plain {t['plain_ms']:.4f} ms; library {library}")
+        if name in meta:
+            rows.append({"name": name, "route": "cuda", "source": meta[name][0],
+                         "replaces": meta[name][1], "launches": launches[name],
+                         "max_abs_err": main_err[name], "ms": t["ms"],
+                         "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": t["library_ms"]})
     breakdown(eng, cfg, dev)
-    log(f"[engine] full width: prefill {e2e['prefill_ms']:.3f} ms, "
-        f"decode {e2e['decode_tok_s']:.1f} tok/s ({card})")
+    del eng
+    rwkv_breakdown(reng, rcfg, dev)
+    for name, r in ((cfg.name, e2e), (rcfg.name, rwkv_e2e)):
+        log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms, "
+            f"decode {r['decode_tok_s']:.1f} tok/s ({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
         --requests 8 [--smoke] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --requests 8 [--smoke] [--device cpu]
 
 The counterpart of ``repro.launch.serve``; its ``--serverless`` run through
 the platform simulator is not ported yet (ROADMAP.md Queue 1).

@@ -5,14 +5,14 @@ Every family module exposes:
     prefill(params, tokens, cfg, cache_len, last_pos=, cache=) -> (last_logits, cache)
     decode_step(params, cache, token, pos, cfg) -> (logits, cache)
     init_cache(cfg, batch, seq, dtype, device)
-Only the dense family is ported so far.
+The dense and ssm (RWKV-6) families are ported so far.
 """
 from __future__ import annotations
 
-from . import transformer
+from . import ssm, transformer
 from .common import ModelConfig
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "ssm": ssm}
 
 
 def module_for(cfg: ModelConfig):
@@ -30,7 +30,10 @@ def prefill(params, inputs, cfg: ModelConfig, cache_len: int | None = None,
             last_pos=None, cache: dict | None = None):
     """``last_pos`` (int or (B,) int tensor) selects which position's logits
     to return — the bucketed-prefill hook (right-padded prompts read their
-    real last token, not the pad tail)."""
+    real last token, not the pad tail).  Only the dense family takes it: a
+    recurrent state is length-sensitive, so ssm callers keep exact-length
+    prompts and ssm's prefill refuses a ``last_pos``.  ``cache`` is a
+    preallocated cache (or recurrent state) written in place."""
     return module_for(cfg).prefill(params, inputs["tokens"], cfg, cache_len,
                                    last_pos=last_pos, cache=cache)
 

@@ -1,10 +1,14 @@
 """Weights bridge: the reference's parameter tree -> the port's.
 
-The reference tree (``repro.models.transformer.init_params``) is nested dicts
-of arrays whose layer params are stacked on a leading axis of length
-``num_layers`` (built by ``vmap``).  The caller hands it over as numpy arrays
+The reference trees (``repro.models.transformer.init_params`` for the dense
+family, ``repro.models.ssm.init_params`` for RWKV-6) are nested dicts of
+arrays whose layer params are stacked on a leading axis of length
+``num_layers`` (built by ``vmap``).  The caller hands one over as numpy arrays
 (this module imports neither JAX nor the reference); the converter unstacks
-the layers into a list of per-layer dicts and keeps every other key.
+the layers into a list of per-layer dicts and keeps every other key (the
+dense tree's ``embed`` and ``final_norm``, and the ssm tree's ``ln_in`` too).
+Every leaf keeps its dtype: RWKV-6's ``u`` and ``w0`` stay float32 in a
+bfloat16 tree.
 
 Dense weights stay ``(d_in, d_out)`` and the port applies them as ``x @ w``,
 as the reference does, so nothing is transposed.  bfloat16 arrays (numpy's
@@ -39,17 +43,15 @@ def _layer(tree, i: int):
 
 
 def from_reference(np_params: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """np_params: the reference dense param tree with numpy leaves."""
-    if cfg.is_moe or cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: only the dense family is ported "
-                                  "(ROADMAP.md Queue 1)")
+    """np_params: the reference dense or ssm param tree with numpy leaves."""
+    if cfg.is_moe or cfg.family not in ("dense", "ssm"):
+        raise NotImplementedError(f"{cfg.name}: only the dense and ssm families are "
+                                  "ported (ROADMAP.md Queue 1)")
     dev = resolve_device(device)
     layers = np_params["layers"]
     n = len(layers["ln1"]["scale"])
     if n != cfg.num_layers:
         raise ValueError(f"the tree has {n} layers, {cfg.name} has {cfg.num_layers}")
-    return {
-        "embed": _convert(np_params["embed"], dev),
-        "layers": [_convert(_layer(layers, i), dev) for i in range(n)],
-        "final_norm": _convert(np_params["final_norm"], dev),
-    }
+    out = {k: _convert(v, dev) for k, v in np_params.items() if k != "layers"}
+    out["layers"] = [_convert(_layer(layers, i), dev) for i in range(n)]
+    return out

@@ -1,0 +1,241 @@
+"""RWKV-6 "Finch" — attention-free RNN with data-dependent decay (arXiv:2404.05892).
+
+Per layer: a *time-mix* block (data-dependent token-shift "ddlerp", per-channel
+data-dependent decay ``w_t = exp(-exp(w0 + lora(x)))``, WKV matrix-state
+recurrence with bonus ``u``) and a *channel-mix* block (shifted squared-relu
+MLP).  The recurrent state is O(1) in sequence length.
+
+Recurrence (per head, key-dim i, value-dim j):
+    o_t[j] = sum_i r_t[i] * (S[i,j] + u[i] * k_t[i] * v_t[j])
+    S      = diag(w_t) @ S + k_t (outer) v_t
+It goes through ``repro_torch.kernels.dispatch.rwkv_scan``: the Hopper WKV-6
+kernel on CUDA tensors, its plain version (``kernels/rwkv/ref.py``) on CPU
+tensors.
+
+The reference scans the stacked layers; here the layer stack is a list of
+per-layer param dicts walked by a Python loop.  The state keeps the reference
+layout, a dict of (L,B,...) tensors, and a state handed to ``forward`` or
+``decode_step`` is updated in place (the counterpart of the reference's
+donated cache).  Training waits for the training slice (ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import dispatch
+from .common import ModelConfig, apply_norm, dense, dense_init, norm_init
+from .layers import embed, embed_init, unembed
+
+MIX_KEYS = ("r", "k", "v", "w", "g")
+PREFILL_CHUNK = 8192
+GROUP_NORM_EPS = 64e-5
+
+
+# ----------------------------------------------------------------------
+# init
+# ----------------------------------------------------------------------
+
+def _tmix_init(generator, cfg: ModelConfig, device) -> dict:
+    d, pdt = cfg.d_model, cfg.pdt
+    h = cfg.num_heads
+    hd = d // h
+    lora, dl = cfg.rwkv_mix_lora, cfg.rwkv_decay_lora
+    mix_w1 = dense_init(generator, d, 5 * lora, pdt, device)["w"].reshape(d, 5, lora)
+    mix_w2 = dense_init(generator, lora, d, pdt, device, scale=0.01)["w"]
+    return {
+        "mu_x": torch.full((d,), 0.5, dtype=pdt, device=device),
+        "mu": torch.full((5, d), 0.5, dtype=pdt, device=device),
+        "mix_w1": mix_w1,
+        "mix_w2": mix_w2[None].repeat(5, 1, 1),   # one draw for all five
+        "w0": torch.full((d,), -5.0, dtype=torch.float32, device=device),
+        "decay_w1": dense_init(generator, d, dl, pdt, device)["w"],
+        "decay_w2": dense_init(generator, dl, d, pdt, device, scale=0.01)["w"],
+        "u": torch.full((h, hd), 0.5, dtype=torch.float32, device=device),
+        "wr": dense_init(generator, d, d, pdt, device),
+        "wk": dense_init(generator, d, d, pdt, device),
+        "wv": dense_init(generator, d, d, pdt, device),
+        "wg": dense_init(generator, d, d, pdt, device),
+        "wo": dense_init(generator, d, d, pdt, device, scale=0.0),
+        "gn": norm_init(d, "layernorm", pdt, device),   # per-head group norm
+    }
+
+
+def _cmix_init(generator, cfg: ModelConfig, device) -> dict:
+    d, f, pdt = cfg.d_model, cfg.d_ff, cfg.pdt
+    return {
+        "mu_k": torch.full((d,), 0.5, dtype=pdt, device=device),
+        "mu_r": torch.full((d,), 0.5, dtype=pdt, device=device),
+        "wk": dense_init(generator, d, f, pdt, device),
+        "wv": dense_init(generator, f, d, pdt, device),
+        "wr": dense_init(generator, d, d, pdt, device),
+    }
+
+
+def layer_init(generator, cfg: ModelConfig, device) -> dict:
+    return {
+        "ln1": norm_init(cfg.d_model, "layernorm", cfg.pdt, device),
+        "ln2": norm_init(cfg.d_model, "layernorm", cfg.pdt, device),
+        "tmix": _tmix_init(generator, cfg, device),
+        "cmix": _cmix_init(generator, cfg, device),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Random weights with the reference's distributions (``wo`` included,
+    drawn at scale 0), from ``generator`` (torch's draws, not JAX's)."""
+    return {
+        "embed": embed_init(generator, cfg, device),
+        "ln_in": norm_init(cfg.d_model, "layernorm", cfg.pdt, device),
+        "layers": [layer_init(generator, cfg, device) for _ in range(cfg.num_layers)],
+        "final_norm": norm_init(cfg.d_model, "layernorm", cfg.pdt, device),
+    }
+
+
+# ----------------------------------------------------------------------
+# blocks
+# ----------------------------------------------------------------------
+
+def _shift(x, prev):
+    """x: (B,T,d), prev: (B,d) -> x shifted right by one with prev injected."""
+    return torch.cat([prev[:, None], x[:, :-1]], dim=1)
+
+
+def _ddlerp(p, x, xprev, cfg):
+    """Data-dependent token-shift: returns dict of mixed inputs for r,k,v,w,g."""
+    delta = xprev - x
+    xx = x + delta * p["mu_x"].to(x.dtype)
+    stacked = torch.tanh(torch.einsum("btd,dfl->fbtl", xx, p["mix_w1"].to(x.dtype)))
+    adj = torch.einsum("fbtl,fld->fbtd", stacked, p["mix_w2"].to(x.dtype))
+    return {key: x + delta * (p["mu"][i].to(x.dtype) + adj[i])
+            for i, key in enumerate(MIX_KEYS)}
+
+
+def time_mix(p, x, state_wkv, shift_prev, cfg: ModelConfig, *, out_state=None):
+    """x: (B,T,d).  Returns (out, new_wkv_state, new_shift (B,d)); the new
+    wkv state is written into ``out_state`` when given (it may be
+    ``state_wkv``: the kernel updates the state in place)."""
+    b, t, d = x.shape
+    h = cfg.num_heads
+    hd = d // h
+    xprev = _shift(x, shift_prev)
+    m = _ddlerp(p, x, xprev, cfg)
+    r = dense(p["wr"], m["r"]).reshape(b, t, h, hd).float()
+    k = dense(p["wk"], m["k"]).reshape(b, t, h, hd).float()
+    v = dense(p["wv"], m["v"]).reshape(b, t, h, hd).float()
+    g = F.silu(dense(p["wg"], m["g"]))
+    dec = p["w0"] + torch.tanh(m["w"].float() @ p["decay_w1"].float()) \
+        @ p["decay_w2"].float()
+    w = torch.exp(-torch.exp(dec)).reshape(b, t, h, hd)          # (0,1) decay
+    o, state_wkv = dispatch.rwkv_scan(r, k, v, w, p["u"].float(), state_wkv,
+                                      out_state=out_state)
+    # per-head group norm, population variance
+    mu = o.mean(-1, keepdim=True)
+    var = o.var(-1, keepdim=True, unbiased=False)
+    o = (o - mu) * torch.rsqrt(var + GROUP_NORM_EPS)
+    o = o.reshape(b, t, d) * p["gn"]["scale"].float() + p["gn"]["bias"].float()
+    out = dense(p["wo"], o.to(x.dtype) * g)
+    return out, state_wkv, x[:, -1]
+
+
+def channel_mix(p, x, shift_prev, cfg: ModelConfig):
+    xprev = _shift(x, shift_prev)
+    xk = x + (xprev - x) * p["mu_k"].to(x.dtype)
+    xr = x + (xprev - x) * p["mu_r"].to(x.dtype)
+    k = torch.square(F.relu(dense(p["wk"], xk)))
+    kv = dense(p["wv"], k)
+    return torch.sigmoid(dense(p["wr"], xr)) * kv, x[:, -1]
+
+
+def _layer(x, lp, state, cfg: ModelConfig):
+    """One layer; ``state`` holds this layer's (B,...) views of the stacked
+    state, which are updated in place.  -> x."""
+    h = apply_norm(lp["ln1"], x, "layernorm")
+    a, _, sh_t = time_mix(lp["tmix"], h, state["wkv"], state["shift_t"], cfg,
+                          out_state=state["wkv"])
+    x = x + a
+    h = apply_norm(lp["ln2"], x, "layernorm")
+    c, sh_c = channel_mix(lp["cmix"], h, state["shift_c"], cfg)
+    state["shift_t"].copy_(sh_t)
+    state["shift_c"].copy_(sh_c)
+    return x + c
+
+
+# ----------------------------------------------------------------------
+# public API (mirrors transformer.py)
+# ----------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int = 0, dtype=None,
+               device="cpu") -> dict:
+    """RWKV 'cache' = recurrent state; O(1) in seq (seq arg ignored)."""
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h
+    sdt = dtype or cfg.cdt
+    return {
+        "wkv": torch.zeros((cfg.num_layers, batch, h, hd, hd), dtype=torch.float32,
+                           device=device),
+        "shift_t": torch.zeros((cfg.num_layers, batch, d), dtype=sdt, device=device),
+        "shift_c": torch.zeros((cfg.num_layers, batch, d), dtype=sdt, device=device),
+    }
+
+
+def _hidden(params, tokens, cfg: ModelConfig, state: dict):
+    """The layer stack over tokens (B,T), carrying ``state`` in place.
+    -> final hidden states before the norm."""
+    x = embed(params["embed"], tokens, cfg).to(cfg.cdt)
+    x = apply_norm(params["ln_in"], x, "layernorm")
+    for i, lp in enumerate(params["layers"]):
+        x = _layer(x, lp, {n: s[i] for n, s in state.items()}, cfg)
+    return x
+
+
+def forward(params, tokens, cfg: ModelConfig, *, state=None, return_state: bool = False):
+    """tokens: (B,T) int.  -> (logits (B,T,V), aux 0), or (logits, state)
+    with ``return_state``.  A given ``state`` is updated in place."""
+    if state is None:
+        state = init_cache(cfg, tokens.shape[0], device=tokens.device)
+    x = _hidden(params, tokens, cfg, state)
+    x = apply_norm(params["final_norm"], x, "layernorm")
+    logits = unembed(params["embed"], x, cfg)
+    if return_state:
+        return logits, state
+    return logits, torch.zeros((), device=x.device)
+
+
+def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None, *,
+            last_pos=None, cache: dict | None = None, chunk: int = PREFILL_CHUNK):
+    """Returns (last_logits (B,V), state).  ``cache_len`` is ignored (the
+    state is O(1) in length).
+
+    ``cache``, when given, is a preallocated state that is reset to zero and
+    then carried through the prompt in place; otherwise a new one is made.
+    A prompt over ``chunk`` tokens that is a multiple of it runs chunk by
+    chunk with the state carried between them (exact; only the per-chunk
+    activations shrink).  Only the last position is normed and unembedded.
+    ``last_pos`` must be None: pad tokens would advance the recurrent
+    state, so callers keep exact-length prompts."""
+    if last_pos is not None:
+        raise ValueError(f"{cfg.name}: a recurrent state is length-sensitive; "
+                         "prefill takes exact-length prompts (last_pos=None)")
+    b, s = tokens.shape
+    if cache is None:
+        cache = init_cache(cfg, b, device=tokens.device)
+    else:
+        if cache["wkv"].shape[1] != b:
+            raise ValueError(f"the state holds {cache['wkv'].shape[1]} rows, "
+                             f"the prompt {b}")
+        for t in cache.values():
+            t.zero_()
+    pieces = tokens.split(chunk, dim=1) if s > chunk and s % chunk == 0 else (tokens,)
+    for piece in pieces:
+        x = _hidden(params, piece, cfg, cache)
+    last = apply_norm(params["final_norm"], x[:, -1], "layernorm")
+    return unembed(params["embed"], last, cfg), cache
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig):
+    """token: (B,) int.  ``pos`` is ignored (stateful recurrence); kept for
+    interface parity.  -> (logits (B,V), cache), updated in place."""
+    x = _hidden(params, token[:, None], cfg, cache)
+    x = apply_norm(params["final_norm"], x, "layernorm")
+    return unembed(params["embed"], x, cfg)[:, 0], cache

@@ -59,6 +59,9 @@ class ContinuousServer:
                  seed: int = 0, params: dict | None = None, device="cuda"):
         """``params`` (converted reference weights, or an engine's) replaces
         the seeded random draw."""
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"{cfg.name}: continuous batching drives the transformer "
+                             f"KV-cache layout, not the {cfg.family!r} family's state")
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq

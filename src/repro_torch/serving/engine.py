@@ -1,13 +1,16 @@
 """InferenceEngine: the model-serving runtime, on the card.
 
-Wraps the dense family behind a bucketed prefill and an eager decode loop.
-Prompt lengths are bucketed to powers of two, so the number of distinct
-prefill shapes grows with the number of buckets, not of prompt lengths
-(``compile_stats`` counts them, as the reference counts its jit caches).  The
-KV cache is preallocated at ``max_cache`` positions and updated in place (the
-counterpart of the reference's donated cache).  Decode samples on the device
-and syncs with the host once, at the end; ``generate_stream`` is the
-per-token loop with a sync per token, for per-token latency.
+Wraps the ported families (dense, and ssm: RWKV-6) behind a prefill and an
+eager decode loop.  Dense prompt lengths are bucketed to powers of two, so the
+number of distinct prefill shapes grows with the number of buckets, not of
+prompt lengths; recurrent (ssm) prompts keep their exact length, since pad
+tokens would advance the state (``compile_stats`` counts the shapes, as the
+reference counts its jit caches).  The family's cache (a KV cache of
+``max_cache`` positions, or the recurrent state) is preallocated, reused while
+the batch size holds and updated in place (the counterpart of the
+reference's donated cache).  Decode samples on the device and syncs with the
+host once, at the end; ``generate_stream`` is the per-token loop with a sync
+per token, for per-token latency.
 """
 from __future__ import annotations
 
@@ -53,38 +56,39 @@ class InferenceEngine:
         self.params = params
         synchronize(self.device)
         self.load_s = time.perf_counter() - t0
-        self._cache = None   # (L,B,max_cache,K,hd), reused while B holds
+        self._cache = None   # the family's cache at batch B, reused while B holds
         self._shapes = {"prefill": set(), "decode": set(), "decode_scan": set()}
         self.compiled = False
         self.compile_s = 0.0
 
     # ------------------------------------------------------------------
     def _cache_for(self, batch: int) -> dict:
-        if self._cache is None or self._cache["k"].shape[1] != batch:
+        """The preallocated cache (every family keeps the batch on axis 1)."""
+        if self._cache is None or next(iter(self._cache.values())).shape[1] != batch:
             self._cache = None   # free the old one before allocating
             self._cache = api.init_cache(self.cfg, batch, self.max_cache,
                                          device=self.device)
         return self._cache
 
-    def _prefill(self, tokens, last_pos):
+    def _prefill(self, tokens, last_pos, cache_len: int):
         b, s = tokens.shape
-        self._shapes["prefill"].add((b, s, last_pos is None))
-        return api.prefill(self.params, {"tokens": tokens}, self.cfg,
-                           self.max_cache, last_pos=last_pos,
-                           cache=self._cache_for(b))
+        self._shapes["prefill"].add((b, s, cache_len, last_pos is None))
+        return api.prefill(self.params, {"tokens": tokens}, self.cfg, cache_len,
+                           last_pos=last_pos, cache=self._cache_for(b))
 
     def _decode(self, cache, token, pos: int):
         return api.decode_step(self.params, cache, token, pos, self.cfg)
 
     def _prompt(self, tokens, n_new: int):
-        """The prompt on the device, right-padded to its bucket, and the
-        position whose logits are the last token's (None: the last)."""
+        """The prompt on the device, right-padded to its bucket, the
+        position whose logits are the last token's (None: the last), and
+        the cache length."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         s = tokens.shape[1]
-        s_pad, _ = self._prefill_shapes(s, n_new)
+        s_pad, cache_len = self._prefill_shapes(s, n_new)
         if s_pad > s:
             tokens = F.pad(tokens, (0, s_pad - s))
-        return tokens, (s - 1 if s_pad > s else None)
+        return tokens, (s - 1 if s_pad > s else None), cache_len
 
     # ------------------------------------------------------------------
     def warmup(self, batch: int, prompt_len: int):
@@ -92,7 +96,7 @@ class InferenceEngine:
         — the modern 'cold start'."""
         t0 = time.perf_counter()
         tokens = torch.zeros((batch, prompt_len), dtype=torch.long, device=self.device)
-        _, cache = self._prefill(tokens, None)
+        _, cache = self._prefill(tokens, None, self.max_cache)
         self._shapes["decode"].add(batch)
         self._decode(cache, torch.zeros((batch,), dtype=torch.long, device=self.device),
                      prompt_len)
@@ -102,21 +106,27 @@ class InferenceEngine:
         return self.compile_s
 
     def _prefill_shapes(self, s: int, n_new: int) -> tuple:
-        """(padded_prompt_len, cache_len) — the shape policy of the dense
-        family: prompts pad to a power-of-two bucket and the cache is always
-        ``max_cache``, so shapes vary per bucket, not per (s, n_new)."""
-        return min(bucket_len(s), self.max_cache), self.max_cache
+        """(padded_prompt_len, cache_len) — the shape policy.
+
+        dense: prompts pad to a power-of-two bucket and the cache is always
+        ``max_cache``, so shapes vary per bucket, not per (s, n_new).
+        ssm: exact prompt lengths (pad tokens would advance the recurrent
+        state) and the reference's cache length, which the O(1) state
+        ignores but the reference's prefill jit is keyed on."""
+        if self.cfg.family == "dense":
+            return min(bucket_len(s), self.max_cache), self.max_cache
+        return s, min(self.max_cache, s + n_new)
 
     # ------------------------------------------------------------------
     def generate(self, tokens, n_new: int, *, temperature: float = 0.0,
                  seed: int = 0) -> GenerateResult:
         """tokens: (B, S) prompt (tensor, array or nested list).  Greedy or
         temperature decoding of n_new tokens; one host sync for the decode."""
-        tokens, last_pos = self._prompt(tokens, n_new)
+        tokens, last_pos, cache_len = self._prompt(tokens, n_new)
         b = tokens.shape[0]
         s = tokens.shape[1] if last_pos is None else last_pos + 1
         t0 = time.perf_counter()
-        logits, cache = self._prefill(tokens, last_pos)
+        logits, cache = self._prefill(tokens, last_pos, cache_len)
         synchronize(self.device)
         prefill_s = time.perf_counter() - t0
 
@@ -141,11 +151,11 @@ class InferenceEngine:
                         seed: int = 0) -> GenerateResult:
         """Per-token decoding: one host sync per token, for per-token
         latency.  Emits the same tokens as ``generate``."""
-        tokens, last_pos = self._prompt(tokens, n_new)
+        tokens, last_pos, cache_len = self._prompt(tokens, n_new)
         b = tokens.shape[0]
         s = tokens.shape[1] if last_pos is None else last_pos + 1
         t0 = time.perf_counter()
-        logits, cache = self._prefill(tokens, last_pos)
+        logits, cache = self._prefill(tokens, last_pos, cache_len)
         synchronize(self.device)
         prefill_s = time.perf_counter() - t0
 

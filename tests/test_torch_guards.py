@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs import deepseek_7b
+from repro_torch.configs import deepseek_7b, rwkv6_1p6b
 from repro_torch.serving.continuous import ContinuousServer
 from repro_torch.serving.engine import InferenceEngine
 
@@ -36,7 +36,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
     for module in ("models/transformer.py", "kernels/dispatch.py", "serving/continuous.py",
-                   "launch/serve.py", "configs/registry.py"):
+                   "launch/serve.py", "configs/registry.py", "models/ssm.py",
+                   "kernels/rwkv/wkv.py"):
         assert module in names
     assert "torch" in _imported_roots(ROOT / "src" / "repro_torch" / "__init__.py")
 
@@ -55,6 +56,16 @@ def test_entry_points_default_to_the_card():
         InferenceEngine(cfg, max_cache=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinuousServer(cfg, slots=2, max_seq=16)
+    assert InferenceEngine(cfg, max_cache=16, device="cpu").device.type == "cpu"
+
+
+def test_rwkv_engine_defaults_to_the_card():
+    cfg = rwkv6_1p6b.SMOKE
+    if torch.cuda.is_available():
+        assert InferenceEngine(cfg, max_cache=16).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(cfg, max_cache=16)
     assert InferenceEngine(cfg, max_cache=16, device="cpu").device.type == "cpu"
 
 

@@ -12,11 +12,15 @@ from repro_torch.kernels.attention import flash
 from repro_torch.kernels.attention.ref import flash_attention_ref
 from repro_torch.kernels.decode import flash_decode as fd
 from repro_torch.kernels.decode.ref import flash_decode_ref
+from repro_torch.kernels.rwkv import wkv
+from repro_torch.kernels.rwkv.ref import wkv6_ref
 
 F32_TOL = 2e-5    # same algorithm, float32: summation order only
 BF16_TOL = 2e-2   # the reference kernel keeps probabilities in float32, the
                   # plain version casts them to bf16 before PV
 GPU_F32_TOL = 1e-4  # kernel vs plain on the card: another summation order
+WKV_TOL = 2e-5    # float32 recurrence, summation order only; the state
+                  # reaches tens, so the relative part of the bound carries it
 
 
 def _rand(shape, seed):
@@ -32,9 +36,10 @@ def ref():
     import jax.numpy as jnp
     from repro.kernels.attention.ops import flash_attention
     from repro.kernels.decode.ops import flash_decode
+    from repro.kernels.rwkv.ops import wkv6
     from repro.models.layers import sdpa
     return SimpleNamespace(jnp=jnp, flash_attention=flash_attention,
-                           flash_decode=flash_decode, sdpa=sdpa)
+                           flash_decode=flash_decode, wkv6=wkv6, sdpa=sdpa)
 
 
 def _both(ref, a, dtype):
@@ -136,6 +141,59 @@ def test_flash_decode_shared_mask_equals_per_row_broadcast():
 
 
 # ----------------------------------------------------------------------
+# K3 plain version vs Pallas (interpret)
+# ----------------------------------------------------------------------
+
+def _wkv_inputs(b, t, h, hd, seed=0):
+    """The reference test's inputs (``test_kernels.py``): realistic decays
+    w = exp(-exp(randn - 2)), a bonus u and a small initial state."""
+    shape = (b, t, h, hd)
+    r, k, v = (_rand(shape, seed + i) for i in range(3))
+    w = np.exp(-np.exp(_rand(shape, seed + 3) - 2.0)).astype(np.float32)
+    u = _rand((h, hd), seed + 4) * 0.5
+    s0 = _rand((b, h, hd, hd), seed + 5) * 0.1
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("b,t,h,hd", [
+    (2, 128, 2, 32),
+    (1, 64, 4, 64),
+    (2, 96, 2, 32),      # the reference pads T to its 64-step chunks
+    (1, 256, 1, 16),
+    (4, 1, 2, 64),       # one decode step
+    (2, 100, 2, 64),     # the engine's prefill length, ragged for the reference
+])
+def test_wkv6_plain_matches_pallas(ref, b, t, h, hd):
+    arrays = _wkv_inputs(b, t, h, hd)
+    o, s = ref.wkv6(*(ref.jnp.asarray(a) for a in arrays), interpret=True)
+    got_o, got_s = wkv6_ref(*(torch.from_numpy(a) for a in arrays))
+    _close(got_o, o, WKV_TOL)
+    _close(got_s, s, WKV_TOL)
+
+
+def test_wkv6_plain_state_chaining_matches_pallas(ref):
+    """Two halves with the state carried equal the whole sequence, and the
+    Pallas kernel's final state."""
+    r, k, v, w, u, _ = (torch.from_numpy(a) for a in _wkv_inputs(1, 128, 2, 32))
+    s0 = torch.zeros((1, 2, 32, 32))
+    o_full, s_full = wkv6_ref(r, k, v, w, u, s0)
+    o1, s1 = wkv6_ref(r[:, :64], k[:, :64], v[:, :64], w[:, :64], u, s0)
+    o2, s2 = wkv6_ref(r[:, 64:], k[:, 64:], v[:, 64:], w[:, 64:], u, s1)
+    torch.testing.assert_close(torch.cat([o1, o2], 1), o_full, atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(s2, s_full, atol=WKV_TOL, rtol=WKV_TOL)
+    _, want = ref.wkv6(*(ref.jnp.asarray(a.numpy()) for a in (r, k, v, w, u, s0)),
+                       interpret=True)
+    _close(s2, want, WKV_TOL)
+
+
+def test_wkv6_plain_leaves_the_initial_state_alone():
+    arrays = [torch.from_numpy(a) for a in _wkv_inputs(1, 8, 2, 16)]
+    s0 = arrays[-1].clone()
+    wkv6_ref(*arrays)
+    assert torch.equal(arrays[-1], s0)
+
+
+# ----------------------------------------------------------------------
 # dispatch and wrappers on the CPU
 # ----------------------------------------------------------------------
 
@@ -152,12 +210,26 @@ def test_dispatch_takes_plain_versions_on_cpu_without_counting():
     assert (flash.launches, fd.launches) == before
 
 
+def test_dispatch_takes_the_plain_wkv6_on_cpu_without_counting():
+    before = wkv.launches
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in _wkv_inputs(2, 12, 2, 32))
+    want_o, want_s = wkv6_ref(r, k, v, w, u, s0)
+    o, s = dispatch.rwkv_scan(r, k, v, w, u, s0)
+    assert torch.equal(o, want_o) and torch.equal(s, want_s)
+    state = s0.clone()
+    o, s = dispatch.rwkv_scan(r, k, v, w, u, state, out_state=state)
+    assert s is state and torch.equal(state, want_s) and torch.equal(o, want_o)
+    assert wkv.launches == before
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     t = torch.zeros((1, 8, 2, 32))
     with pytest.raises(ValueError, match="CUDA"):
         flash.flash_attention(t, t, t)
     with pytest.raises(ValueError, match="CUDA"):
         fd.flash_decode(t[:, :1], t, t, torch.ones(8, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv.wkv6(t, t, t, t, torch.zeros((2, 32)), torch.zeros((1, 2, 32, 32)))
 
 
 @pytest.mark.parametrize("b,kh,s", [(1, 1, 1), (4, 32, 256), (4, 32, 512),
@@ -170,7 +242,7 @@ def test_split_plan_covers_every_tile_once(b, kh, s):
 
 
 def test_build_targets_hopper_from_repo_sources():
-    assert build.sources() == ["flash_attention", "flash_decode"]
+    assert build.sources() == ["flash_attention", "flash_decode", "wkv6"]
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
     for name in build.sources():
         path = build.target(name)
@@ -252,3 +324,47 @@ def test_flash_decode_kernel_takes_a_band_slice_without_copy(cuda):
     got = fd.flash_decode(q, band_k, band_v, valid)
     want = flash_decode_ref(q, band_k, band_v, valid)
     torch.testing.assert_close(got, want, atol=GPU_F32_TOL, rtol=GPU_F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,hd", [
+    (4, 100, 32, 64),     # the engine's prefill at full width
+    (4, 1, 32, 64),       # its decode step
+    (1, 2048, 32, 64),    # a long prompt
+    (2, 96, 2, 32),
+    (1, 256, 1, 16),
+    (2, 128, 4, 128),
+])
+def test_wkv6_kernel_matches_plain(cuda, b, t, h, hd):
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda) for a in _wkv_inputs(b, t, h, hd))
+    n = wkv.launches
+    o, s = wkv.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv.launches == n + 1
+    want_o, want_s = wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o, want_o, atol=GPU_F32_TOL, rtol=GPU_F32_TOL)
+    torch.testing.assert_close(s, want_s, atol=GPU_F32_TOL, rtol=GPU_F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 100])
+def test_wkv6_kernel_in_place_equals_a_separate_state(cuda, t):
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda) for a in _wkv_inputs(4, t, 8, 64))
+    o_sep, s_sep = wkv.wkv6(r, k, v, w, u, s0)
+    state = s0.clone()
+    o_in, s_in = wkv.wkv6(r, k, v, w, u, state, out_state=state)
+    torch.cuda.synchronize()
+    assert s_in is state
+    assert torch.equal(o_in, o_sep) and torch.equal(state, s_sep)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda) for a in _wkv_inputs(1, 4, 2, 48))
+    with pytest.raises(ValueError, match="head dim"):
+        wkv.wkv6(r, k, v, w, u, s0)
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda) for a in _wkv_inputs(1, 4, 2, 32))
+    with pytest.raises(ValueError, match="float32"):
+        wkv.wkv6(r.double(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv.wkv6(r.transpose(1, 2), k, v, w, u, s0)

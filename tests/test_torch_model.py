@@ -60,7 +60,7 @@ def test_deepseek_configs_equal_the_reference(which):
 
 def test_registry_names_the_queue_for_unported_archs():
     with pytest.raises(KeyError, match="Queue 1"):
-        registry.get("rwkv6-1.6b")
+        registry.get("recurrentgemma-9b")
 
 
 def test_moe_and_other_families_raise_not_implemented():
@@ -68,7 +68,7 @@ def test_moe_and_other_families_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="Queue 1"):
         api.init_params(moe, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        api.init_params(CFG.replace(family="ssm"), torch.Generator().manual_seed(0), "cpu")
+        api.init_params(CFG.replace(family="hybrid"), torch.Generator().manual_seed(0), "cpu")
 
 
 # ----------------------------------------------------------------------
