@@ -10,16 +10,23 @@ K3 WKV-6).  Phases, in order; any failure exits non-zero:
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each, all
      at once) and print the build time and ptxas's register/shared-memory lines;
   3. hold each kernel against its plain PyTorch version on the card: each
-     path's shapes plus GQA, window, ragged-S, head-dim and float32 cases;
+     path's shapes plus GQA, window, ragged-S, head-dim and float32 cases,
+     and for K2 masks whose all-false tiles lie at the start, around a band,
+     in the middle and at the end, a row with no valid position (the mean of
+     V), and a band slice of a longer cache;
   4. each path in bf16 with seeded random weights: logits (and for rwkv the
      recurrent state) on the kernel path against the plain path, then the
      path itself — deepseek through the engine's ``generate`` and the
      ``ContinuousServer``, rwkv through ``generate`` and ``generate_stream``
      — with every kernel's launch count set to 0 just before and read just
      after;
-  5. each kernel's time at its path's shape (CUDA events, inputs rotated
-     through copies that span four times the L2), its bound, the plain
-     version's time and one PyTorch library call's time where there is one;
+  5. each kernel's time at its path's shapes (the engine's, and for K1 and
+     K2 the continuous server's too): CUDA events over back-to-back calls
+     (inputs rotated through copies that span four times the L2) and the
+     device time of the same calls from a torch.profiler trace (every kernel
+     a call launches, summed), its bound, the plain version's time and one
+     PyTorch library call's time where there is one; and the K1 and K2
+     wrappers' host time per call;
   6. where a full-width prefill's and decode step's time goes, per path: host
      wall, device time by kernel (torch.profiler) and each one's bound;
   7. one JSON line with the kernels, then the last line ``{"ok": true, ...}``.
@@ -85,6 +92,38 @@ def time_ms(fn, arg_sets: list, iters: int = 60, warm: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, arg_sets: list, iters: int = 30) -> float:
+    """Device time per call of ``fn(*args)`` over the same rotation of
+    inputs as ``time_ms``: every kernel the calls launch, summed from a
+    torch.profiler trace, so host work between launches does not count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / iters
+
+
+def host_us(fn, args, iters: int = 200) -> float:
+    """Host time per call of ``fn(*args)``: the launches are queued and not
+    waited for, so this is the wrapper's own cost, while the card keeps up."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
 
 
 def cold_copies(make, nbytes: int) -> list:
@@ -165,7 +204,9 @@ def kernel_checks(dev) -> dict:
             (1, 256, 4, 4, 128, 64, torch.bfloat16, False),   # window 64
             (1, 300, 4, 1, 128, 0, torch.float32, False),     # ragged, MQA, f32
             (2, 192, 8, 2, 64, 64, torch.float32, False),     # GQA window f32
-            (1, 70, 4, 4, 32, 0, torch.float32, False)]:      # head dim 32
+            (1, 70, 4, 4, 32, 0, torch.float32, False),       # head dim 32
+            (1, 300, 8, 2, 64, 0, torch.bfloat16, False),     # head dim 64, ragged
+            (2, 333, 4, 2, 32, 100, torch.bfloat16, False)]:  # head dim 32, ragged, window
         q = rand((b, s, h, hd), dt, gen, dev)
         k, v = rand((b, s, kh, hd), dt, gen, dev), rand((b, s, kh, hd), dt, gen, dev)
         err = check(f"K1 flash_attention q{(b, s, h, hd)} kv{kh} window={win} {dt}",
@@ -198,6 +239,7 @@ def kernel_checks(dev) -> dict:
                     flash_decode_ref(q, k, v, valid), TOL[dt])
         if main:
             main_err["flash_decode"] = max(main_err["flash_decode"], err)
+    decode_skip_checks(gen, dev)
     for (b, t, h, hd, main) in [
             (4, 100, 32, 64, True),     # the rwkv engine's prefill
             (4, 1, 32, 64, True),       # its decode step
@@ -219,6 +261,37 @@ def kernel_checks(dev) -> dict:
         raise SystemExit("K3 wkv6: the in-place state differs from a separate one")
     log("[check] K3 wkv6 in place over s0 equals a separate state buffer: ok")
     return main_err
+
+
+def decode_skip_checks(gen, dev) -> None:
+    """Phase 3 for K2's tile skipping, at the continuous server's cache
+    shape in bf16: all-false tiles at the start, around a window band, in the
+    middle and at the end of a row; a row with no valid position, which must
+    come out as the mean of V over the cache; and a band slice."""
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.decode.ref import flash_decode_ref
+
+    b, s, h, hd, dt = 4, 512, 32, 128, torch.bfloat16
+    q = rand((b, 1, h, hd), dt, gen, dev)
+    k, v = rand((b, s, h, hd), dt, gen, dev), rand((b, s, h, hd), dt, gen, dev)
+    kv = torch.arange(s, device=dev)
+    skip = torch.stack([kv >= 312, (kv >= 200) & (kv < 264),
+                        (kv < 70) | ((kv >= 412) & (kv < 462)), kv <= 100])
+    check(f"K2 flash_decode cache{(b, s, h, hd)} (B,S) mask, all-false tiles at the start, "
+          "around a band, in the middle, at the end, bf16",
+          fd.flash_decode(q, k, v, skip), flash_decode_ref(q, k, v, skip), TOL[dt])
+    empty = skip.clone()
+    empty[2] = False
+    got = fd.flash_decode(q, k, v, empty)
+    check(f"K2 flash_decode cache{(b, s, h, hd)} (B,S) mask, row 2 without a valid "
+          "position, bf16", got, flash_decode_ref(q, k, v, empty), TOL[dt])
+    check("K2 flash_decode row without a valid position against the mean of V",
+          got[2].float(), v[2].float().mean(dim=0)[None], TOL[dt])
+    band_k, band_v = k[:, 100:228], v[:, 100:228]
+    valid = torch.arange(128, device=dev) < 90
+    check(f"K2 flash_decode band slice [100:228] of cache{(b, s, h, hd)} (S,) mask, bf16",
+          fd.flash_decode(q, band_k, band_v, valid),
+          flash_decode_ref(q, band_k, band_v, valid), TOL[dt])
 
 
 def logits_check(eng, cfg, dev) -> None:
@@ -383,7 +456,8 @@ def rwkv_main_path(eng, cfg) -> dict:
 
 
 def timings(dev) -> dict:
-    """Phase 5: each kernel at its path's shape."""
+    """Phase 5: each kernel at its paths' shapes, by CUDA events and by
+    device time, beside its bound, its plain version and a library call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import flash
@@ -398,36 +472,62 @@ def timings(dev) -> dict:
     def bhsd(*xs):   # the library's (B,H,S,hd) layout, as views
         return tuple(x.transpose(1, 2) for x in xs)
 
-    b, s, h, kh, hd = 4, 128, 32, 32, 128        # the engine's prefill
-    nbytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * 2   # q, k, v in; o out
-    flops = 4 * hd * h * b * s * (s + 1) // 2   # QK^T and PV over the causal pairs
-    sets = cold_copies(lambda: (rand((b, s, h, hd), dt, gen, dev),
-                                rand((b, s, kh, hd), dt, gen, dev),
-                                rand((b, s, kh, hd), dt, gen, dev)), nbytes)
-    out["flash_attention"] = dict(
-        shape=f"q {(b, s, h, hd)} bf16 causal",
-        ms=time_ms(lambda q, k, v: flash.flash_attention(q, k, v), sets),
-        plain_ms=time_ms(lambda q, k, v: flash_attention_ref(q, k, v), sets),
-        library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            *bhsd(q, k, v), is_causal=True), sets),
-        bound=bound(nbytes, flops, dt))
+    def row(shape, kernel, plain, library, sets, bound_):
+        ms, plain_ms = time_ms(kernel, sets), time_ms(plain, sets)
+        lib_ms = None if library is None else time_ms(library, sets)
+        return dict(shape=shape, ms=ms, device_ms=device_ms(kernel, sets), plain_ms=plain_ms,
+                    plain_device_ms=device_ms(plain, sets), library_ms=lib_ms,
+                    library_device_ms=None if library is None else device_ms(library, sets),
+                    bound=bound_)
 
-    b, s, n_valid = 4, 256, 132   # the engine's last decode step: 100 + 32 positions
-    # the valid positions of the cache are read, q read and o written once
-    nbytes = (2 * b * h * hd + 2 * b * n_valid * kh * hd) * 2 + s
-    flops = 4 * hd * h * b * n_valid
-    valid = torch.arange(s, device=dev) < n_valid
-    mask = valid[None, None, None, :]
-    sets = cold_copies(lambda: (rand((b, 1, h, hd), dt, gen, dev),
-                                rand((b, s, kh, hd), dt, gen, dev),
-                                rand((b, s, kh, hd), dt, gen, dev)), 4 * b * s * kh * hd)
-    out["flash_decode"] = dict(
-        shape=f"q {(b, 1, h, hd)} cache {(b, s, kh, hd)} bf16, {n_valid} valid",
-        ms=time_ms(lambda q, k, v: fd.flash_decode(q, k, v, valid), sets),
-        plain_ms=time_ms(lambda q, k, v: flash_decode_ref(q, k, v, valid), sets),
-        library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            *bhsd(q, k, v), attn_mask=mask), sets),
-        bound=bound(nbytes, flops, dt))
+    h, kh, hd = 32, 32, 128
+    # K1 at the engine's prefill (batch 4, bucket 128) and the server's
+    # admission prefill (4 slots, bucket 512)
+    for tag, (b, s) in (("", (4, 128)), ("server", (4, 512))):
+        nbytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * 2   # q, k, v in; o out
+        flops = 4 * hd * h * b * s * (s + 1) // 2   # QK^T and PV over the causal pairs
+        sets = cold_copies(lambda: (rand((b, s, h, hd), dt, gen, dev),
+                                    rand((b, s, kh, hd), dt, gen, dev),
+                                    rand((b, s, kh, hd), dt, gen, dev)), nbytes)
+        out["flash_attention" + (f" {tag}" if tag else "")] = row(
+            f"q {(b, s, h, hd)} bf16 causal",
+            lambda q, k, v: flash.flash_attention(q, k, v),
+            lambda q, k, v: flash_attention_ref(q, k, v),
+            lambda q, k, v: F.scaled_dot_product_attention(*bhsd(q, k, v), is_causal=True),
+            sets, bound(nbytes, flops, dt))
+
+    # K2 at the engine's last decode step (100 + 32 positions of a 256 cache,
+    # one (S,) mask) and at the server's (a 512 cache, a (B,S) mask whose rows
+    # end in different tiles)
+    b = 4
+    kv = torch.arange(512, device=dev)
+    for tag, s, valid in (("", 256, kv[:256] < 132),
+                          ("server", 512, kv[None, :] <= torch.tensor(
+                              [[40], [170], [300], [470]], device=dev))):
+        n_valid = int(valid.sum()) * (b if valid.dim() == 1 else 1)   # over the batch
+        # the valid positions of the cache are read, q read, o written, the mask read
+        nbytes = (2 * b * h * hd + 2 * n_valid * kh * hd) * 2 + valid.numel()
+        flops = 4 * hd * h * n_valid
+        mask = valid[None, None, None, :] if valid.dim() == 1 else valid[:, None, None, :]
+        sets = cold_copies(lambda: (rand((b, 1, h, hd), dt, gen, dev),
+                                    rand((b, s, kh, hd), dt, gen, dev),
+                                    rand((b, s, kh, hd), dt, gen, dev)), 4 * b * s * kh * hd)
+        ends = (f"{int(valid.sum())} valid" if valid.dim() == 1 else
+                f"rows valid to {[int(r.sum()) for r in valid]}")
+        out["flash_decode" + (f" {tag}" if tag else "")] = row(
+            f"q {(b, 1, h, hd)} cache {(b, s, kh, hd)} bf16, {ends}",
+            lambda q, k, v, valid=valid: fd.flash_decode(q, k, v, valid),
+            lambda q, k, v, valid=valid: flash_decode_ref(q, k, v, valid),
+            lambda q, k, v, mask=mask: F.scaled_dot_product_attention(*bhsd(q, k, v),
+                                                                      attn_mask=mask),
+            sets, bound(nbytes, flops, dt))
+        if not tag:
+            out["flash_decode"]["host_us"] = host_us(
+                lambda q, k, v: fd.flash_decode(q, k, v, valid), sets[0])
+    out["flash_attention"]["host_us"] = host_us(
+        lambda q, k, v: flash.flash_attention(q, k, v),
+        (rand((4, 128, h, hd), dt, gen, dev), rand((4, 128, kh, hd), dt, gen, dev),
+         rand((4, 128, kh, hd), dt, gen, dev)))
 
     # K3 at the rwkv engine's prefill (the row) and decode-step shapes, the
     # state updated in place as the model does; no PyTorch call computes the
@@ -439,13 +539,11 @@ def timings(dev) -> dict:
         flops = 7 * hd * hd * b * t * h        # per (i, j): kv, u*kv, +, r*, sum, w*S, +kv
         sets = cold_copies(lambda: wkv_inputs(b, t, h, hd, gen, dev),
                            4 * seq_bytes + state_bytes)
-        out["wkv6" + (f" {tag}" if tag else "")] = dict(
-            shape=f"r/k/v/w {(b, t, h, hd)} float32, state in place",
-            ms=time_ms(lambda r, k, v, w, u, s0: wkv.wkv6(r, k, v, w, u, s0, out_state=s0),
-                       sets),
-            plain_ms=time_ms(lambda r, k, v, w, u, s0: plain_scan(r, k, v, w, u, s0,
-                                                                   out_state=s0), sets),
-            library_ms=None, bound=bound(nbytes, flops, torch.float32))
+        out["wkv6" + (f" {tag}" if tag else "")] = row(
+            f"r/k/v/w {(b, t, h, hd)} float32, state in place",
+            lambda r, k, v, w, u, s0: wkv.wkv6(r, k, v, w, u, s0, out_state=s0),
+            lambda r, k, v, w, u, s0: plain_scan(r, k, v, w, u, s0, out_state=s0),
+            None, sets, bound(nbytes, flops, torch.float32))
     return out
 
 
@@ -633,15 +731,21 @@ def main() -> int:
     rows = []
     for name, t in times.items():
         bound_ms, bound_by = t["bound"]
-        library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        log(f"[time] {name} at {t['shape']}: {t['ms']:.4f} ms; bound {bound_ms:.4f} ms "
-            f"({bound_by}); plain {t['plain_ms']:.4f} ms; library {library}")
+        library = ("none" if t["library_ms"] is None else
+                   f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f} ms)")
+        log(f"[time] {name} at {t['shape']}: {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms); "
+            f"bound {bound_ms:.4f} ms ({bound_by}); plain {t['plain_ms']:.4f} ms (device "
+            f"{t['plain_device_ms']:.4f} ms); library {library}")
+        if "host_us" in t:
+            log(f"[time] {name} wrapper: {t['host_us']:.1f} us of host time per call")
         if name in meta:
             rows.append({"name": name, "route": "cuda", "source": meta[name][0],
                          "replaces": meta[name][1], "launches": launches[name],
                          "max_abs_err": main_err[name], "ms": t["ms"],
-                         "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": t["library_ms"]})
+                         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": t["library_ms"],
+                         "library_device_ms": t["library_device_ms"]})
     breakdown(eng, cfg, dev)
     del eng
     rwkv_breakdown(reng, rcfg, dev)

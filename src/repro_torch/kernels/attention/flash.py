@@ -37,7 +37,8 @@ def _kernel():
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
     """q: (B,S,H,hd); k,v: (B,S,K,hd), H % K == 0, all contiguous on one CUDA
-    device, float32 or bfloat16, hd in (32, 64, 128).  Causal (+window)."""
+    device, float32 or bfloat16 (bfloat16 16-byte aligned), hd in (32, 64,
+    128).  Causal (+window)."""
     global launches
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
@@ -56,6 +57,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 q, k, v must be 16-byte aligned")
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o

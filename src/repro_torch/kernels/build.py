@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles, with ``nvcc``
 for ``sm_90a``, into ``build/repro_torch/<name>-<digest>.so`` at the repo
-root.  The digest covers the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  A library is built at its first
-use; ``build_all`` starts one ``nvcc`` per source at once and waits for all.
-Nothing is built when a module is imported.
+root.  The digest covers the source, every shared header ``csrc/*.cuh`` and
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  A library is built at its first use; ``build_all`` starts one
+``nvcc`` per source at once and waits for all.  Nothing is built when a
+module is imported.
 """
 from __future__ import annotations
 
@@ -41,10 +42,12 @@ def sources() -> list[str]:
 
 
 def target(name: str) -> Path:
-    """The library path for the current source and flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library path for the current source, headers and flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -3,8 +3,8 @@
 ``repro/kernels/decode/flash_decode.py::flash_decode``.
 
 Takes CUDA tensors only: it checks them, allocates the output and the
-split partials, and launches on the current stream.  CPU tensors go to the
-plain version through ``repro_torch.kernels.dispatch``.
+split partials (one scratch buffer), and launches on the current stream.
+CPU tensors go to the plain version through ``repro_torch.kernels.dispatch``.
 """
 from __future__ import annotations
 
@@ -18,8 +18,10 @@ from repro_torch.kernels import build
 SOURCE = "flash_decode"
 TILE = 64            # cache positions per tile (BKD in the source)
 SMS = 132            # streaming multiprocessors of an H100
+CTAS_PER_SM = 8      # split CTAs (4 warps each) per SM that split_plan aims for
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VEC_BYTES = 16       # the kernel reads cache rows in 16-byte vectors
 
 launches = 0  # kernel launches in this process; chip_smoke.py reads and resets it
 
@@ -40,9 +42,11 @@ def _kernel():
 
 def split_plan(batch: int, kv_heads: int, seq: int) -> tuple[int, int]:
     """(splits, tiles per split): enough splits that batch*kv_heads*splits
-    CTAs cover the SMs twice over, no split without a tile."""
+    CTAs put CTAS_PER_SM on every SM, no split without a tile.  A split's
+    warps each take one step of 16 positions per tile (hd=128 bf16), so
+    at small batch one tile per split keeps the most cache rows in flight."""
     tiles = max(1, math.ceil(seq / TILE))
-    want = min(tiles, max(1, math.ceil(2 * SMS / (batch * kv_heads))))
+    want = min(tiles, max(1, math.ceil(CTAS_PER_SM * SMS / (batch * kv_heads))))
     per = math.ceil(tiles / want)
     return math.ceil(tiles / per), per
 
@@ -52,7 +56,9 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     """q: (B,1,H,hd) contiguous; cache_k/v: (B,S,K,hd) with the last two
     dims contiguous (batch and position strides are free, so a band slice
     of a longer cache needs no copy); valid: (S,) bool shared by every row,
-    or (B,S) bool contiguous, per row.  float32 or bfloat16, hd <= 256."""
+    or (B,S) bool contiguous, per row.  float32 or bfloat16; hd <= 256 and
+    a whole number of 16-byte vectors; q, the caches and the cache strides
+    16-byte aligned."""
     global launches
     dev = q.device
     if not (q.is_cuda and cache_k.device == dev and cache_v.device == dev
@@ -66,16 +72,21 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                          f"{tuple(cache_v.shape)}")
     b, _, h, hd = q.shape
     s, kh = cache_k.shape[1], cache_k.shape[2]
-    if cache_k.shape[0] != b or cache_k.shape[3] != hd or h % kh or hd > MAX_HEAD_DIM:
+    vec = VEC_BYTES // q.element_size()
+    if (cache_k.shape[0] != b or cache_k.shape[3] != hd or h % kh or hd > MAX_HEAD_DIM
+            or hd % vec):
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match cache "
-                         f"{tuple(cache_k.shape)} (hd <= {MAX_HEAD_DIM})")
+                         f"{tuple(cache_k.shape)} (hd <= {MAX_HEAD_DIM}, a multiple of {vec})")
     if not q.is_contiguous():
         raise ValueError("flash_decode: q must be contiguous")
-    for c in (cache_k, cache_v):
-        if c.stride(3) != 1 or c.stride(2) != hd:
-            raise ValueError("flash_decode: cache (K, hd) dims must be contiguous")
+    if cache_k.stride(3) != 1 or cache_k.stride(2) != hd:
+        raise ValueError("flash_decode: cache (K, hd) dims must be contiguous")
     if cache_k.stride() != cache_v.stride():
         raise ValueError("flash_decode: cache_k and cache_v strides differ")
+    if (any(t.data_ptr() % VEC_BYTES for t in (q, cache_k, cache_v))
+            or cache_k.stride(0) % vec or cache_k.stride(1) % vec):
+        raise ValueError("flash_decode: q, the caches and their strides must be "
+                         f"{VEC_BYTES}-byte aligned")
     if valid.dtype != torch.bool:
         raise ValueError(f"flash_decode: valid must be bool, not {valid.dtype}")
     if valid.shape == (s,) and valid.is_contiguous():
@@ -89,16 +100,19 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     if q.numel() == 0:
         return o
     nsplit, per = split_plan(b, kh, s)
-    part_m = torch.empty((b, h, nsplit), dtype=torch.float32, device=dev)
-    part_l = torch.empty((b, h, nsplit), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((b, h, nsplit, hd), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _kernel()(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                        valid.view(torch.uint8).data_ptr(), valid_bstride, o.data_ptr(),
-                        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-                        b, s, h, kh, hd, cache_k.stride(0), cache_k.stride(1),
-                        nsplit, per, hd ** -0.5, DTYPES[q.dtype], stream)
+    n = b * h * nsplit
+    part = torch.empty(n * (hd + 2), dtype=torch.float32, device=dev)   # m, l, acc
+    m_ptr = part.data_ptr()
+    args = (q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            valid.data_ptr(), valid_bstride, o.data_ptr(),   # bool: one byte, 0 or 1
+            m_ptr, m_ptr + 4 * n, m_ptr + 8 * n, b, s, h, kh, hd,
+            cache_k.stride(0), cache_k.stride(1), nsplit, per, hd ** -0.5,
+            DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = _kernel()(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = _kernel()(*args)
     if err:
         raise RuntimeError(f"flash_decode: launch failed with CUDA error {err}")
     launches += 1

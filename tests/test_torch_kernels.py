@@ -131,6 +131,23 @@ def test_flash_decode_per_row_mask_matches_sdpa(ref, b, s, h, kh, hd, window, dt
     _close(flash_decode_ref(tq, tk, tv, torch.from_numpy(valid)), want, tol)
 
 
+def test_flash_decode_plain_all_false_mask_matches_pallas_mean_of_v(ref):
+    """A row with no valid position: the Pallas kernel softmaxes equal -1e30
+    logits, which weighs every position alike, so the output is the mean of
+    V over the whole cache.  The plain version gives the same, and the
+    Hopper kernel (which skips masked tiles only in rows that have a valid
+    position) is held to it on the card."""
+    q, tq = _both(ref, _rand((2, 1, 4, 64), 1), torch.float32)
+    k, tk = _both(ref, _rand((2, 256, 2, 64), 2), torch.float32)
+    v, tv = _both(ref, _rand((2, 256, 2, 64), 3), torch.float32)
+    valid = np.zeros(256, dtype=bool)
+    want = ref.flash_decode(q, k, v, ref.jnp.asarray(valid), interpret=True)
+    got = flash_decode_ref(tq, tk, tv, torch.from_numpy(valid))
+    _close(got, want, F32_TOL)
+    mean_v = tv.mean(dim=1).repeat_interleave(2, dim=1)[:, None]   # (B,1,H,hd)
+    _close(got, mean_v.numpy(), F32_TOL)
+
+
 def test_flash_decode_shared_mask_equals_per_row_broadcast():
     tq, tk, tv = (torch.from_numpy(_rand(sh, i)) for i, sh in
                   enumerate([(2, 1, 4, 32), (2, 100, 2, 32), (2, 100, 2, 32)]))
@@ -238,7 +255,7 @@ def test_split_plan_covers_every_tile_once(b, kh, s):
     splits, per = fd.split_plan(b, kh, s)
     tiles = -(-s // fd.TILE)
     assert splits * per >= tiles > (splits - 1) * per    # no empty split
-    assert splits == 1 or b * kh * (splits - 1) < 2 * fd.SMS
+    assert splits == 1 or b * kh * (splits - 1) < fd.CTAS_PER_SM * fd.SMS
 
 
 def test_build_targets_hopper_from_repo_sources():
@@ -248,6 +265,23 @@ def test_build_targets_hopper_from_repo_sources():
         path = build.target(name)
         assert path.parent == build.BUILD_DIR and path.name.startswith(name + "-")
         assert (build.CSRC / f"{name}.cu").read_text().count("extern \"C\"") == 1
+
+
+def test_build_target_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` gives every source a new library path, so a
+    library built against the old header is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in list(build.CSRC.glob("*.cu")) + list(build.CSRC.glob("*.cuh")):
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.target(name) for name in build.sources()}
+    header = csrc / "common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {name: build.target(name) for name in build.sources()}
+    assert all(after[name] != before[name] for name in before)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert build.target("flash_decode") != after["flash_decode"]
 
 
 # ----------------------------------------------------------------------
@@ -267,11 +301,14 @@ def _dev(a, dtype, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,h,kh,hd,window", [
-    (4, 128, 32, 32, 128, 0),   # the main path's prefill shape
+    (4, 128, 32, 32, 128, 0),   # the engine's prefill shape
+    (4, 512, 32, 32, 128, 0),   # the continuous server's prefill shape
     (2, 256, 8, 2, 64, 0),      # GQA
     (1, 300, 4, 1, 128, 0),     # MQA, ragged S
     (1, 256, 4, 4, 128, 64),    # window
     (2, 70, 4, 4, 32, 0),       # smoke head dim, ragged
+    (1, 300, 8, 2, 64, 0),      # head dim 64, ragged
+    (2, 333, 4, 2, 32, 100),    # head dim 32, ragged, window across tiles
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
@@ -315,15 +352,72 @@ def test_flash_decode_kernel_matches_plain(cuda, b, s, h, kh, hd, per_row, dtype
 
 
 @pytest.mark.gpu
-def test_flash_decode_kernel_takes_a_band_slice_without_copy(cuda):
-    cache_k = _dev(_rand((2, 512, 4, 64), 2), torch.float32, cuda)
-    cache_v = _dev(_rand((2, 512, 4, 64), 3), torch.float32, cuda)
-    q = _dev(_rand((2, 1, 8, 64), 1), torch.float32, cuda)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_decode_kernel_takes_a_band_slice_without_copy(cuda, dtype, tol):
+    cache_k = _dev(_rand((2, 512, 4, 64), 2), dtype, cuda)
+    cache_v = _dev(_rand((2, 512, 4, 64), 3), dtype, cuda)
+    q = _dev(_rand((2, 1, 8, 64), 1), dtype, cuda)
     band_k, band_v = cache_k[:, 100:228], cache_v[:, 100:228]
     valid = torch.arange(128, device=cuda) < 90
     got = fd.flash_decode(q, band_k, band_v, valid)
     want = flash_decode_ref(q, band_k, band_v, valid)
-    torch.testing.assert_close(got, want, atol=GPU_F32_TOL, rtol=GPU_F32_TOL)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _skip_masks(s, dev):
+    """(4,S) masks whose all-false 64-position tiles lie at the start (row 0),
+    around a window band (row 1), in the middle (row 2) and at the end (row 3)."""
+    kv = torch.arange(s, device=dev)
+    return torch.stack([kv >= s - 200,
+                        (kv >= 200) & (kv < 264),
+                        (kv < 70) | ((kv >= s - 100) & (kv < s - 50)),
+                        kv <= 100])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,kh,hd", [
+    (512, 32, 32, 128),    # the continuous server's cache
+    (700, 8, 2, 64),       # GQA, ragged S
+    (448, 12, 1, 32),      # MQA with 12 heads: two head chunks per kv head
+    (320, 4, 2, 256),      # the widest head dim: two 16-byte vectors per lane in float32
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_decode_kernel_skips_masked_tiles(cuda, s, h, kh, hd, dtype, tol):
+    q = _dev(_rand((4, 1, h, hd), 1), dtype, cuda)
+    k = _dev(_rand((4, s, kh, hd), 2), dtype, cuda)
+    v = _dev(_rand((4, s, kh, hd), 3), dtype, cuda)
+    valid = _skip_masks(s, cuda)
+    got = fd.flash_decode(q, k, v, valid)
+    want = flash_decode_ref(q, k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("form", ["(S,)", "(B,S)"])
+def test_flash_decode_kernel_all_false_row_is_the_mean_of_v(cuda, dtype, tol, form):
+    """A row with no valid position reads every position, as the reference
+    does, while the other rows skip their masked tiles."""
+    b, s, h, kh, hd = 3, 300, 8, 8, 128
+    q = _dev(_rand((b, 1, h, hd), 1), dtype, cuda)
+    k = _dev(_rand((b, s, kh, hd), 2), dtype, cuda)
+    v = _dev(_rand((b, s, kh, hd), 3), dtype, cuda)
+    if form == "(S,)":
+        valid = torch.zeros(s, dtype=torch.bool, device=cuda)
+        empty = list(range(b))
+    else:
+        valid = torch.arange(s, device=cuda)[None, :] <= torch.tensor([[40], [0], [250]],
+                                                                      device=cuda)
+        valid[1] = False
+        empty = [1]
+    got = fd.flash_decode(q, k, v, valid)
+    want = flash_decode_ref(q, k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    mean_v = v.float().mean(dim=1)[:, None]
+    torch.testing.assert_close(got[empty].float(), mean_v[empty], atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu
