@@ -13,7 +13,9 @@ K3 WKV-6).  Phases, in order; any failure exits non-zero:
      path's shapes plus GQA, window, ragged-S, head-dim and float32 cases,
      and for K2 masks whose all-false tiles lie at the start, around a band,
      in the middle and at the end, a row with no valid position (the mean of
-     V), and a band slice of a longer cache;
+     V), and a band slice of a longer cache; for K3 one head alone, a T that
+     is not a multiple of its chunk, decays near 0 and near 1, and the state
+     updated in place at T=1 and T=100;
   4. each path in bf16 with seeded random weights: logits (and for rwkv the
      recurrent state) on the kernel path against the plain path, then the
      path itself — deepseek through the engine's ``generate`` and the
@@ -25,8 +27,9 @@ K3 WKV-6).  Phases, in order; any failure exits non-zero:
      (inputs rotated through copies that span four times the L2) and the
      device time of the same calls from a torch.profiler trace (every kernel
      a call launches, summed), its bound, the plain version's time and one
-     PyTorch library call's time where there is one; and the K1 and K2
-     wrappers' host time per call;
+     PyTorch library call's time where there is one; the K1, K2 and K3
+     wrappers' host time per call; and K3 under narrower split plans than
+     its own and at one head alone;
   6. where a full-width prefill's and decode step's time goes, per path: host
      wall, device time by kernel (torch.profiler) and each one's bound;
   7. one JSON line with the kernels, then the last line ``{"ok": true, ...}``.
@@ -166,12 +169,13 @@ def check_rel(name: str, got: torch.Tensor, want: torch.Tensor, rel_tol: float) 
     return err
 
 
-def wkv_inputs(b, t, h, hd, gen, dev):
-    """r, k, v ~ N(0,1); realistic decays w = exp(-exp(randn - 2)); u and a
-    small initial state, all float32."""
+def wkv_inputs(b, t, h, hd, gen, dev, log_decay=-2.0):
+    """r, k, v ~ N(0,1); decays w = exp(-exp(randn + log_decay)), realistic
+    at -2, near 0 at +2, near 1 at -6; u and a small initial state, all
+    float32."""
     shape = (b, t, h, hd)
     r, k, v = (rand(shape, torch.float32, gen, dev) for _ in range(3))
-    w = torch.exp(-torch.exp(rand(shape, torch.float32, gen, dev) - 2.0))
+    w = torch.exp(-torch.exp(rand(shape, torch.float32, gen, dev) + log_decay))
     u = rand((h, hd), torch.float32, gen, dev) * 0.5
     s0 = rand((b, h, hd, hd), torch.float32, gen, dev) * 0.1
     return r, k, v, w, u, s0
@@ -240,26 +244,36 @@ def kernel_checks(dev) -> dict:
         if main:
             main_err["flash_decode"] = max(main_err["flash_decode"], err)
     decode_skip_checks(gen, dev)
-    for (b, t, h, hd, main) in [
-            (4, 100, 32, 64, True),     # the rwkv engine's prefill
-            (4, 1, 32, 64, True),       # its decode step
-            (1, 2048, 32, 64, False),   # a long prompt
-            (2, 96, 2, 32, False),
-            (1, 256, 1, 16, False),
-            (2, 128, 4, 128, False)]:
-        r, k, v, w, u, s0 = wkv_inputs(b, t, h, hd, gen, dev)
+    for (b, t, h, hd, log_decay, main) in [
+            (4, 100, 32, 64, -2.0, True),     # the rwkv engine's prefill
+            (4, 1, 32, 64, -2.0, True),       # its decode step
+            (1, 2048, 32, 64, -2.0, False),   # a long prompt
+            (2, 96, 2, 32, -2.0, False),
+            (1, 256, 1, 16, -2.0, False),
+            (2, 128, 4, 128, -2.0, False),
+            (1, 100, 1, 64, -2.0, False),     # B*H = 1: the split plan's narrowest CTAs
+            (4, 100, 8, 128, -2.0, False),    # head dim 128 at the prefill length
+            (4, 37, 32, 64, -2.0, False),     # T not a multiple of the chunk
+            (4, 100, 32, 64, 2.0, False),     # decays near 0
+            (4, 100, 32, 64, -6.0, False)]:   # decays near 1
+        r, k, v, w, u, s0 = wkv_inputs(b, t, h, hd, gen, dev, log_decay)
         o, s = wkv.wkv6(r, k, v, w, u, s0)
         want_o, want_s = wkv6_ref(r, k, v, w, u, s0)
-        errs = [check_rel(f"K3 wkv6 {(b, t, h, hd)} {what}", got, want, WKV_REL_TOL)
+        errs = [check_rel(f"K3 wkv6 {(b, t, h, hd)} log decay {log_decay:g} {what}", got, want,
+                          WKV_REL_TOL)
                 for what, got, want in (("o", o, want_o), ("final state", s, want_s))]
         if main:
             main_err["wkv6"] = max(main_err["wkv6"], *errs)
-    state = s0.clone()      # the last shape, the state updated in place
-    o_in, _ = wkv.wkv6(r, k, v, w, u, state, out_state=state)
-    torch.cuda.synchronize()
-    if not (torch.equal(o_in, o) and torch.equal(state, s)):
-        raise SystemExit("K3 wkv6: the in-place state differs from a separate one")
-    log("[check] K3 wkv6 in place over s0 equals a separate state buffer: ok")
+    for t in (1, 100):      # the engine's shapes, the state updated in place
+        r, k, v, w, u, s0 = wkv_inputs(4, t, 32, 64, gen, dev)
+        o, s = wkv.wkv6(r, k, v, w, u, s0)
+        state = s0.clone()
+        o_in, _ = wkv.wkv6(r, k, v, w, u, state, out_state=state)
+        torch.cuda.synchronize()
+        if not (torch.equal(o_in, o) and torch.equal(state, s)):
+            raise SystemExit(f"K3 wkv6 T={t}: the in-place state differs from a separate one")
+        log(f"[check] K3 wkv6 (4, {t}, 32, 64) in place over s0 equals a separate state "
+            "buffer bit for bit: ok")
     return main_err
 
 
@@ -536,7 +550,9 @@ def timings(dev) -> dict:
         seq_bytes, state_bytes = 4 * b * t * h * hd, 4 * b * h * hd * hd
         # r, k, v, w in and o out; u in; the state in and out
         nbytes = 5 * seq_bytes + 4 * h * hd + 2 * state_bytes
-        flops = 7 * hd * hd * b * t * h        # per (i, j): kv, u*kv, +, r*, sum, w*S, +kv
+        # per (i, j): r*S into the sum, k*v, w*S + kv; the bonus term factors
+        # into v_j * sum_i r_i u_i k_i, about 4 more per j
+        flops = (5 * hd + 4) * hd * b * t * h
         sets = cold_copies(lambda: wkv_inputs(b, t, h, hd, gen, dev),
                            4 * seq_bytes + state_bytes)
         out["wkv6" + (f" {tag}" if tag else "")] = row(
@@ -544,6 +560,40 @@ def timings(dev) -> dict:
             lambda r, k, v, w, u, s0: wkv.wkv6(r, k, v, w, u, s0, out_state=s0),
             lambda r, k, v, w, u, s0: plain_scan(r, k, v, w, u, s0, out_state=s0),
             None, sets, bound(nbytes, flops, torch.float32))
+        if tag:
+            out["wkv6 decode"]["host_us"] = host_us(
+                lambda r, k, v, w, u, s0: wkv.wkv6(r, k, v, w, u, s0, out_state=s0), sets[0])
+    out["wkv6 plans"] = wkv6_plans(gen, dev)
+    return out
+
+
+def wkv6_plans(gen, dev) -> dict:
+    """K3's device and event times at the engine's prefill shape under split_plan's
+    plan and under narrower CTAs (more of them per head), and at one head
+    alone: whether the split or the step loop holds the kernel.  These
+    launches go to the kernel directly and are not counted."""
+    from repro_torch.kernels.rwkv import wkv
+
+    def launch(plan):
+        def call(r, k, v, w, u, s0):
+            b, t, h, hd = r.shape
+            o = torch.empty_like(r)
+            err = wkv._kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                                u.data_ptr(), s0.data_ptr(), o.data_ptr(), s0.data_ptr(),
+                                b, t, h, hd, *plan, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"K3 under plan {plan}: CUDA error {err}")
+        return call
+
+    out = {}
+    for (b, t, h, hd) in ((4, 100, 32, 64), (1, 100, 1, 64)):
+        sets = cold_copies(lambda: wkv_inputs(b, t, h, hd, gen, dev),
+                           4 * (4 * b * t * h * hd + b * h * hd * hd))
+        p, cols, lanes = wkv.split_plan(hd)
+        for c in ((cols, cols // 2, cols // 4) if b * h > 1 else (cols,)):
+            plan = (hd // c, c, lanes)
+            out[f"{(b, t, h, hd)} plan {plan}"] = (device_ms(launch(plan), sets),
+                                                    time_ms(launch(plan), sets))
     return out
 
 
@@ -641,7 +691,7 @@ def rwkv_breakdown(eng, cfg, dev) -> None:
     w_bytes, layer_params, head_params = weight_counts(eng.params)
     hd = cfg.d_model // cfg.num_heads
     state_bytes = cfg.num_layers * b * (cfg.num_heads * hd * hd * 4 + 2 * cfg.d_model * 2)
-    wkv_flops = 7 * hd * cfg.d_model * cfg.num_layers * b   # per token, K3
+    wkv_flops = 5 * hd * cfg.d_model * cfg.num_layers * b   # per token, K3 (timings())
 
     def prefills(_):
         for _ in range(4):
@@ -729,6 +779,9 @@ def main() -> int:
                              "src/repro/kernels/decode/flash_decode.py:62"),
             "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv/wkv.py:57")}
     rows = []
+    plans = times.pop("wkv6 plans")
+    log("[time] wkv6 device / event ms by split plan (CTAs per head, columns, lanes), the "
+        "first split_plan's: " + "; ".join(f"{k} {d:.4f} / {e:.4f}" for k, (d, e) in plans.items()))
     for name, t in times.items():
         bound_ms, bound_by = t["bound"]
         library = ("none" if t["library_ms"] is None else

@@ -1,4 +1,5 @@
-"""PyTorch and CUDA port of the dense serving path of ``repro`` (see ROADMAP.md).
+"""PyTorch and CUDA port of the serving paths of ``repro``: the dense
+(deepseek-7b) and the RWKV-6 (rwkv6-1.6b) families (see ROADMAP.md).
 
 The package imports ``torch`` and nothing of ``jax`` or ``repro``; its tests hold
 it against the JAX package on the same weights and inputs.  Entry points run on

@@ -61,7 +61,11 @@
 
 namespace {
 
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::NEG;
+using repro::smem_u32;
 using repro::store;
 using repro::to_f32;
 using bf16 = __nv_bfloat16;
@@ -243,23 +247,6 @@ template <int HD>
 constexpr size_t mma_smem_bytes() {
   // the q tile, and two stages of the k and v tiles
   return sizeof(bf16) * (BQ + 4 * BK) * (HD + PAD);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy to shared memory; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four 8x8 bf16 matrices; lane l addresses row l%8 of matrix l/8

@@ -9,6 +9,8 @@ The dense and ssm (RWKV-6) families are ported so far.
 """
 from __future__ import annotations
 
+from repro_torch import resolve_device
+
 from . import ssm, transformer
 from .common import ModelConfig
 
@@ -42,5 +44,8 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig):
     return module_for(cfg).decode_step(params, cache, token, pos, cfg)
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cpu"):
-    return module_for(cfg).init_cache(cfg, batch, seq, dtype, device)
+def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cuda"):
+    """A zeroed cache (or recurrent state) on ``device``: the card unless
+    the caller asks for the CPU; raises when the card is asked for and
+    there is none."""
+    return module_for(cfg).init_cache(cfg, batch, seq, dtype, resolve_device(device))

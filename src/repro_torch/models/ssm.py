@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.kernels import dispatch
 from .common import ModelConfig, apply_norm, dense, dense_init, norm_init
 from .layers import embed, embed_init, unembed
@@ -166,8 +167,9 @@ def _layer(x, lp, state, cfg: ModelConfig):
 # ----------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int = 0, dtype=None,
-               device="cpu") -> dict:
+               device="cuda") -> dict:
     """RWKV 'cache' = recurrent state; O(1) in seq (seq arg ignored)."""
+    device = resolve_device(device)
     d, h = cfg.d_model, cfg.num_heads
     hd = d // h
     sdt = dtype or cfg.cdt

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
+
 from .common import ModelConfig, apply_norm, norm_init
 from .layers import (attn_init, attention_decode, attention_full, embed,
                      embed_init, mlp_apply, mlp_init, unembed)
@@ -83,7 +85,8 @@ def forward(params, tokens, cfg: ModelConfig):
 # ----------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
-               device="cpu") -> dict:
+               device="cuda") -> dict:
+    device = resolve_device(device)
     dt = dtype or cfg.cdt
     shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),

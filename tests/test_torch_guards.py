@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs import deepseek_7b, rwkv6_1p6b
+from repro_torch.models import api
 from repro_torch.serving.continuous import ContinuousServer
 from repro_torch.serving.engine import InferenceEngine
 
@@ -67,6 +68,16 @@ def test_rwkv_engine_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(cfg, max_cache=16)
     assert InferenceEngine(cfg, max_cache=16, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("cfg", [deepseek_7b.SMOKE, rwkv6_1p6b.SMOKE], ids=lambda c: c.family)
+def test_init_cache_defaults_to_the_card(cfg):
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in api.init_cache(cfg, 2, 16).values())
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_cache(cfg, 2, 16)
+    assert all(t.device.type == "cpu" for t in api.init_cache(cfg, 2, 16, device="cpu").values())
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -161,12 +161,13 @@ def test_flash_decode_shared_mask_equals_per_row_broadcast():
 # K3 plain version vs Pallas (interpret)
 # ----------------------------------------------------------------------
 
-def _wkv_inputs(b, t, h, hd, seed=0):
+def _wkv_inputs(b, t, h, hd, seed=0, log_decay=-2.0):
     """The reference test's inputs (``test_kernels.py``): realistic decays
-    w = exp(-exp(randn - 2)), a bonus u and a small initial state."""
+    w = exp(-exp(randn + log_decay)), a bonus u and a small initial state.
+    ``log_decay`` near +2 gives decays near 0, near -6 decays near 1."""
     shape = (b, t, h, hd)
     r, k, v = (_rand(shape, seed + i) for i in range(3))
-    w = np.exp(-np.exp(_rand(shape, seed + 3) - 2.0)).astype(np.float32)
+    w = np.exp(-np.exp(_rand(shape, seed + 3) + log_decay)).astype(np.float32)
     u = _rand((h, hd), seed + 4) * 0.5
     s0 = _rand((b, h, hd, hd), seed + 5) * 0.1
     return r, k, v, w, u, s0
@@ -256,6 +257,27 @@ def test_split_plan_covers_every_tile_once(b, kh, s):
     tiles = -(-s // fd.TILE)
     assert splits * per >= tiles > (splits - 1) * per    # no empty split
     assert splits == 1 or b * kh * (splits - 1) < fd.CTAS_PER_SM * fd.SMS
+
+
+@pytest.mark.parametrize("hd", wkv.HEAD_DIMS)
+def test_wkv6_split_plan_covers_every_column_once(hd):
+    """For every B*H from 1 to 128, the grid of B*H*P CTAs (CTA id = bh * P
+    + p, columns p*cols .. p*cols + cols - 1) covers each column of each
+    (b, h) exactly once, with CTAs the kernel takes: whole warps (or the
+    whole head, where it is smaller), at most THREADS threads, lanes of ROWS
+    rows and COLS columns each."""
+    p, cols, lanes = wkv.split_plan(hd)
+    assert lanes * wkv.ROWS == hd and p * cols == hd
+    assert cols & (cols - 1) == 0 and wkv.COLS <= cols
+    threads = cols // wkv.COLS * lanes
+    assert threads == wkv.THREADS or (cols == hd and threads < wkv.THREADS)
+    for bh in range(1, 129):
+        seen = np.zeros((bh, hd), np.int64)
+        for cta in range(bh * p):
+            seen[cta // p, cta % p * cols:(cta % p + 1) * cols] += 1
+        assert (seen == 1).all()
+    if hd == 64:   # the rwkv6-1.6b engine: more CTAs than B*H = 128
+        assert (p, cols, lanes) == (2, 32, 16)
 
 
 def test_build_targets_hopper_from_repo_sources():
@@ -421,16 +443,22 @@ def test_flash_decode_kernel_all_false_row_is_the_mean_of_v(cuda, dtype, tol, fo
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,t,h,hd", [
-    (4, 100, 32, 64),     # the engine's prefill at full width
-    (4, 1, 32, 64),       # its decode step
-    (1, 2048, 32, 64),    # a long prompt
-    (2, 96, 2, 32),
-    (1, 256, 1, 16),
-    (2, 128, 4, 128),
+@pytest.mark.parametrize("b,t,h,hd,log_decay", [
+    (4, 100, 32, 64, -2.0),    # the engine's prefill at full width
+    (4, 1, 32, 64, -2.0),      # its decode step
+    (1, 2048, 32, 64, -2.0),   # a long prompt
+    (2, 96, 2, 32, -2.0),
+    (1, 256, 1, 16, -2.0),
+    (2, 128, 4, 128, -2.0),
+    (1, 100, 1, 64, -2.0),     # B*H = 1: the plan's narrowest CTAs
+    (2, 100, 8, 128, -2.0),    # head dim 128 at the prefill length
+    (2, 37, 4, 64, -2.0),      # T not a multiple of the chunk
+    (4, 100, 32, 64, 2.0),     # decays near 0
+    (4, 100, 32, 64, -6.0),    # decays near 1
 ])
-def test_wkv6_kernel_matches_plain(cuda, b, t, h, hd):
-    r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda) for a in _wkv_inputs(b, t, h, hd))
+def test_wkv6_kernel_matches_plain(cuda, b, t, h, hd, log_decay):
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda)
+                         for a in _wkv_inputs(b, t, h, hd, log_decay=log_decay))
     n = wkv.launches
     o, s = wkv.wkv6(r, k, v, w, u, s0)
     torch.cuda.synchronize()
@@ -462,3 +490,6 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
         wkv.wkv6(r.double(), k, v, w, u, s0)
     with pytest.raises(ValueError, match="contiguous"):
         wkv.wkv6(r.transpose(1, 2), k, v, w, u, s0)
+    shifted = torch.empty(r.numel() + 1, device=cuda)[1:].view(r.shape).copy_(r)
+    with pytest.raises(ValueError, match="aligned"):
+        wkv.wkv6(shifted, k, v, w, u, s0)

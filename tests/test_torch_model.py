@@ -193,7 +193,7 @@ def test_prefill_writes_a_preallocated_cache_in_place(weights):
     _, params = weights
     toks = torch.from_numpy(_tokens((2, 8), 7))
     want, fresh = api.prefill(params, {"tokens": toks}, CFG, cache_len=16)
-    cache = api.init_cache(CFG, 2, 16)
+    cache = api.init_cache(CFG, 2, 16, device="cpu")
     for t in cache.values():
         t.fill_(7.0)   # stale contents past the prompt must be zeroed
     got, same = api.prefill(params, {"tokens": toks}, CFG, cache_len=16, cache=cache)

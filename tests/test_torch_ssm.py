@@ -275,7 +275,7 @@ def test_prefill_resets_a_preallocated_state(weights):
     _, params = weights
     toks = torch.from_numpy(_tokens((2, 9), 15))
     want, fresh = api.prefill(params, {"tokens": toks}, CFG)
-    cache = api.init_cache(CFG, 2, 64)
+    cache = api.init_cache(CFG, 2, 64, device="cpu")
     for t in cache.values():
         t.fill_(7.0)       # a stale state must not leak into the prompt
     got, same = api.prefill(params, {"tokens": toks}, CFG, cache=cache)
@@ -296,7 +296,7 @@ def test_init_cache_has_the_reference_layout():
     for dtype in (None, torch.bfloat16):
         ref_dtype = None if dtype is None else jnp.bfloat16
         want = ref_ssm.init_cache(REF_CFG, 3, 99, ref_dtype)
-        got = api.init_cache(CFG, 3, 99, dtype)
+        got = api.init_cache(CFG, 3, 99, dtype, device="cpu")
         assert {n: (tuple(t.shape), str(t.dtype).split(".")[-1]) for n, t in got.items()} == \
             {n: (a.shape, str(a.dtype)) for n, a in want.items()}
 
