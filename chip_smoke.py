@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Two paths, each at full width: deepseek-7b (the dense path, kernels K1
-flash-attention and K2 flash-decode) and rwkv6-1.6b (the RWKV-6 path, kernel
-K3 WKV-6).  Phases, in order; any failure exits non-zero:
-  1. the card's name and power limit (nvidia-smi);
+Two serving paths, each at full width: deepseek-7b (the dense path, kernels
+K1 flash-attention and K2 flash-decode) and rwkv6-1.6b (the RWKV-6 path,
+kernel K3 WKV-6); the paper's three CNN payloads at 224 px; and the
+calibration that turns all five into the serverless simulator's numbers.
+Phases, in order; any failure exits non-zero:
+  1. the card's name and power limit (nvidia-smi), and the seconds of
+     ``import torch`` and of the first CUDA context in a fresh process;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each, all
      at once) and print the build time and ptxas's register/shared-memory lines;
   3. hold each kernel against its plain PyTorch version on the card: each
@@ -22,7 +25,12 @@ K3 WKV-6).  Phases, in order; any failure exits non-zero:
      ``ContinuousServer``, rwkv through ``generate`` and ``generate_stream``
      — with every kernel's launch count set to 0 just before and read just
      after;
-  5. each kernel's time at its path's shapes (the engine's, and for K1 and
+  5. SqueezeNet, ResNet-18 and ResNeXt-50 at 224 px, float32, seeded
+     weights: batch 1 and batch 4 of random images on the card against the
+     CPU (top-1 and logits), parameter MB against the paper's, the first
+     call's and the warm forward's ms, the device time and launches of a
+     forward (torch.profiler), and its bound;
+  6. each kernel's time at its path's shapes (the engine's, and for K1 and
      K2 the continuous server's too): CUDA events over back-to-back calls
      (inputs rotated through copies that span four times the L2) and the
      device time of the same calls from a torch.profiler trace (every kernel
@@ -30,9 +38,15 @@ K3 WKV-6).  Phases, in order; any failure exits non-zero:
      PyTorch library call's time where there is one; the K1, K2 and K3
      wrappers' host time per call; and K3 under narrower split plans than
      its own and at one head alone;
-  6. where a full-width prefill's and decode step's time goes, per path: host
+  7. where a full-width prefill's and decode step's time goes, per path: host
      wall, device time by kernel (torch.profiler) and each one's bound;
-  7. one JSON line with the kernels, then the last line ``{"ok": true, ...}``.
+  8. with the engines of phases 4-7 freed, the port's ``calibrate`` of the
+     three CNNs, deepseek-7b and rwkv6-1.6b at full width into a temporary
+     cache file: every entry printed and checked against the v2 schema, K1
+     and K2 launched while deepseek-7b is measured and K3 while rwkv6-1.6b
+     is, the handlers built from the cache, the peak memory (this phase
+     follows 6 and 7 because it frees the engines they use);
+  9. one JSON line with the kernels, then the last line ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -68,6 +83,26 @@ RWKV_REL_TOL = {torch.bfloat16: 1e-1, torch.float32: 1e-3}
 # the error of the recurrence grows with the state, so it is held relative
 # to the largest magnitude of each output (o, and the final state)
 WKV_REL_TOL = 1e-5
+# a CNN forward on the card against the same forward on the CPU, float32 on
+# both sides with TF32 off: cuDNN and the CPU's convolutions sum in other
+# orders (and may pick Winograd or FFT algorithms), which at 224 px and up to
+# 50 layers comes to about 1e-5 relative L2; a TF32 convolution (10 bits of
+# mantissa) would be off by about 1e-3
+CNN_REL_TOL = 1e-4
+# The seeded random CNNs give every image nearly the same logits; the part
+# that differs from image to image (the logits less their batch mean, about
+# 5% of the whole at 57 and 64 px on the CPU) is held on its own at batch 4,
+# so that a mix-up of the images in a batch fails.  Against that part the
+# same sum-order error is about 20 times larger, hence 10 times the
+# tolerance; and the part must be there at all.
+CNN_CENTRED_TOL = 1e-3
+CNN_MIN_PER_IMAGE_SHARE = 1e-3
+# the paper's package MB, and the range the reference's tests accept
+CNN_PAPER_MB = {"squeezenet": (5, 3, 7), "resnet18": (45, 40, 50), "resnext50": (98, 85, 105)}
+CALIBRATED = ["squeezenet", "resnet18", "resnext50", "deepseek-7b", "rwkv6-1.6b"]
+CNN_ENTRY = {"kind", "warm_exec_s", "first_call_s"}
+LLM_ENTRY = {"kind", "warm_exec_s", "init_s", "compile_s", "package_mb", "tokens_per_s",
+             "batch_curve"}
 
 
 def log(msg: str) -> None:
@@ -402,12 +437,27 @@ def rwkv_engine(cfg, dev):
     return eng
 
 
-def to_float32(tree):
+def tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: to_float32(v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [to_float32(v) for v in tree]
-    return tree.float()
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def redraw_bn(tree, gen):
+    """``tree`` with every folded BatchNorm's scale drawn from U(0.5, 1.5)
+    and its bias from N(0, 0.1) on ``gen``'s device: the init's 1 and 0
+    would hide a BatchNorm dropped or broadcast on the wrong axis."""
+    if isinstance(tree, list):
+        return [redraw_bn(t, gen) for t in tree]
+    if not isinstance(tree, dict):
+        return tree
+    if set(tree) == {"scale", "bias"}:
+        c, dev = tree["scale"].shape, tree["scale"].device
+        return {"scale": 0.5 + torch.rand(c, generator=gen, device=dev),
+                "bias": 0.1 * torch.randn(c, generator=gen, device=dev)}
+    return {k: redraw_bn(v, gen) for k, v in tree.items()}
 
 
 def rwkv_logits_check(params, cfg, dev) -> None:
@@ -470,7 +520,7 @@ def rwkv_main_path(eng, cfg) -> dict:
 
 
 def timings(dev) -> dict:
-    """Phase 5: each kernel at its paths' shapes, by CUDA events and by
+    """Phase 6: each kernel at its paths' shapes, by CUDA events and by
     device time, beside its bound, its plain version and a library call."""
     import torch.nn.functional as F
 
@@ -597,10 +647,13 @@ def wkv6_plans(gen, dev) -> dict:
     return out
 
 
-def profiled(tag, setup, body, n, nbytes, flops, watch=()) -> None:
+def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
+             top=10) -> tuple[float, float, float]:
     """Host wall of ``body(setup())`` per one of its ``n`` calls, then its
-    device time by kernel from torch.profiler, beside the bound: the ten
-    largest kernels, and any kernel whose name holds a string of ``watch``."""
+    device time by kernel from torch.profiler, beside the bound (operations
+    at ``dtype``'s peak): the ``top`` largest kernels, and any kernel whose
+    name holds a string of ``watch``.  Returns the host wall, the device
+    time and the kernel launches, per call (device time 0: not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -619,18 +672,20 @@ def profiled(tag, setup, body, n, nbytes, flops, watch=()) -> None:
     once(prof)
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
-    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
-    log(f"[{tag}] host wall {wall_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by})")
+    launches = sum(e.count for e in kern) / n
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    log(f"[{tag}] host wall {wall_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
     if device_ms == 0:
         log(f"[{tag}] device time: not measured (the trace holds no device time)")
-        return
-    log(f"[{tag}] device time {device_ms:.3f} ms, busy share of the host wall "
-        f"{device_ms / wall_ms:.3f}; by kernel, per call:")
+        return wall_ms, 0.0, launches
+    log(f"[{tag}] device time {device_ms:.4f} ms in {launches:.1f} kernel launches, busy "
+        f"share of the host wall {device_ms / wall_ms:.3f}; by kernel, per call:")
     ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
-        if i < 10 or any(w in e.key for w in watch):
+        if i < top or any(w in e.key for w in watch):
             log(f"[{tag}]   {e.self_device_time_total / 1e3 / n:8.4f} ms  "
                 f"{e.count / n:6.1f} launches  {e.key[:90]}")
+    return wall_ms, device_ms, launches
 
 
 def weight_counts(params) -> tuple[int, int, int]:
@@ -644,7 +699,7 @@ def weight_counts(params) -> tuple[int, int, int]:
 
 
 def breakdown(eng, cfg, dev) -> None:
-    """Phase 6 for deepseek: where the engine's time goes at full width, for
+    """Phase 7 for deepseek: where the engine's time goes at full width, for
     a prefill (batch 4, bucket 128) and for a decode step (batch 4, 100..115
     cached positions): the host wall, the device time by kernel from
     torch.profiler, and the least time the card could take (every weight
@@ -680,7 +735,7 @@ def breakdown(eng, cfg, dev) -> None:
 
 
 def rwkv_breakdown(eng, cfg, dev) -> None:
-    """Phase 6 for rwkv: a full-width prefill (batch 4, 100 tokens, exact)
+    """Phase 7 for rwkv: a full-width prefill (batch 4, 100 tokens, exact)
     and a decode step (batch 4).  Bound: every weight but the embedding
     table read once, the recurrent state written (prefill) or read and
     written (decode) once, the matrix products at the bf16 peak and K3's
@@ -714,6 +769,157 @@ def rwkv_breakdown(eng, cfg, dev) -> None:
              ("wkv6_kernel",))
 
 
+def bootstrap_line() -> None:
+    """The seconds of ``import torch`` and of the first CUDA context in a
+    fresh process: the torch counterparts of the cold BOOTSTRAP that the
+    simulator models as a constant (1.0 s for modern handlers, 1.2 s for
+    the paper's MXNet import)."""
+    code = ("import time; t0 = time.perf_counter(); import torch; "
+            "t1 = time.perf_counter(); torch.zeros(1, device='cuda'); "
+            "torch.cuda.synchronize(); t2 = time.perf_counter(); "
+            "print(t1 - t0, t2 - t1)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=300).stdout.split()
+    log(f"[bootstrap] a fresh process: import torch {float(out[0]):.3f} s, first CUDA "
+        f"context (one tensor on the card) {float(out[1]):.3f} s")
+
+
+def cnn_phase(dev) -> dict:
+    """Phase 5: the paper's three CNN payloads at full size (224 px,
+    float32, seeded weights, every folded BatchNorm's scale and bias redrawn
+    from U(0.5, 1.5) and N(0, 0.1) in place of the init's 1 and 0): batch 1
+    (the paper's Lambda request) and batch 4 of random images on the card
+    against the CPU on the same weights, then
+    the first call's and the warm forward's time, the device time and
+    kernel launches of a forward, and its bound."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import PAPER_MODELS
+    from repro_torch.models import cnn
+    from repro_torch.models.common import param_bytes
+
+    out = {}
+    images = torch.randn((4, 3, 224, 224), generator=torch.Generator().manual_seed(10))
+    for name, spec in PAPER_MODELS.items():
+        cfg = spec.config
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = redraw_bn(cnn.init_params(cfg, gen, dev), gen)
+        cpu_params = tree_map(torch.Tensor.cpu, params)
+        mb = param_bytes(params) / 1e6
+        lo, hi = CNN_PAPER_MB[name][1:]
+        log(f"[cnn] {name} ({cfg.name}): {mb:.2f} MB of float32 parameters (the paper: "
+            f"{CNN_PAPER_MB[name][0]} MB; accepted {lo}-{hi})")
+        if not lo <= mb <= hi:
+            raise SystemExit(f"{name}: {mb:.2f} MB of parameters, outside {lo}-{hi}")
+        x1 = images[:1].to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cnn.forward(params, x1, cfg)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        row = {"first_ms": first_ms, "mb": mb}
+        for b in (1, 4):
+            x = images[:b].to(dev)
+            got = cnn.forward(params, x, cfg).cpu()
+            want = cnn.forward(cpu_params, images[:b], cfg)
+            rel = ((got - want).norm() / want.norm()).item()
+            same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+            # the per-image part: the logits less their batch mean
+            centred, want_centred = got - got.mean(0), want - want.mean(0)
+            share = (want_centred.norm() / want.norm()).item()
+            crel = ((centred - want_centred).norm() / want_centred.norm()).item() if b > 1 else 0.0
+            log(f"[cnn] {name} batch {b} 224 px: card vs CPU logits rel_l2={rel:.3e} "
+                f"(tol {CNN_REL_TOL:g}) max_abs={(got - want).abs().max().item():.3e} "
+                f"top-1 {'equal' if same else 'DIFFERS'}: {got.argmax(-1).tolist()}"
+                + (f"; per-image part {share:.3e} of the logits (at least "
+                   f"{CNN_MIN_PER_IMAGE_SHARE:g}), its rel_l2={crel:.3e} (tol "
+                   f"{CNN_CENTRED_TOL:g})" if b > 1 else ""))
+            if not torch.isfinite(got).all() or rel > CNN_REL_TOL or not same or (
+                    b > 1 and (share < CNN_MIN_PER_IMAGE_SHARE or crel > CNN_CENTRED_TOL)):
+                raise SystemExit(f"{name} batch {b}: the card's forward disagrees with the CPU's")
+            walls = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cnn.forward(params, x, cfg)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with FlopCounterMode(display=False) as fc:
+                cnn.forward(params, x, cfg)
+            flops = fc.get_total_flops()
+            # the weights and images read once, the logits written once
+            nbytes = param_bytes(params) + x.numel() * 4 + b * cfg.num_classes * 4
+            _, dev_ms, launches = profiled(
+                f"cnn {name} b{b}", lambda: None,
+                lambda _: [cnn.forward(params, x, cfg) for _ in range(10)], 10,
+                nbytes, flops, dtype=torch.float32, top=5 if b == 1 else 0)
+            bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+            row[b] = {"warm_ms": float(np.median(walls)), "device_ms": dev_ms,
+                      "launches": launches, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "gflop": flops / 1e9, "rel": rel, "centred_rel": crel}
+            log(f"[cnn] {name} batch {b}: first call {first_ms:.3f} ms (batch 1), warm "
+                f"{row[b]['warm_ms']:.3f} ms (median of 20), device {dev_ms:.4f} ms in "
+                f"{launches:.0f} launches, bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        out[name] = row
+        del params, cpu_params
+    return out
+
+
+def calibration_phase(dev) -> None:
+    """Phase 8: the port's calibration of all five models at full width on
+    the card, into a temporary cache file, every launch counter set to 0
+    before each model and read after it: K1 and K2 must launch while
+    deepseek-7b is measured and K3 while rwkv6-1.6b is."""
+    from repro_torch.core import calibration
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.rwkv import wkv
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    measure, launches = calibration.measure_model, {}
+
+    def counted(name, **kw):
+        flash.launches = fd.launches = wkv.launches = 0
+        entry = measure(name, **kw)
+        launches[name] = {"flash_attention": flash.launches, "flash_decode": fd.launches,
+                          "wkv6": wkv.launches}
+        return entry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "calibration_torch.json")
+        t0 = time.perf_counter()
+        with mock.patch.object(calibration, "measure_model", counted):
+            cache = calibration.calibrate(path, force=True, models=CALIBRATED)
+        wall = time.perf_counter() - t0
+        if calibration.load_cache(path) != cache:
+            raise SystemExit("calibration: the cache file does not load back as written")
+    log(f"[calibration] {len(cache['models'])} models in {wall:.1f} s; host "
+        f"{json.dumps(cache['host'])}")
+    for name in CALIBRATED:
+        entry = cache["models"][name]
+        log(f"[calibration] {name}: {json.dumps(entry)}; launches {launches[name]}")
+        want = CNN_ENTRY if entry.get("kind") == "cnn" else LLM_ENTRY
+        times = [v for k, v in entry.items() if k.endswith("_s")]
+        if set(entry) != want or not all(v > 0 and math.isfinite(v) for v in times):
+            raise SystemExit(f"calibration entry {name}: fields {sorted(entry)} or times "
+                             f"{times} are not those of the v2 schema")
+    curves = {n: len(cache["models"][n]["batch_curve"]) for n in ("deepseek-7b", "rwkv6-1.6b")}
+    if curves != {"deepseek-7b": 3, "rwkv6-1.6b": 0}:
+        raise SystemExit(f"calibration: batch curves of {curves} points")
+    ds, rw = launches["deepseek-7b"], launches["rwkv6-1.6b"]
+    if not (ds["flash_attention"] and ds["flash_decode"] and rw["wkv6"]):
+        raise SystemExit(f"calibration: a kernel of the LLM paths never launched: {launches}")
+    for name in CALIBRATED:
+        h = (calibration.paper_handler(name, calibrated=cache)
+             if name in calibration.PAPER_MODELS else
+             calibration.modern_handler(name, calibrated=cache))
+        log(f"[calibration] handler {h}")
+    log(f"[memory] calibration peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU",
@@ -731,6 +937,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}")
+    bootstrap_line()
 
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -761,7 +968,7 @@ def main() -> int:
     rcfg = get("rwkv6-1.6b").config
     reng = rwkv_engine(rcfg, dev)
     rwkv_logits_check(reng.params, rcfg, dev)
-    rwkv_logits_check(to_float32(reng.params),
+    rwkv_logits_check(tree_map(torch.Tensor.float, reng.params),
                       rcfg.replace(param_dtype="float32", compute_dtype="float32"), dev)
     flash.launches = fd.launches = wkv.launches = 0
     rwkv_e2e = rwkv_main_path(reng, rcfg)
@@ -772,6 +979,7 @@ def main() -> int:
         raise SystemExit(f"K3 never launched on the {rcfg.name} path")
     log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    cnns = cnn_phase(dev)
     times = timings(dev)
     meta = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/attention/flash.py:69"),
@@ -802,9 +1010,16 @@ def main() -> int:
     breakdown(eng, cfg, dev)
     del eng
     rwkv_breakdown(reng, rcfg, dev)
+    del reng
+    calibration_phase(dev)
     for name, r in ((cfg.name, e2e), (rcfg.name, rwkv_e2e)):
         log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms, "
             f"decode {r['decode_tok_s']:.1f} tok/s ({card})")
+    for name, r in cnns.items():
+        log(f"[cnn] {name} 224 px: first call {r['first_ms']:.3f} ms; warm batch 1 "
+            f"{r[1]['warm_ms']:.3f} ms (device {r[1]['device_ms']:.4f}, bound "
+            f"{r[1]['bound_ms']:.4f}), batch 4 {r[4]['warm_ms']:.3f} ms (device "
+            f"{r[4]['device_ms']:.4f}, bound {r[4]['bound_ms']:.4f}) ({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,24 @@
-"""Architecture registry of the port: the architectures it can serve so far."""
+"""Architecture registry of the port: the language models it can serve so
+far (``ARCHS``, which the serve CLI offers), and the paper's CNN payloads
+(``PAPER_MODELS``); ``get`` finds both."""
 from __future__ import annotations
 
-from repro_torch.configs import deepseek_7b, rwkv6_1p6b
+from repro_torch.configs import cnn_configs, deepseek_7b, rwkv6_1p6b
 from repro_torch.configs.base import ArchSpec
 
 ARCHS: dict[str, ArchSpec] = {s.arch_id: s for s in (deepseek_7b.SPEC, rwkv6_1p6b.SPEC)}
 
+# the paper's own serving payloads
+PAPER_MODELS: dict[str, ArchSpec] = {
+    s.arch_id: s for s in
+    (cnn_configs.SQUEEZENET, cnn_configs.RESNET18, cnn_configs.RESNEXT50)
+}
+
+ALL: dict[str, ArchSpec] = {**ARCHS, **PAPER_MODELS}
+
 
 def get(arch_id: str) -> ArchSpec:
-    if arch_id not in ARCHS:
+    if arch_id not in ALL:
         raise KeyError(f"architecture {arch_id!r} is not ported yet; the port "
-                       f"serves {sorted(ARCHS)} (the rest: ROADMAP.md Queue 1)")
-    return ARCHS[arch_id]
+                       f"serves {sorted(ALL)} (the rest: ROADMAP.md Queue 1)")
+    return ALL[arch_id]

@@ -44,7 +44,7 @@ def split_plan(hd: int) -> tuple[int, int, int]:
     holds a ROWS x COLS block of a head's state, so a column spans hd / ROWS
     lanes, and a CTA takes as many columns as THREADS threads hold (the
     whole head where it is narrower).  Narrower CTAs, more of them per
-    head, were slower on the card (``chip_smoke.py`` phase 5 times the
+    head, were slower on the card (``chip_smoke.py`` phase 6 times the
     engine's prefill under each), so the plan depends on hd alone."""
     lanes = hd // ROWS
     cols = min(hd, COLS * THREADS // lanes)

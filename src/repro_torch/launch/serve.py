@@ -17,8 +17,10 @@ import numpy as np
 
 
 def main(argv=None):
+    from repro_torch.configs.registry import ARCHS
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--prompt", type=int, default=16)
@@ -29,11 +31,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs.registry import get
     from repro_torch.serving.batcher import Batcher, PendingRequest
     from repro_torch.serving.engine import InferenceEngine
 
-    spec = get(args.arch)
+    spec = ARCHS[args.arch]
     cfg = spec.smoke if args.smoke else spec.config
     eng = InferenceEngine(cfg, max_cache=args.prompt + args.n_new + 8,
                           device=args.device)

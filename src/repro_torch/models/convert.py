@@ -13,6 +13,12 @@ bfloat16 tree.
 Dense weights stay ``(d_in, d_out)`` and the port applies them as ``x @ w``,
 as the reference does, so nothing is transposed.  bfloat16 arrays (numpy's
 ``ml_dtypes.bfloat16``) are carried over bit for bit.
+
+The cnn trees (``repro.models.cnn.init_params``) keep their lists
+(``fires``, ``blocks``), which are not stacked.  Their 4-D conv weights go
+from HWIO to OIHW, PyTorch's layout; everything else (``fc.w`` as
+``(d_in, d_out)``, the folded BatchNorm's ``scale`` and ``bias``) is copied
+as it is.
 """
 from __future__ import annotations
 
@@ -36,6 +42,15 @@ def _convert(tree, device):
     return _tensor(tree, device)
 
 
+def _convert_cnn(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert_cnn(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert_cnn(v, device) for v in tree]
+    t = _tensor(tree, device)
+    return t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
+
+
 def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
@@ -43,11 +58,13 @@ def _layer(tree, i: int):
 
 
 def from_reference(np_params: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """np_params: the reference dense or ssm param tree with numpy leaves."""
-    if cfg.is_moe or cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(f"{cfg.name}: only the dense and ssm families are "
-                                  "ported (ROADMAP.md Queue 1)")
+    """np_params: the reference dense, ssm or cnn param tree with numpy leaves."""
+    if cfg.is_moe or cfg.family not in ("dense", "ssm", "cnn"):
+        raise NotImplementedError(f"{cfg.name}: only the dense, ssm and cnn families "
+                                  "are ported (ROADMAP.md Queue 1)")
     dev = resolve_device(device)
+    if cfg.family == "cnn":
+        return _convert_cnn(np_params, dev)
     layers = np_params["layers"]
     n = len(layers["ln1"]["scale"])
     if n != cfg.num_layers:

@@ -128,6 +128,10 @@ class ContinuousServer:
     def submit(self, req: Request):
         self.queue.append(req)
 
+    def n_active(self) -> int:
+        """Slots currently holding an in-flight sequence."""
+        return int(self.active.sum())
+
     @property
     def steps(self) -> int:
         """Fused decode steps taken so far (the throughput denominator)."""

@@ -9,8 +9,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs import deepseek_7b, rwkv6_1p6b
-from repro_torch.models import api
+from repro_torch.configs import deepseek_7b, registry, rwkv6_1p6b
+from repro_torch.core import calibration
+from repro_torch.models import api, cnn
 from repro_torch.serving.continuous import ContinuousServer
 from repro_torch.serving.engine import InferenceEngine
 
@@ -38,7 +39,8 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
     for module in ("models/transformer.py", "kernels/dispatch.py", "serving/continuous.py",
                    "launch/serve.py", "configs/registry.py", "models/ssm.py",
-                   "kernels/rwkv/wkv.py"):
+                   "kernels/rwkv/wkv.py", "models/cnn.py", "core/calibration.py",
+                   "core/function.py", "serving/handler.py"):
         assert module in names
     assert "torch" in _imported_roots(ROOT / "src" / "repro_torch" / "__init__.py")
 
@@ -78,6 +80,29 @@ def test_init_cache_defaults_to_the_card(cfg):
     with pytest.raises(RuntimeError, match="CUDA"):
         api.init_cache(cfg, 2, 16)
     assert all(t.device.type == "cpu" for t in api.init_cache(cfg, 2, 16, device="cpu").values())
+
+
+@pytest.mark.parametrize("name", sorted(registry.PAPER_MODELS))
+def test_cnn_init_params_defaults_to_the_card(name):
+    cfg = registry.get(name).smoke
+    if torch.cuda.is_available():
+        params = cnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        assert params["conv1"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cnn.init_params(cfg, torch.Generator().manual_seed(0))
+    assert not cnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")["conv1"].is_cuda
+
+
+def test_calibration_defaults_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        assert calibration.host_fingerprint()["backend"] == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibration.measure_model("squeezenet", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibration.calibrate(str(tmp_path / "cal.json"), models=["squeezenet"], smoke=True)
+    assert not (tmp_path / "cal.json").exists()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

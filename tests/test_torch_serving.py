@@ -195,6 +195,32 @@ def test_continuous_inactive_slots_keep_writing_at_their_frozen_position():
     assert srv.cache["k"][:, 0, frozen].abs().sum() > 0
 
 
+def test_continuous_n_active_counts_the_slots_in_flight_as_the_reference():
+    """Admission fills free slots, a finished sequence frees its slot, and
+    the queue refills it: the count follows the reference's step by step."""
+    ref = ref_continuous.ContinuousServer(REF_CFG, slots=3, max_seq=32, seed=0)
+    srv = ContinuousServer(CFG, slots=3, max_seq=32, params=_port_params(ref.params),
+                           device="cpu")
+    reqs = [(0, [1, 2, 3], 2), (1, [4, 5], 4), (2, [6, 7, 8, 9], 1), (3, [3, 3], 3),
+            (4, [5], 2)]
+    for server, cls in ((ref, ref_continuous.Request), (srv, Request)):
+        assert server.n_active() == 0
+        for rid, prompt, n_new in reqs:
+            server.submit(cls(rid=rid, prompt=prompt, n_new=n_new))
+    counts = []
+    for server in (ref, srv):
+        server.prefill_pending()
+        seen = [server.n_active()]
+        for _ in range(4):
+            server.step()
+            seen.append(server.n_active())
+            server.prefill_pending()
+            seen.append(server.n_active())
+        counts.append(seen)
+    assert counts[0] == counts[1]
+    assert counts[1][0] == 2 and max(counts[1]) == 3 and counts[1][-1] < 3
+
+
 def test_chunk_decomposition():
     assert list(_chunks(7)) == [4, 2, 1]
     assert list(_chunks(200)) == [64, 64, 64, 8]
