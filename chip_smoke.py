@@ -20,11 +20,15 @@ Phases, in order; any failure exits non-zero:
      is not a multiple of its chunk, decays near 0 and near 1, and the state
      updated in place at T=1 and T=100;
   4. each path in bf16 with seeded random weights: logits (and for rwkv the
-     recurrent state) on the kernel path against the plain path, then the
-     path itself — deepseek through the engine's ``generate`` and the
-     ``ContinuousServer``, rwkv through ``generate`` and ``generate_stream``
-     — with every kernel's launch count set to 0 just before and read just
-     after;
+     recurrent state) on the kernel path against the plain path; the tokens
+     of the uncaptured decode step (the step function itself, run eagerly
+     on the card), greedy and sampled; then the path itself, every decode
+     step a replay of its captured CUDA graph — deepseek through the
+     engine's ``generate`` and the ``ContinuousServer``, rwkv through
+     ``generate`` and ``generate_stream`` — with every kernel's launch count
+     set to 0 just before and read just after: the replayed tokens must
+     equal the uncaptured step's, and K2's and K3's counts, replays
+     included, layers x steps;
   5. SqueezeNet, ResNet-18 and ResNeXt-50 at 224 px, float32, seeded
      weights: batch 1 and batch 4 of random images on the card against the
      CPU (top-1 and logits), parameter MB against the paper's, the first
@@ -39,7 +43,9 @@ Phases, in order; any failure exits non-zero:
      wrappers' host time per call; and K3 under narrower split plans than
      its own and at one head alone;
   7. where a full-width prefill's and decode step's time goes, per path: host
-     wall, device time by kernel (torch.profiler) and each one's bound;
+     wall, device time by kernel (torch.profiler), the host's launch calls
+     and each one's bound; the decode step replayed (its trace must name K2's
+     or K3's kernels) and uncaptured, with the busy share of each;
   8. with the engines of phases 4-7 freed, the port's ``calibrate`` of the
      three CNNs, deepseek-7b and rwkv6-1.6b at full width into a temporary
      cache file: every entry printed and checked against the v2 schema, K1
@@ -99,6 +105,8 @@ CNN_CENTRED_TOL = 1e-3
 CNN_MIN_PER_IMAGE_SHARE = 1e-3
 # the paper's package MB, and the range the reference's tests accept
 CNN_PAPER_MB = {"squeezenet": (5, 3, 7), "resnet18": (45, 40, 50), "resnext50": (98, 85, 105)}
+# sampled decoding in phase 4: temperature and seed
+SAMPLE_T, SAMPLE_SEED = 0.8, 17
 CALIBRATED = ["squeezenet", "resnet18", "resnext50", "deepseek-7b", "rwkv6-1.6b"]
 CNN_ENTRY = {"kind", "warm_exec_s", "first_call_s"}
 LLM_ENTRY = {"kind", "warm_exec_s", "init_s", "compile_s", "package_mb", "tokens_per_s",
@@ -374,12 +382,74 @@ def logits_check(eng, cfg, dev) -> None:
             raise SystemExit(f"full-width {what}: kernel path disagrees with plain path")
 
 
-def main_path(eng, cfg, dev) -> dict:
-    """Phase 4b: the engine and the continuous server at full width."""
-    from repro_torch.serving.continuous import ContinuousServer, Request
+def uncaptured():
+    """New decode steps stay uncaptured: ``DecodeGraph.replay`` then runs
+    the step function itself, through the same static buffers, on the card.
+    The reference that the replayed steps are held against."""
+    from repro_torch.serving import graphs
+    return mock.patch.object(graphs.DecodeGraph, "capture", lambda self: None)
 
-    gen = torch.Generator().manual_seed(2)
-    prompts = torch.randint(0, cfg.vocab_size, (4, 100), generator=gen)
+
+def serve(srv, reqs) -> tuple[dict, float]:
+    """Drain ``reqs`` through ``srv``: ({rid: tokens}, wall seconds)."""
+    for r in reqs:
+        srv.submit(r)
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    return {c.rid: c.tokens for c in done}, time.perf_counter() - t0
+
+
+def deepseek_inputs(cfg) -> tuple:
+    """The engine's prompts (4, 100) and the server's 8 requests."""
+    from repro_torch.serving.continuous import Request
+
+    prompts = torch.randint(0, cfg.vocab_size, (4, 100), generator=torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=int(rng.integers(20, 301))).tolist(),
+                    n_new=int(rng.integers(8, 25))) for i in range(8)]
+    return prompts, reqs
+
+
+def uncaptured_tokens(eng, prompts, reqs=None) -> dict:
+    """The tokens of the uncaptured decode step on the card, on ``eng``'s
+    weights: the engine greedy and sampled, and the server's completions."""
+    from repro_torch.serving.continuous import ContinuousServer
+    from repro_torch.serving.engine import InferenceEngine
+
+    with uncaptured():
+        plain = InferenceEngine(eng.cfg, params=eng.params, max_cache=eng.max_cache)
+        out = {"greedy": plain.generate(prompts, 32).tokens,
+               "sampled": plain.generate(prompts, 32, temperature=SAMPLE_T,
+                                         seed=SAMPLE_SEED).tokens}
+        if reqs is not None:
+            srv = ContinuousServer(eng.cfg, slots=4, max_seq=512, params=eng.params)
+            out["server"], _ = serve(srv, reqs)
+            if srv.compile_stats()["graphs"]:
+                raise SystemExit("the uncaptured server captured a graph")
+    if plain.compile_stats()["graphs"]:
+        raise SystemExit("the uncaptured engine captured a graph")
+    return out
+
+
+def same_tokens(what: str, got, want) -> None:
+    ok = torch.equal(got, want) if isinstance(got, torch.Tensor) else got == want
+    log(f"[graph] {what}: replayed tokens equal the uncaptured step's: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{what}: the replayed decode step's tokens differ from the "
+                         "uncaptured step's")
+
+
+def main_path(eng, cfg, want: dict, prompts, reqs) -> dict:
+    """Phase 4b: the engine (greedy twice, sampled once) and the continuous
+    server (the 8 requests twice) at full width, each decode step a replay
+    of its captured graph, held against the uncaptured step's tokens.
+    Returns the rates and the decode steps that ran on the card (replays and
+    each capture's warm-up step)."""
+    from repro_torch.serving.continuous import ContinuousServer
+
     first = eng.generate(prompts, 32)
     res = eng.generate(prompts, 32)
     toks = res.tokens
@@ -387,33 +457,34 @@ def main_path(eng, cfg, dev) -> dict:
         raise SystemExit(f"generate: bad tokens {toks.shape}")
     if not torch.equal(first.tokens, toks):
         raise SystemExit("generate: two greedy runs on the same prompts differ")
+    same_tokens(f"{cfg.name} engine greedy, batch 4, 32 new", toks, want["greedy"])
+    sampled = eng.generate(prompts, 32, temperature=SAMPLE_T, seed=SAMPLE_SEED)
+    same_tokens(f"{cfg.name} engine sampled (temperature {SAMPLE_T}, seed {SAMPLE_SEED})",
+                sampled.tokens, want["sampled"])
     log(f"[engine] generate batch 4, prompt 100 (bucket 128), max_cache 256, 32 new: "
         f"prefill {res.prefill_s * 1e3:.3f} ms, decode {res.decode_s * 1e3:.3f} ms, "
-        f"{res.tokens_per_s:.1f} tok/s")
+        f"{res.tokens_per_s:.1f} tok/s; sampled {sampled.tokens_per_s:.1f} tok/s; "
+        f"graphs captured {eng.compile_stats()['graphs']}")
 
     srv = ContinuousServer(cfg, slots=4, max_seq=512, params=eng.params)
-    rng = np.random.default_rng(3)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               size=int(rng.integers(20, 301))).tolist(),
-                    n_new=int(rng.integers(8, 25))) for i in range(8)]
-    for r in reqs:
-        srv.submit(r)
-    t0 = time.perf_counter()
-    done = srv.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    want = {r.rid: r.n_new for r in reqs}
-    got = {c.rid: c.tokens for c in done}
-    if sorted(got) != sorted(want) or any(len(got[r]) != n for r, n in want.items()):
-        raise SystemExit(f"continuous server: completions {[(c.rid, len(c.tokens)) for c in done]}"
-                         f" do not match the requests {want}")
-    if any(not 0 <= t < cfg.vocab_size for c in done for t in c.tokens):
+    got, first_wall = serve(srv, reqs)
+    same_tokens(f"{cfg.name} server, 8 requests on 4 slots", got, want["server"])
+    got, wall = serve(srv, reqs)
+    same_tokens(f"{cfg.name} server, the same 8 requests again on its graph", got,
+                want["server"])
+    if any(len(got[r.rid]) != r.n_new for r in reqs):
+        raise SystemExit(f"continuous server: completions {[len(t) for t in got.values()]}"
+                         f" do not match the requests")
+    if any(not 0 <= t < cfg.vocab_size for t in sum(got.values(), [])):
         raise SystemExit("continuous server: token out of the vocabulary")
-    n_tok = sum(want.values())
+    n_tok = sum(r.n_new for r in reqs)
     log(f"[server] 8 requests, prompts {min(len(r.prompt) for r in reqs)}-"
         f"{max(len(r.prompt) for r in reqs)} tokens, 4 slots, max_seq 512: {n_tok} tokens "
-        f"in {wall:.3f} s ({n_tok / wall:.1f} tok/s), {srv.steps} decode steps")
-    return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s}
+        f"in {wall:.3f} s ({n_tok / wall:.1f} tok/s; the first drain, which captures, "
+        f"{first_wall:.3f} s), {srv.steps} decode steps over both")
+    captures = eng.compile_stats()["graphs"] + srv.compile_stats()["graphs"]
+    return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s,
+            "server_tok_s": n_tok / wall, "steps": 3 * 31 + srv.steps + captures}
 
 
 def rwkv_engine(cfg, dev):
@@ -497,9 +568,12 @@ def rwkv_logits_check(params, cfg, dev) -> None:
                              "path disagrees with plain path")
 
 
-def rwkv_main_path(eng, cfg) -> dict:
+def rwkv_main_path(eng, cfg, want: dict) -> dict:
     """Phase 4b for rwkv: the engine at batch 4, prompt 100 (exact, no
-    bucket), 32 new tokens, through ``generate`` twice and ``generate_stream``."""
+    bucket), 32 new tokens, through ``generate`` twice and
+    ``generate_stream`` greedy and ``generate`` sampled, each decode step a
+    replay, held against the uncaptured step's tokens.  Returns the rates,
+    the prefills and the decode steps that ran on the card."""
     gen = torch.Generator().manual_seed(8)
     prompts = torch.randint(0, cfg.vocab_size, (4, 100), generator=gen)
     first = eng.generate(prompts, 32)
@@ -509,14 +583,26 @@ def rwkv_main_path(eng, cfg) -> dict:
         raise SystemExit(f"{cfg.name} generate: bad tokens {toks.shape}")
     if not torch.equal(first.tokens, toks):
         raise SystemExit(f"{cfg.name} generate: two greedy runs on the same prompts differ")
+    same_tokens(f"{cfg.name} engine greedy, batch 4, 32 new", toks, want["greedy"])
     stream = eng.generate_stream(prompts, 32)
     if not torch.equal(stream.tokens, toks):
         raise SystemExit(f"{cfg.name}: generate_stream's tokens differ from generate's")
+    sampled = eng.generate(prompts, 32, temperature=SAMPLE_T, seed=SAMPLE_SEED)
+    same_tokens(f"{cfg.name} engine sampled (temperature {SAMPLE_T}, seed {SAMPLE_SEED})",
+                sampled.tokens, want["sampled"])
     log(f"[engine] {cfg.name} generate batch 4, prompt 100 (exact), 32 new: prefill "
         f"{res.prefill_s * 1e3:.3f} ms, decode {res.decode_s * 1e3:.3f} ms, "
         f"{res.tokens_per_s:.1f} tok/s; generate_stream equal, "
-        f"{stream.tokens_per_s:.1f} tok/s")
-    return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s}
+        f"{stream.tokens_per_s:.1f} tok/s; sampled {sampled.tokens_per_s:.1f} tok/s; "
+        f"graphs captured {eng.compile_stats()['graphs']}")
+    return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s,
+            "prefills": 4, "steps": 4 * 31 + eng.compile_stats()["graphs"]}
+
+
+def rwkv_uncaptured_tokens(eng) -> dict:
+    gen = torch.Generator().manual_seed(8)
+    prompts = torch.randint(0, eng.cfg.vocab_size, (4, 100), generator=gen)
+    return uncaptured_tokens(eng, prompts)
 
 
 def timings(dev) -> dict:
@@ -647,13 +733,22 @@ def wkv6_plans(gen, dev) -> dict:
     return out
 
 
+# the CUDA API calls (`cuda*` and `cu*`) that put work on a stream, as the
+# profiler names them: a kernel launch, a graph launch, a copy, a fill
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
 def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
-             top=10) -> tuple[float, float, float]:
+             top=10, require=()) -> tuple[float, float, float, float]:
     """Host wall of ``body(setup())`` per one of its ``n`` calls, then its
     device time by kernel from torch.profiler, beside the bound (operations
     at ``dtype``'s peak): the ``top`` largest kernels, and any kernel whose
-    name holds a string of ``watch``.  Returns the host wall, the device
-    time and the kernel launches, per call (device time 0: not measured)."""
+    name holds a string of ``watch``; fails if no kernel's name holds a
+    string of ``require``.  Returns the host wall, the device time, the
+    kernel launches and the host's launch calls (``LAUNCH_CALLS``), per
+    call (device time 0: not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -670,14 +765,21 @@ def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
     wall_ms = once()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     once(prof)
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
     launches = sum(e.count for e in kern) / n
+    calls = sum(e.count for e in events if e.key in LAUNCH_CALLS) / n
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    log(f"[{tag}] host wall {wall_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"[{tag}] host wall {wall_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
+        f"{calls:.1f} host launch calls (" + ", ".join(
+            f"{e.key} {e.count / n:.1f}" for e in events if e.key in LAUNCH_CALLS) + ")")
+    missing = [r for r in require if not any(r in e.key for e in kern)]
+    if missing:
+        raise SystemExit(f"[{tag}] no kernel named {missing} in the trace")
     if device_ms == 0:
         log(f"[{tag}] device time: not measured (the trace holds no device time)")
-        return wall_ms, 0.0, launches
+        return wall_ms, 0.0, launches, calls
     log(f"[{tag}] device time {device_ms:.4f} ms in {launches:.1f} kernel launches, busy "
         f"share of the host wall {device_ms / wall_ms:.3f}; by kernel, per call:")
     ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
@@ -685,7 +787,7 @@ def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
         if i < top or any(w in e.key for w in watch):
             log(f"[{tag}]   {e.self_device_time_total / 1e3 / n:8.4f} ms  "
                 f"{e.count / n:6.1f} launches  {e.key[:90]}")
-    return wall_ms, device_ms, launches
+    return wall_ms, device_ms, launches, calls
 
 
 def weight_counts(params) -> tuple[int, int, int]:
@@ -698,13 +800,46 @@ def weight_counts(params) -> tuple[int, int, int]:
             count_params(params["layers"]), count_params(params["embed"]) - table.numel())
 
 
-def breakdown(eng, cfg, dev) -> None:
+def decode_steps(tag, eng, setup, pos, n, nbytes, flops, watch) -> tuple:
+    """Phase 7's decode rows: ``n`` replays of the engine's captured step at
+    batch 4 from position ``pos``, after ``setup(engine)`` (a prefill that
+    returns the last logits), then ``n`` steps of an uncaptured step on the
+    same weights.  The replayed trace must hold the
+    ``watch`` kernels.  -> (host wall, device ms, host launch calls) of a
+    replayed step, then of an uncaptured one."""
+    from repro_torch.serving.engine import InferenceEngine
+
+    def run(engine):
+        step = engine._decoder(4, 0.0)    # before the prefill: a capture runs a step
+
+        def prefill():
+            step.start(setup(engine).argmax(-1), pos)
+
+        def body(_):
+            for _ in range(n):
+                step.replay()
+        return prefill, body
+
+    out = []
+    with uncaptured():
+        plain = InferenceEngine(eng.cfg, params=eng.params, max_cache=eng.max_cache)
+        plain_run = run(plain)
+    for name, (prefill, body) in ((f"{tag} replayed", run(eng)),
+                                  (f"{tag} uncaptured", plain_run)):
+        wall, dev_ms, _, calls = profiled(name, prefill, body, n, nbytes, flops, watch,
+                                          require=watch if "replayed" in name else ())
+        out += [wall, dev_ms, calls]
+    return tuple(out)
+
+
+def breakdown(eng, cfg, dev) -> tuple:
     """Phase 7 for deepseek: where the engine's time goes at full width, for
     a prefill (batch 4, bucket 128) and for a decode step (batch 4, 100..115
-    cached positions): the host wall, the device time by kernel from
-    torch.profiler, and the least time the card could take (every weight
-    but the embedding table read once, the cache read or written once, the
-    matrix products at the bf16 peak)."""
+    cached positions), replayed and uncaptured: the host wall, the device
+    time by kernel from torch.profiler, the host's launch calls, and the
+    least time the card could take (every weight but the embedding table
+    read once, the cache read or written once, the matrix products at the
+    bf16 peak).  Returns the decode rows (``decode_steps``)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     b, s, last = 4, 128, 99
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
@@ -721,25 +856,19 @@ def breakdown(eng, cfg, dev) -> None:
              2 * layer_params * b * s + 2 * head_params * b + attn_flops, ("flash_fwd",))
 
     n = 16
-
-    def decode(state):
-        logits, cache = state
-        tok = logits.argmax(-1)
-        for i in range(n):
-            logits, cache = eng._decode(cache, tok, last + 1 + i)
-            tok = logits.argmax(-1)
-
-    profiled("decode", lambda: eng._prefill(tokens, last, eng.max_cache), decode, n,
-             w_bytes + kv_row * b * (last + 1 + n // 2),
-             2 * (layer_params + head_params) * b, ("decode_split", "decode_combine"))
+    return decode_steps("decode", eng, lambda e: e._prefill(tokens, last, e.max_cache)[0],
+                        last + 1, n,
+                        w_bytes + kv_row * b * (last + 1 + n // 2),
+                        2 * (layer_params + head_params) * b,
+                        ("decode_split", "decode_combine"))
 
 
-def rwkv_breakdown(eng, cfg, dev) -> None:
+def rwkv_breakdown(eng, cfg, dev) -> tuple:
     """Phase 7 for rwkv: a full-width prefill (batch 4, 100 tokens, exact)
-    and a decode step (batch 4).  Bound: every weight but the embedding
-    table read once, the recurrent state written (prefill) or read and
-    written (decode) once, the matrix products at the bf16 peak and K3's
-    operations."""
+    and a decode step (batch 4), replayed and uncaptured.  Bound: every
+    weight but the embedding table read once, the recurrent state written
+    (prefill) or read and written (decode) once, the matrix products at the
+    bf16 peak and K3's operations."""
     gen = torch.Generator(device=dev).manual_seed(9)
     b, s = 4, 100
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
@@ -755,18 +884,9 @@ def rwkv_breakdown(eng, cfg, dev) -> None:
     profiled("rwkv prefill", lambda: None, prefills, 4, w_bytes + state_bytes,
              (2 * layer_params + wkv_flops) * b * s + 2 * head_params * b, ("wkv6_kernel",))
 
-    n = 16
-
-    def decode(state):
-        logits, cache = state
-        tok = logits.argmax(-1)
-        for i in range(n):
-            logits, cache = eng._decode(cache, tok, s + i)
-            tok = logits.argmax(-1)
-
-    profiled("rwkv decode", lambda: eng._prefill(tokens, None, s), decode, n,
-             w_bytes + 2 * state_bytes, (2 * (layer_params + head_params) + wkv_flops) * b,
-             ("wkv6_kernel",))
+    return decode_steps("rwkv decode", eng, lambda e: e._prefill(tokens, None, s)[0], s, 16,
+                        w_bytes + 2 * state_bytes,
+                        (2 * (layer_params + head_params) + wkv_flops) * b, ("wkv6_kernel",))
 
 
 def bootstrap_line() -> None:
@@ -849,7 +969,7 @@ def cnn_phase(dev) -> dict:
             flops = fc.get_total_flops()
             # the weights and images read once, the logits written once
             nbytes = param_bytes(params) + x.numel() * 4 + b * cfg.num_classes * 4
-            _, dev_ms, launches = profiled(
+            _, dev_ms, launches, _ = profiled(
                 f"cnn {name} b{b}", lambda: None,
                 lambda _: [cnn.forward(params, x, cfg) for _ in range(10)], 10,
                 nbytes, flops, dtype=torch.float32, top=5 if b == 1 else 0)
@@ -957,26 +1077,40 @@ def main() -> int:
         f"{eng.stats()['params'] / 1e9:.3f} B params {cfg.param_dtype}, "
         f"seeded init {time.perf_counter() - t0:.1f} s")
     logits_check(eng, cfg, dev)
+    prompts, reqs = deepseek_inputs(cfg)
+    want = uncaptured_tokens(eng, prompts, reqs)
 
     flash.launches = fd.launches = wkv.launches = 0
-    e2e = main_path(eng, cfg, dev)
+    e2e = main_path(eng, cfg, want, prompts, reqs)
     launches = {"flash_attention": flash.launches, "flash_decode": fd.launches}
-    log(f"[kernels] launches on the {cfg.name} path: {launches}, wkv6 {wkv.launches}")
+    log(f"[kernels] launches on the {cfg.name} path: {launches}, wkv6 {wkv.launches}; "
+        f"{e2e['steps']} decode steps on the card (replays and capture warm-ups) x "
+        f"{cfg.num_layers} layers = {e2e['steps'] * cfg.num_layers}")
     if min(launches.values()) == 0:
         raise SystemExit(f"a kernel of the {cfg.name} path never launched: {launches}")
+    if fd.launches != cfg.num_layers * e2e["steps"]:
+        raise SystemExit(f"K2 launched {fd.launches} times, not layers x steps "
+                         f"{cfg.num_layers * e2e['steps']}")
 
     rcfg = get("rwkv6-1.6b").config
     reng = rwkv_engine(rcfg, dev)
     rwkv_logits_check(reng.params, rcfg, dev)
     rwkv_logits_check(tree_map(torch.Tensor.float, reng.params),
                       rcfg.replace(param_dtype="float32", compute_dtype="float32"), dev)
+    rwant = rwkv_uncaptured_tokens(reng)
     flash.launches = fd.launches = wkv.launches = 0
-    rwkv_e2e = rwkv_main_path(reng, rcfg)
+    rwkv_e2e = rwkv_main_path(reng, rcfg, rwant)
     launches["wkv6"] = wkv.launches
+    k3_want = rcfg.num_layers * (rwkv_e2e["prefills"] + rwkv_e2e["steps"])
     log(f"[kernels] launches on the {rcfg.name} path: wkv6 {wkv.launches}, "
-        f"flash_attention {flash.launches}, flash_decode {fd.launches}")
+        f"flash_attention {flash.launches}, flash_decode {fd.launches}; "
+        f"{rcfg.num_layers} layers x ({rwkv_e2e['prefills']} prefills + "
+        f"{rwkv_e2e['steps']} decode steps) = {k3_want}")
     if wkv.launches == 0:
         raise SystemExit(f"K3 never launched on the {rcfg.name} path")
+    if wkv.launches != k3_want:
+        raise SystemExit(f"K3 launched {wkv.launches} times, not layers x (prefills + "
+                         f"steps) {k3_want}")
     log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     cnns = cnn_phase(dev)
@@ -1007,14 +1141,20 @@ def main() -> int:
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": t["library_ms"],
                          "library_device_ms": t["library_device_ms"]})
-    breakdown(eng, cfg, dev)
+    steps = {cfg.name: breakdown(eng, cfg, dev)}
     del eng
-    rwkv_breakdown(reng, rcfg, dev)
+    steps[rcfg.name] = rwkv_breakdown(reng, rcfg, dev)
     del reng
     calibration_phase(dev)
     for name, r in ((cfg.name, e2e), (rcfg.name, rwkv_e2e)):
         log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms, "
             f"decode {r['decode_tok_s']:.1f} tok/s ({card})")
+    log(f"[server] {cfg.name} full width: {e2e['server_tok_s']:.1f} tok/s ({card})")
+    for name, (wall, dev_ms, calls, pwall, pdev, pcalls) in steps.items():
+        log(f"[graph] {name} decode step, replayed: host wall {wall:.3f} ms, device "
+            f"{dev_ms:.4f} ms, busy {dev_ms / wall:.3f}, {calls:.1f} host launch calls; "
+            f"uncaptured: {pwall:.3f} ms, {pdev:.4f} ms, busy {pdev / pwall:.3f}, "
+            f"{pcalls:.1f} calls ({card})")
     for name, r in cnns.items():
         log(f"[cnn] {name} 224 px: first call {r['first_ms']:.3f} ms; warm batch 1 "
             f"{r[1]['warm_ms']:.3f} ms (device {r[1]['device_ms']:.4f}, bound "

@@ -26,7 +26,8 @@ Cache schema (v2), the reference's, so that ``repro.core.calibration``'s
        "<llm>": {"kind": "llm",
                  "warm_exec_s": steady generate (prefill+decode) seconds,
                  "init_s":      param init wall seconds,
-                 "compile_s":   warm-up wall: kernel builds and first launches,
+                 "compile_s":   warm-up wall: kernel builds, first launches and
+                                the decode step's CUDA-graph capture,
                  "package_mb":  parameter bytes / 1e6,
                  "tokens_per_s": steady decode throughput,
                  "batch_curve": [[batch, rel_per_request_cost], ...]
@@ -174,8 +175,8 @@ def _measure_batch_curve(cfg: ModelConfig, params: dict, *, device: torch.device
                          batches=(1, 2, 4), prompt: int = 8, steps: int = 6) -> list:
     """Per-request fused-decode cost vs batch size, from the port's
     ``ContinuousServer`` on ``params``: pin exactly ``b`` active slots, take
-    one untimed step (the first launches at that slot count), then time
-    ``steps`` steps.  Points are normalized (rel cost at batch 1 = 1.0) and
+    one untimed step (on the card it captures the server's decode step, so
+    the capture is never timed), then time ``steps`` steps.  Points are normalized (rel cost at batch 1 = 1.0) and
     clamped monotone by ``normalize_batch_curve``."""
     from repro_torch.serving.continuous import ContinuousServer, Request
     points = []

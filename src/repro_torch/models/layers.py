@@ -121,9 +121,15 @@ def attention_full(p: dict, x: torch.Tensor, positions: torch.Tensor,
 def attention_decode(p: dict, x: torch.Tensor, pos, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cfg: ModelConfig, *,
                      window: int | None = None):
-    """Single-token decode.  x: (B,1,d); pos: an int (the current index of
-    every row) or a (B,) int tensor of per-row positions (continuous
-    batching); cache_k/v: (B,S,K,hd) with entries < pos valid.
+    """Single-token decode.  x: (B,1,d); pos: a host int (the current index
+    of every row) or a (B,) int tensor of per-row positions on the device
+    (the continuous server, and the engine's captured decode step);
+    cache_k/v: (B,S,K,hd) with entries < pos valid.
+
+    A device position never leaves the device: the write goes through a
+    per-row index and the mask is (B,S), so the step can be captured and
+    replayed.  It takes the masked full-cache route; only a host int can
+    slice a window's live band out of a longer cache.
 
     The new k/v are written into cache_k/v IN PLACE (the counterpart of the
     reference's donated cache); returns (y, cache_k, cache_v)."""

@@ -5,13 +5,16 @@ positions decode together through the per-row-position decode path.  When a
 sequence finishes its slot is refilled from the queue at once.
 
 Device state (the (L,slots,max_seq,K,hd) KV cache, last tokens, per-row
-positions) lives on the device and is updated in place.  Control state
+positions, the ``active`` mask) lives on the device in static buffers and is
+updated in place, so one decode step, captured once into a CUDA graph at the
+first chunk (``serving/graphs.py``; eager on the CPU), serves every chunk.  Control state
 (``active``/``remaining``/``rid``) is host bookkeeping that evolves
 deterministically, copied from the reference unchanged.  ``run()`` decodes
 ``min(remaining)`` steps between admissions, in power-of-two chunks, and
-fetches each chunk's token block in one device-to-host copy; rows outside
-``active`` are frozen with ``where(active, ...)`` so the token streams equal
-a per-step loop's.  Admission runs one batched prefill per round (prompts
+fetches each chunk's token block in one device-to-host copy; a chunk is
+that many replays of the step, where the reference runs one scan.  Rows
+outside ``active`` are frozen with ``where(active, ...)`` so the token
+streams equal a per-step loop's.  Admission runs one batched prefill per round (prompts
 right-padded to a power-of-two bucket) and one in-place slot scatter.
 Greedy decoding.
 """
@@ -27,9 +30,11 @@ from repro_torch import resolve_device
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.engine import bucket_len
+from repro_torch.serving.graphs import BLOCK, DecodeGraph
 
-# fused-step chunk cap: step counts decompose into powers of two up to this
-MAX_CHUNK = 64
+# fused-step chunk cap: step counts decompose into powers of two up to this,
+# which the decode step's token block holds
+MAX_CHUNK = BLOCK
 
 
 def _chunks(k: int):
@@ -38,6 +43,18 @@ def _chunks(k: int):
         c = min(MAX_CHUNK, 1 << (k.bit_length() - 1))
         yield c
         k -= c
+
+
+def _advance(params, cache, active, cfg: ModelConfig):
+    """The greedy decode step over the pool-sized cache at per-row
+    positions; rows outside ``active`` keep their carry.  It holds what it
+    reads, not the server: no cycle keeps a dropped server's cache and
+    graph alive."""
+    def advance(tok, pos):
+        logits, _ = api.decode_step(params, cache, tok, pos, cfg)
+        nxt = torch.argmax(logits, dim=-1)
+        return nxt, torch.where(active, nxt, tok), torch.where(active, pos + 1, pos)
+    return advance
 
 
 @dataclasses.dataclass
@@ -77,9 +94,12 @@ class ContinuousServer:
         self.rid = [-1] * slots
         self.remaining = np.zeros(slots, np.int32)
         self.last_tok = np.zeros(slots, np.int32)
-        # device compute state, updated by the fused chunks
-        self._tok_dev = torch.zeros((slots,), dtype=torch.long, device=self.device)
-        self._pos_dev = torch.zeros((slots,), dtype=torch.long, device=self.device)
+        # device compute state: the decode step's static buffers, set by
+        # admission (copied into, never rebound) and advanced by the steps
+        self._active_dev = torch.zeros((slots,), dtype=torch.bool, device=self.device)
+        self._step = DecodeGraph(slots, self.device,
+                                 _advance(self.params, self.cache, self._active_dev, cfg))
+        self._tok_dev, self._pos_dev = self._step.tok, self._step.pos
         self.out: dict[int, list] = {}
         self.queue: deque[Request] = deque()
         self._done: list[Completion] = []
@@ -107,22 +127,15 @@ class ContinuousServer:
             full[:, slots, s:] = 0
 
     def _run_chunk(self, n_steps: int) -> np.ndarray:
-        """n_steps decode steps on device; returns the (n_steps, slots) token
+        """n_steps replays of the decode step (captured at the first chunk,
+        on the carry admission set); returns the (n_steps, slots) token
         block — the single device-to-host copy."""
         self._shapes["fused_step"].add(n_steps)
-        active = torch.as_tensor(self.active, device=self.device)
-        tok, pos = self._tok_dev, self._pos_dev
-        toks = torch.empty((n_steps, self.slots), dtype=torch.long, device=self.device)
-        for i in range(n_steps):
-            logits, self.cache = api.decode_step(self.params, self.cache, tok, pos,
-                                                 self.cfg)
-            nxt = torch.argmax(logits, dim=-1)
-            toks[i] = nxt
-            tok = torch.where(active, nxt, tok)
-            pos = torch.where(active, pos + 1, pos)
-        self._tok_dev, self._pos_dev = tok, pos
+        self._active_dev.copy_(torch.from_numpy(self.active))   # outside the graph
+        self._step.capture()
+        toks = self._step.run(n_steps).cpu().numpy()
         self._steps += n_steps
-        return toks.cpu().numpy()
+        return toks
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -191,9 +204,9 @@ class ContinuousServer:
             self.out[req.rid] = [tok]
             if req.n_new == 1:
                 self._finish(s)
-        # resync the device compute state from the host mirrors (H2D only)
-        self._tok_dev = torch.as_tensor(self.last_tok, device=self.device).long()
-        self._pos_dev = torch.as_tensor(self.pos, device=self.device).long()
+        # resync the device compute state from the host mirrors (H2D only),
+        # into the decode step's static buffers
+        self._step.start(torch.from_numpy(self.last_tok), torch.from_numpy(self.pos))
 
     def _finish(self, s: int):
         rid = self.rid[s]
@@ -243,5 +256,7 @@ class ContinuousServer:
     # ------------------------------------------------------------------
     def compile_stats(self) -> dict:
         """Distinct prefill shapes, chunk lengths and scatter shapes seen —
-        the counterparts of the reference's jit-cache sizes."""
-        return {k: len(v) for k, v in self._shapes.items()}
+        the counterparts of the reference's jit-cache sizes — and the decode
+        steps captured into CUDA graphs (0 on the CPU)."""
+        return {**{k: len(v) for k, v in self._shapes.items()},
+                "graphs": int(self._step.captured)}

@@ -1,16 +1,20 @@
 """InferenceEngine: the model-serving runtime, on the card.
 
-Wraps the ported families (dense, and ssm: RWKV-6) behind a prefill and an
-eager decode loop.  Dense prompt lengths are bucketed to powers of two, so the
+Wraps the ported families (dense, and ssm: RWKV-6) behind an eager prefill
+and a decode step that is captured once into a CUDA graph and replayed
+(``serving/graphs.py``; on the CPU the same step runs eagerly).  Dense prompt lengths are bucketed to powers of two, so the
 number of distinct prefill shapes grows with the number of buckets, not of
 prompt lengths; recurrent (ssm) prompts keep their exact length, since pad
 tokens would advance the state (``compile_stats`` counts the shapes, as the
 reference counts its jit caches).  The family's cache (a KV cache of
 ``max_cache`` positions, or the recurrent state) is preallocated, reused while
 the batch size holds and updated in place (the counterpart of the
-reference's donated cache).  Decode samples on the device and syncs with the
-host once, at the end; ``generate_stream`` is the per-token loop with a sync
-per token, for per-token latency.
+reference's donated cache).  The decode step is keyed on the batch (so on
+the cache) and the temperature; it carries the positions on the device, as
+the reference's scan carries them traced.  ``generate`` replays it
+``n_new - 1`` times and syncs with the host once, at the end;
+``generate_stream`` replays the same step with a sync per token, for
+per-token latency.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device, synchronize
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig, count_params
+from repro_torch.serving.graphs import BLOCK, DecodeGraph
 from repro_torch.serving.sampler import sample_token
 
 
@@ -57,6 +62,12 @@ class InferenceEngine:
         synchronize(self.device)
         self.load_s = time.perf_counter() - t0
         self._cache = None   # the family's cache at batch B, reused while B holds
+        # decode steps over that cache, by (batch, temperature)
+        self._graphs: dict[tuple, DecodeGraph] = {}
+        self._captures = 0
+        # sampling draws from this generator, reseeded per request; each
+        # sampling graph registers it
+        self._gen = torch.Generator(device=self.device)
         self._shapes = {"prefill": set(), "decode": set(), "decode_scan": set()}
         self.compiled = False
         self.compile_s = 0.0
@@ -65,19 +76,41 @@ class InferenceEngine:
     def _cache_for(self, batch: int) -> dict:
         """The preallocated cache (every family keeps the batch on axis 1)."""
         if self._cache is None or next(iter(self._cache.values())).shape[1] != batch:
-            self._cache = None   # free the old one before allocating
+            self._cache = None   # free the old one, and the steps captured on it
+            self._graphs.clear()
             self._cache = api.init_cache(self.cfg, batch, self.max_cache,
                                          device=self.device)
         return self._cache
+
+    def _decoder(self, batch: int, temperature: float) -> DecodeGraph:
+        """The decode step at ``batch`` rows and ``temperature`` over the
+        cache, captured at its first use and replayed while the cache lives.
+        Callers take it before the prefill: its capture runs one step on the
+        cache, which the prefill then resets."""
+        cache = self._cache_for(batch)
+        key = (batch, float(temperature))
+        if key not in self._graphs:
+            # the step holds what it reads, not the engine: no cycle keeps a
+            # dropped engine's weights and graphs alive
+            params, cfg = self.params, self.cfg
+            gen = self._gen if temperature > 0 else None
+
+            def advance(tok, pos):
+                logits, _ = api.decode_step(params, cache, tok, pos, cfg)
+                nxt = sample_token(logits, temperature, gen)
+                return nxt, nxt, pos + 1
+
+            step = DecodeGraph(batch, self.device, advance, generator=gen)
+            step.capture()
+            self._graphs[key] = step
+            self._captures += step.captured
+        return self._graphs[key]
 
     def _prefill(self, tokens, last_pos, cache_len: int):
         b, s = tokens.shape
         self._shapes["prefill"].add((b, s, cache_len, last_pos is None))
         return api.prefill(self.params, {"tokens": tokens}, self.cfg, cache_len,
                            last_pos=last_pos, cache=self._cache_for(b))
-
-    def _decode(self, cache, token, pos: int):
-        return api.decode_step(self.params, cache, token, pos, self.cfg)
 
     def _prompt(self, tokens, n_new: int):
         """The prompt on the device, right-padded to its bucket, the
@@ -92,14 +125,16 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def warmup(self, batch: int, prompt_len: int):
-        """Run both steps once (builds the kernels on first use on the card)
-        — the modern 'cold start'."""
+        """Run both steps once, capturing the greedy decode step (and
+        building the kernels on first use on the card) — the modern 'cold
+        start', as the reference's warmup compiles."""
         t0 = time.perf_counter()
         tokens = torch.zeros((batch, prompt_len), dtype=torch.long, device=self.device)
-        _, cache = self._prefill(tokens, None, self.max_cache)
+        step = self._decoder(batch, 0.0)
+        self._prefill(tokens, None, self.max_cache)
         self._shapes["decode"].add(batch)
-        self._decode(cache, torch.zeros((batch,), dtype=torch.long, device=self.device),
-                     prompt_len)
+        step.start(tokens[:, -1], prompt_len)
+        step.replay()
         synchronize(self.device)
         self.compile_s = time.perf_counter() - t0
         self.compiled = True
@@ -121,27 +156,27 @@ class InferenceEngine:
     def generate(self, tokens, n_new: int, *, temperature: float = 0.0,
                  seed: int = 0) -> GenerateResult:
         """tokens: (B, S) prompt (tensor, array or nested list).  Greedy or
-        temperature decoding of n_new tokens; one host sync for the decode."""
+        temperature decoding of n_new tokens: ``n_new - 1`` replays of the
+        decode step, one host sync for the decode."""
         tokens, last_pos, cache_len = self._prompt(tokens, n_new)
         b = tokens.shape[0]
         s = tokens.shape[1] if last_pos is None else last_pos + 1
+        step = self._decoder(b, temperature) if n_new > 1 else None
         t0 = time.perf_counter()
-        logits, cache = self._prefill(tokens, last_pos, cache_len)
+        logits, _ = self._prefill(tokens, last_pos, cache_len)
         synchronize(self.device)
         prefill_s = time.perf_counter() - t0
 
-        gen = torch.Generator(device=self.device).manual_seed(seed)
         t0 = time.perf_counter()
-        toks = torch.empty((b, n_new), dtype=torch.long, device=self.device)
-        tok = sample_token(logits, temperature, gen)
-        toks[:, 0] = tok
-        if n_new > 1:
+        toks = torch.empty((n_new, b), dtype=torch.long, device=self.device)
+        toks[0] = sample_token(logits, temperature, self._gen.manual_seed(seed))
+        if step is not None:
             self._shapes["decode_scan"].add((b, n_new - 1, float(temperature)))
-        for i in range(n_new - 1):
-            logits, cache = self._decode(cache, tok, s + i)
-            tok = sample_token(logits, temperature, gen)
-            toks[:, i + 1] = tok
-        toks = toks.cpu()      # the single host sync
+            step.start(toks[0], s)
+            for i in range(1, n_new, BLOCK):
+                n = min(BLOCK, n_new - i)
+                toks[i:i + n] = step.run(n)
+        toks = toks.T.cpu()      # the single host sync
         decode_s = time.perf_counter() - t0
         tps = (b * max(n_new - 1, 1)) / max(decode_s, 1e-9)
         return GenerateResult(tokens=toks, prefill_s=prefill_s,
@@ -149,25 +184,27 @@ class InferenceEngine:
 
     def generate_stream(self, tokens, n_new: int, *, temperature: float = 0.0,
                         seed: int = 0) -> GenerateResult:
-        """Per-token decoding: one host sync per token, for per-token
-        latency.  Emits the same tokens as ``generate``."""
+        """Per-token decoding: the same decode step replayed, with one host
+        sync per token, for per-token latency.  Emits the same tokens as
+        ``generate``."""
         tokens, last_pos, cache_len = self._prompt(tokens, n_new)
         b = tokens.shape[0]
         s = tokens.shape[1] if last_pos is None else last_pos + 1
+        step = self._decoder(b, temperature) if n_new > 1 else None
         t0 = time.perf_counter()
-        logits, cache = self._prefill(tokens, last_pos, cache_len)
+        logits, _ = self._prefill(tokens, last_pos, cache_len)
         synchronize(self.device)
         prefill_s = time.perf_counter() - t0
 
-        gen = torch.Generator(device=self.device).manual_seed(seed)
         self._shapes["decode"].add(b)
-        tok = sample_token(logits, temperature, gen)
+        tok = sample_token(logits, temperature, self._gen.manual_seed(seed))
         out, walls = [tok.cpu()], []
         t0 = prev = time.perf_counter()
-        for i in range(n_new - 1):
-            logits, cache = self._decode(cache, tok, s + i)
-            tok = sample_token(logits, temperature, gen)
-            out.append(tok.cpu())                     # per-token latency
+        if step is not None:
+            step.start(tok, s)
+        for _ in range(n_new - 1):
+            step.replay()
+            out.append(step.tok.to("cpu", copy=True))   # per-token latency
             now = time.perf_counter()
             walls.append(now - prev)
             prev = now
@@ -181,8 +218,9 @@ class InferenceEngine:
     def compile_stats(self) -> dict:
         """Distinct prefill shapes, per-token decode batches and fused
         decode lengths seen — the counterparts of the reference's jit-cache
-        sizes, which its bucketing tests assert on."""
-        return {k: len(v) for k, v in self._shapes.items()}
+        sizes, which its bucketing tests assert on — and the decode steps
+        captured into CUDA graphs (0 on the CPU)."""
+        return {**{k: len(v) for k, v in self._shapes.items()}, "graphs": self._captures}
 
     def stats(self) -> dict:
         return {"arch": self.cfg.name, "params": count_params(self.params),
