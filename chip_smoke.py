@@ -20,20 +20,27 @@ Phases, in order; any failure exits non-zero:
      is not a multiple of its chunk, decays near 0 and near 1, and the state
      updated in place at T=1 and T=100;
   4. each path in bf16 with seeded random weights: logits (and for rwkv the
-     recurrent state) on the kernel path against the plain path; the tokens
-     of the uncaptured decode step (the step function itself, run eagerly
-     on the card), greedy and sampled; then the path itself, every decode
+     recurrent state) on the kernel path against the plain path; the
+     uncaptured prefill's logits and the tokens of the uncaptured path (the
+     prefill and the decode step run eagerly on the card), greedy and
+     sampled; then the path itself, every prefill, admission and decode
      step a replay of its captured CUDA graph — deepseek through the
      engine's ``generate`` and the ``ContinuousServer``, rwkv through
      ``generate`` and ``generate_stream`` — with every kernel's launch count
-     set to 0 just before and read just after: the replayed tokens must
-     equal the uncaptured step's, and K2's and K3's counts, replays
-     included, layers x steps;
+     set to 0 just before and read just after: the replayed prefill's
+     logits must equal the uncaptured one's within the bf16 tolerance and
+     the replayed tokens the uncaptured path's; K1's count, replays
+     included, layers x prefills (replays and capture warm-ups), K2's
+     layers x steps and K3's layers x (prefills + steps); the server's
+     drain split between admission and decode, and the memory of its
+     admission graphs;
   5. SqueezeNet, ResNet-18 and ResNeXt-50 at 224 px, float32, seeded
      weights: batch 1 and batch 4 of random images on the card against the
      CPU (top-1 and logits), parameter MB against the paper's, the first
      call's and the warm forward's ms, the device time and launches of a
-     forward (torch.profiler), and its bound;
+     forward (torch.profiler), and its bound; the same forward captured
+     into a ``ForwardGraph``: its logits against the uncaptured forward's,
+     its first call, warm ms, device time and host launch calls;
   6. each kernel's time at its path's shapes (the engine's, and for K1 and
      K2 the continuous server's too): CUDA events over back-to-back calls
      (inputs rotated through copies that span four times the L2) and the
@@ -44,8 +51,9 @@ Phases, in order; any failure exits non-zero:
      its own and at one head alone;
   7. where a full-width prefill's and decode step's time goes, per path: host
      wall, device time by kernel (torch.profiler), the host's launch calls
-     and each one's bound; the decode step replayed (its trace must name K2's
-     or K3's kernels) and uncaptured, with the busy share of each;
+     and each one's bound; the prefill and the decode step each replayed
+     (the trace must name K1's, K2's or K3's kernels, and a replayed prefill
+     make one graph launch) and uncaptured, with the busy share of each;
   8. with the engines of phases 4-7 freed, the port's ``calibrate`` of the
      three CNNs, deepseek-7b and rwkv6-1.6b at full width into a temporary
      cache file: every entry printed and checked against the v2 schema, K1
@@ -383,21 +391,48 @@ def logits_check(eng, cfg, dev) -> None:
 
 
 def uncaptured():
-    """New decode steps stay uncaptured: ``DecodeGraph.replay`` then runs
-    the step function itself, through the same static buffers, on the card.
-    The reference that the replayed steps are held against."""
+    """New decode steps, prefills and CNN forwards stay uncaptured: their
+    ``replay`` then runs the step function itself, through the same static
+    buffers, on the card.  The reference that the replayed steps are held
+    against."""
     from repro_torch.serving import graphs
-    return mock.patch.object(graphs.DecodeGraph, "capture", lambda self: None)
+    return mock.patch.object(graphs.CapturedStep, "capture", lambda self: None)
 
 
 def serve(srv, reqs) -> tuple[dict, float]:
-    """Drain ``reqs`` through ``srv``: ({rid: tokens}, wall seconds)."""
+    """Drain ``reqs`` through ``srv``: ({rid: tokens}, wall seconds).  The
+    seconds spent in admission rounds (prefill, scatter and the first
+    tokens' copy to the host, which waits for them) and their count are
+    kept in ``srv.split``."""
+    admit, split = srv._admit, {"admit_s": 0.0, "rounds": 0}
+
+    def timed_admit():
+        t0 = time.perf_counter()
+        admitted = bool(srv.queue) and not srv.active.all()
+        admit()
+        split["admit_s"] += time.perf_counter() - t0
+        split["rounds"] += admitted
+
     for r in reqs:
         srv.submit(r)
     t0 = time.perf_counter()
-    done = srv.run()
+    with mock.patch.object(srv, "_admit", timed_admit):
+        done = srv.run()
     torch.cuda.synchronize()
+    srv.split = split
     return {c.rid: c.tokens for c in done}, time.perf_counter() - t0
+
+
+def graph_runs(step_graphs) -> int:
+    """The steps of ``step_graphs`` that ran on the card: each capture's
+    warm-up step and each replay."""
+    return sum(g.replays + g.captured for g in step_graphs)
+
+
+def pool_mb(pool) -> float:
+    """MB the caching allocator holds for the graph memory pool ``pool``."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool)) / 1e6
 
 
 def deepseek_inputs(cfg) -> tuple:
@@ -413,24 +448,48 @@ def deepseek_inputs(cfg) -> tuple:
 
 
 def uncaptured_tokens(eng, prompts, reqs=None) -> dict:
-    """The tokens of the uncaptured decode step on the card, on ``eng``'s
-    weights: the engine greedy and sampled, and the server's completions."""
+    """The uncaptured prefill's logits and the tokens of the uncaptured
+    prefill and decode step on the card, on ``eng``'s weights: the engine
+    greedy and sampled, and the server's completions and its drain's split
+    between admission and decode."""
     from repro_torch.serving.continuous import ContinuousServer
     from repro_torch.serving.engine import InferenceEngine
 
     with uncaptured():
         plain = InferenceEngine(eng.cfg, params=eng.params, max_cache=eng.max_cache)
-        out = {"greedy": plain.generate(prompts, 32).tokens,
+        logits, _ = plain._prefill(*plain._prompt(prompts, 32))
+        out = {"prefill": logits.clone(),
+               "greedy": plain.generate(prompts, 32).tokens,
                "sampled": plain.generate(prompts, 32, temperature=SAMPLE_T,
                                          seed=SAMPLE_SEED).tokens}
         if reqs is not None:
             srv = ContinuousServer(eng.cfg, slots=4, max_seq=512, params=eng.params)
-            out["server"], _ = serve(srv, reqs)
-            if srv.compile_stats()["graphs"]:
+            out["server"], wall = serve(srv, reqs)
+            out["server split"] = dict(srv.split, wall_s=wall)
+            if srv.compile_stats()["graphs"] or srv.compile_stats()["prefill_graphs"]:
                 raise SystemExit("the uncaptured server captured a graph")
-    if plain.compile_stats()["graphs"]:
+    if plain.compile_stats()["graphs"] or plain.compile_stats()["prefill_graphs"]:
         raise SystemExit("the uncaptured engine captured a graph")
     return out
+
+
+def prefill_check(eng, prompts, want) -> float:
+    """Phase 4: the engine's replayed prefill of ``prompts`` (capturing its
+    graph at the first use) against the uncaptured prefill's logits, on the
+    card.  -> the largest difference."""
+    tokens, last_pos, cache_len = eng._prompt(prompts, 32)
+    got, _ = eng._prefill(tokens, last_pos, cache_len)
+    graph = eng._prefills[tuple(tokens.shape)]
+    if not graph.captured:
+        raise SystemExit(f"{eng.cfg.name}: the prefill graph {tuple(tokens.shape)} was "
+                         "not captured")
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"[graph] {eng.cfg.name} prefill {tuple(tokens.shape)}, replayed vs uncaptured "
+        f"logits {tuple(got.shape)}: max abs difference {err:.3e}"
+        f"{' (bit for bit equal)' if err == 0 else ''}")
+    check(f"{eng.cfg.name} replayed prefill logits", got, want, TOL[got.dtype])
+    return err
 
 
 def same_tokens(what: str, got, want) -> None:
@@ -443,13 +502,16 @@ def same_tokens(what: str, got, want) -> None:
 
 
 def main_path(eng, cfg, want: dict, prompts, reqs) -> dict:
-    """Phase 4b: the engine (greedy twice, sampled once) and the continuous
-    server (the 8 requests twice) at full width, each decode step a replay
-    of its captured graph, held against the uncaptured step's tokens.
-    Returns the rates and the decode steps that ran on the card (replays and
-    each capture's warm-up step)."""
+    """Phase 4b: the engine (one prefill, then greedy twice, sampled once)
+    and the continuous server (the 8 requests twice) at full width, each
+    prefill, admission and decode step a replay of its captured graph, held
+    against the uncaptured prefill's logits and the uncaptured path's
+    tokens.  Returns the rates, the prefills and the decode steps that ran
+    on the card (replays and each capture's warm-up step), and the
+    server's drains split between admission and decode."""
     from repro_torch.serving.continuous import ContinuousServer
 
+    prefill_err = prefill_check(eng, prompts, want["prefill"])
     first = eng.generate(prompts, 32)
     res = eng.generate(prompts, 32)
     toks = res.tokens
@@ -482,9 +544,22 @@ def main_path(eng, cfg, want: dict, prompts, reqs) -> dict:
         f"{max(len(r.prompt) for r in reqs)} tokens, 4 slots, max_seq 512: {n_tok} tokens "
         f"in {wall:.3f} s ({n_tok / wall:.1f} tok/s; the first drain, which captures, "
         f"{first_wall:.3f} s), {srv.steps} decode steps over both")
+    admissions = [g for g, _ in srv._admissions.values()]
+    split = {"replayed": dict(srv.split, wall_s=wall), "uncaptured": want["server split"]}
+    for name, sp in split.items():
+        log(f"[server] drain split, {name}: {sp['wall_s']:.3f} s = admission "
+            f"{sp['admit_s']:.3f} s in {sp['rounds']} rounds (prefill, scatter and the "
+            f"first tokens) + decode and host bookkeeping {sp['wall_s'] - sp['admit_s']:.3f} s")
+    log(f"[memory] server admission graphs: buckets {sorted(srv._admissions)}, their shared "
+        f"pool {pool_mb(srv._pool):.1f} MB, the staging cache "
+        f"{sum(t.numel() * t.element_size() for t in srv._staging.values()) / 1e6:.1f} MB; "
+        f"the engine's prefill graphs {sorted(eng._prefills)}, pool "
+        f"{pool_mb(eng._pool):.1f} MB")
     captures = eng.compile_stats()["graphs"] + srv.compile_stats()["graphs"]
     return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s,
-            "server_tok_s": n_tok / wall, "steps": 3 * 31 + srv.steps + captures}
+            "server_tok_s": n_tok / wall, "steps": 3 * 31 + srv.steps + captures,
+            "prefills": graph_runs(eng._prefills.values()) + graph_runs(admissions),
+            "prefill_err": prefill_err, "split": split}
 
 
 def rwkv_engine(cfg, dev):
@@ -570,12 +645,14 @@ def rwkv_logits_check(params, cfg, dev) -> None:
 
 def rwkv_main_path(eng, cfg, want: dict) -> dict:
     """Phase 4b for rwkv: the engine at batch 4, prompt 100 (exact, no
-    bucket), 32 new tokens, through ``generate`` twice and
-    ``generate_stream`` greedy and ``generate`` sampled, each decode step a
-    replay, held against the uncaptured step's tokens.  Returns the rates,
-    the prefills and the decode steps that ran on the card."""
+    bucket), 32 new tokens, through one prefill, ``generate`` twice and
+    ``generate_stream`` greedy and ``generate`` sampled, each prefill and
+    decode step a replay, held against the uncaptured prefill's logits and
+    the uncaptured path's tokens.  Returns the rates, the prefills and the
+    decode steps that ran on the card (replays and capture warm-ups)."""
     gen = torch.Generator().manual_seed(8)
     prompts = torch.randint(0, cfg.vocab_size, (4, 100), generator=gen)
+    prefill_err = prefill_check(eng, prompts, want["prefill"])
     first = eng.generate(prompts, 32)
     res = eng.generate(prompts, 32)
     toks = res.tokens
@@ -596,7 +673,8 @@ def rwkv_main_path(eng, cfg, want: dict) -> dict:
         f"{stream.tokens_per_s:.1f} tok/s; sampled {sampled.tokens_per_s:.1f} tok/s; "
         f"graphs captured {eng.compile_stats()['graphs']}")
     return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s,
-            "prefills": 4, "steps": 4 * 31 + eng.compile_stats()["graphs"]}
+            "prefills": graph_runs(eng._prefills.values()),
+            "steps": 4 * 31 + eng.compile_stats()["graphs"], "prefill_err": prefill_err}
 
 
 def rwkv_uncaptured_tokens(eng) -> dict:
@@ -741,14 +819,15 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 
 def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
-             top=10, require=()) -> tuple[float, float, float, float]:
+             top=10, require=()) -> dict:
     """Host wall of ``body(setup())`` per one of its ``n`` calls, then its
     device time by kernel from torch.profiler, beside the bound (operations
     at ``dtype``'s peak): the ``top`` largest kernels, and any kernel whose
     name holds a string of ``watch``; fails if no kernel's name holds a
-    string of ``require``.  Returns the host wall, the device time, the
-    kernel launches and the host's launch calls (``LAUNCH_CALLS``), per
-    call (device time 0: not measured)."""
+    string of ``require``.  Returns the host wall (``wall``), the device
+    time (``device``, 0: not measured), the kernel launches
+    (``launches``), the host's launch calls (``calls``, ``LAUNCH_CALLS``)
+    and its graph launches (``graphs``), per call, in ms where a time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -770,6 +849,8 @@ def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
     device_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
     launches = sum(e.count for e in kern) / n
     calls = sum(e.count for e in events if e.key in LAUNCH_CALLS) / n
+    out = {"wall": wall_ms, "device": device_ms, "launches": launches, "calls": calls,
+           "graphs": sum(e.count for e in events if e.key == "cudaGraphLaunch") / n}
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     log(f"[{tag}] host wall {wall_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
         f"{calls:.1f} host launch calls (" + ", ".join(
@@ -779,7 +860,7 @@ def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
         raise SystemExit(f"[{tag}] no kernel named {missing} in the trace")
     if device_ms == 0:
         log(f"[{tag}] device time: not measured (the trace holds no device time)")
-        return wall_ms, 0.0, launches, calls
+        return out
     log(f"[{tag}] device time {device_ms:.4f} ms in {launches:.1f} kernel launches, busy "
         f"share of the host wall {device_ms / wall_ms:.3f}; by kernel, per call:")
     ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
@@ -787,7 +868,7 @@ def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
         if i < top or any(w in e.key for w in watch):
             log(f"[{tag}]   {e.self_device_time_total / 1e3 / n:8.4f} ms  "
                 f"{e.count / n:6.1f} launches  {e.key[:90]}")
-    return wall_ms, device_ms, launches, calls
+    return out
 
 
 def weight_counts(params) -> tuple[int, int, int]:
@@ -821,15 +902,40 @@ def decode_steps(tag, eng, setup, pos, n, nbytes, flops, watch) -> tuple:
         return prefill, body
 
     out = []
-    with uncaptured():
-        plain = InferenceEngine(eng.cfg, params=eng.params, max_cache=eng.max_cache)
-        plain_run = run(plain)
-    for name, (prefill, body) in ((f"{tag} replayed", run(eng)),
-                                  (f"{tag} uncaptured", plain_run)):
-        wall, dev_ms, _, calls = profiled(name, prefill, body, n, nbytes, flops, watch,
-                                          require=watch if "replayed" in name else ())
-        out += [wall, dev_ms, calls]
+    for name, around in (("replayed", contextlib.nullcontext()), ("uncaptured", uncaptured())):
+        with around:
+            engine = eng if name == "replayed" else InferenceEngine(
+                eng.cfg, params=eng.params, max_cache=eng.max_cache)
+            prefill, body = run(engine)
+            r = profiled(f"{tag} {name}", prefill, body, n, nbytes, flops, watch,
+                         require=watch if name == "replayed" else ())
+        out += [r["wall"], r["device"], r["calls"]]
     return tuple(out)
+
+
+def prefill_rows(tag, eng, tokens, last, nbytes, flops, watch) -> dict:
+    """Phase 7's prefill rows: 4 prefills of ``tokens`` (the engine's
+    ``_prefill``, as ``generate`` runs it) replayed from the engine's
+    captured graph, then 4 uncaptured on the same weights.  The replayed
+    trace must hold the ``watch`` kernels and one graph launch a prefill.
+    -> {"replayed": profiled's dict, "uncaptured": ...}."""
+    from repro_torch.serving.engine import InferenceEngine
+
+    out = {}
+    for name, around in (("replayed", contextlib.nullcontext()), ("uncaptured", uncaptured())):
+        with around:
+            engine = eng if name == "replayed" else InferenceEngine(
+                eng.cfg, params=eng.params, max_cache=eng.max_cache)
+
+            def prefills(_, engine=engine):
+                for _ in range(4):
+                    engine._prefill(tokens, last, engine.max_cache)
+            out[name] = profiled(f"{tag} {name}", lambda: None, prefills, 4, nbytes, flops,
+                                 watch, require=watch if name == "replayed" else ())
+    r = out["replayed"]
+    if r["graphs"] != 1:
+        raise SystemExit(f"{tag}: {r['graphs']} graph launches a replayed prefill, not 1")
+    return out
 
 
 def breakdown(eng, cfg, dev) -> tuple:
@@ -839,33 +945,31 @@ def breakdown(eng, cfg, dev) -> tuple:
     time by kernel from torch.profiler, the host's launch calls, and the
     least time the card could take (every weight but the embedding table
     read once, the cache read or written once, the matrix products at the
-    bf16 peak).  Returns the decode rows (``decode_steps``)."""
+    bf16 peak).  Returns the prefill rows (``prefill_rows``) and the decode
+    rows (``decode_steps``)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     b, s, last = 4, 128, 99
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
     w_bytes, layer_params, head_params = weight_counts(eng.params)
     kv_row = 2 * cfg.num_layers * cfg.kv_dim * 2       # k and v of one position, bf16
 
-    def prefills(_):
-        for _ in range(4):
-            eng._prefill(tokens, last, eng.max_cache)
-
     attn_flops = 4 * cfg.num_layers * cfg.q_dim * b * s * (s + 1) // 2
-    profiled("prefill", lambda: None, prefills, 4,
-             w_bytes + kv_row * b * s,
-             2 * layer_params * b * s + 2 * head_params * b + attn_flops, ("flash_fwd",))
+    prefill = prefill_rows("prefill", eng, tokens, last, w_bytes + kv_row * b * s,
+                           2 * layer_params * b * s + 2 * head_params * b + attn_flops,
+                           ("flash_fwd",))
 
     n = 16
-    return decode_steps("decode", eng, lambda e: e._prefill(tokens, last, e.max_cache)[0],
-                        last + 1, n,
-                        w_bytes + kv_row * b * (last + 1 + n // 2),
-                        2 * (layer_params + head_params) * b,
-                        ("decode_split", "decode_combine"))
+    return prefill, decode_steps("decode", eng,
+                                 lambda e: e._prefill(tokens, last, e.max_cache)[0],
+                                 last + 1, n,
+                                 w_bytes + kv_row * b * (last + 1 + n // 2),
+                                 2 * (layer_params + head_params) * b,
+                                 ("decode_split", "decode_combine"))
 
 
 def rwkv_breakdown(eng, cfg, dev) -> tuple:
     """Phase 7 for rwkv: a full-width prefill (batch 4, 100 tokens, exact)
-    and a decode step (batch 4), replayed and uncaptured.  Bound: every
+    and a decode step (batch 4), each replayed and uncaptured.  Bound: every
     weight but the embedding table read once, the recurrent state written
     (prefill) or read and written (decode) once, the matrix products at the
     bf16 peak and K3's operations."""
@@ -877,16 +981,15 @@ def rwkv_breakdown(eng, cfg, dev) -> tuple:
     state_bytes = cfg.num_layers * b * (cfg.num_heads * hd * hd * 4 + 2 * cfg.d_model * 2)
     wkv_flops = 5 * hd * cfg.d_model * cfg.num_layers * b   # per token, K3 (timings())
 
-    def prefills(_):
-        for _ in range(4):
-            eng._prefill(tokens, None, s)
+    prefill = prefill_rows("rwkv prefill", eng, tokens, None, w_bytes + state_bytes,
+                           (2 * layer_params + wkv_flops) * b * s + 2 * head_params * b,
+                           ("wkv6_kernel",))
 
-    profiled("rwkv prefill", lambda: None, prefills, 4, w_bytes + state_bytes,
-             (2 * layer_params + wkv_flops) * b * s + 2 * head_params * b, ("wkv6_kernel",))
-
-    return decode_steps("rwkv decode", eng, lambda e: e._prefill(tokens, None, s)[0], s, 16,
-                        w_bytes + 2 * state_bytes,
-                        (2 * (layer_params + head_params) + wkv_flops) * b, ("wkv6_kernel",))
+    return prefill, decode_steps("rwkv decode", eng,
+                                 lambda e: e._prefill(tokens, None, s)[0], s, 16,
+                                 w_bytes + 2 * state_bytes,
+                                 (2 * (layer_params + head_params) + wkv_flops) * b,
+                                 ("wkv6_kernel",))
 
 
 def bootstrap_line() -> None:
@@ -911,12 +1014,16 @@ def cnn_phase(dev) -> dict:
     (the paper's Lambda request) and batch 4 of random images on the card
     against the CPU on the same weights, then
     the first call's and the warm forward's time, the device time and
-    kernel launches of a forward, and its bound."""
+    kernel launches of a forward, and its bound; then the same forward
+    captured into a ``ForwardGraph`` and replayed, its logits against the
+    uncaptured forward's, its first call (warm-up, capture and first
+    replay) and its warm time, device time and host launch calls."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs.registry import PAPER_MODELS
     from repro_torch.models import cnn
     from repro_torch.models.common import param_bytes
+    from repro_torch.serving.graphs import ForwardGraph
 
     out = {}
     images = torch.randn((4, 3, 224, 224), generator=torch.Generator().manual_seed(10))
@@ -957,30 +1064,64 @@ def cnn_phase(dev) -> dict:
             if not torch.isfinite(got).all() or rel > CNN_REL_TOL or not same or (
                     b > 1 and (share < CNN_MIN_PER_IMAGE_SHARE or crel > CNN_CENTRED_TOL)):
                 raise SystemExit(f"{name} batch {b}: the card's forward disagrees with the CPU's")
-            walls = []
-            for _ in range(20):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                cnn.forward(params, x, cfg)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
+            graph = ForwardGraph(x.shape, cfg.num_classes, dev,
+                                 lambda images: cnn.forward(params, images, cfg))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.capture()
+            replayed = graph.run(x).cpu()
+            if b == 1:
+                row["first_replayed_ms"] = (time.perf_counter() - t0) * 1e3
+            rrel = ((replayed - got).norm() / got.norm()).item()
+            rcrel = ((replayed - replayed.mean(0) - centred).norm()
+                     / centred.norm()).item() if b > 1 else 0.0
+            log(f"[cnn] {name} batch {b}: replayed vs uncaptured forward on the card "
+                f"rel_l2={rrel:.3e} (tol {CNN_REL_TOL:g}) max_abs="
+                f"{(replayed - got).abs().max().item():.3e}"
+                + (f", per-image part rel_l2={rcrel:.3e} (tol {CNN_CENTRED_TOL:g})"
+                   if b > 1 else ""))
+            if not graph.captured or not torch.isfinite(replayed).all() or \
+                    rrel > CNN_REL_TOL or rcrel > CNN_CENTRED_TOL:
+                raise SystemExit(f"{name} batch {b}: the replayed forward disagrees with the "
+                                 "uncaptured one")
+
+            def warm(fn):
+                walls = []
+                for _ in range(20):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                return float(np.median(walls))
+
             with FlopCounterMode(display=False) as fc:
                 cnn.forward(params, x, cfg)
             flops = fc.get_total_flops()
             # the weights and images read once, the logits written once
             nbytes = param_bytes(params) + x.numel() * 4 + b * cfg.num_classes * 4
-            _, dev_ms, launches, _ = profiled(
+            eager = profiled(
                 f"cnn {name} b{b}", lambda: None,
                 lambda _: [cnn.forward(params, x, cfg) for _ in range(10)], 10,
                 nbytes, flops, dtype=torch.float32, top=5 if b == 1 else 0)
+            graphed = profiled(
+                f"cnn {name} b{b} replayed", lambda: None,
+                lambda _: [graph.run(x) for _ in range(10)], 10,
+                nbytes, flops, dtype=torch.float32, top=0)
             bound_ms, bound_by = bound(nbytes, flops, torch.float32)
-            row[b] = {"warm_ms": float(np.median(walls)), "device_ms": dev_ms,
-                      "launches": launches, "bound_ms": bound_ms, "bound_by": bound_by,
+            row[b] = {"warm_ms": warm(lambda: cnn.forward(params, x, cfg)),
+                      "device_ms": eager["device"], "launches": eager["launches"],
+                      "calls": eager["calls"], "replayed_ms": warm(lambda: graph.run(x)),
+                      "replayed_device_ms": graphed["device"],
+                      "replayed_calls": graphed["calls"], "replayed_rel": rrel,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
                       "gflop": flops / 1e9, "rel": rel, "centred_rel": crel}
             log(f"[cnn] {name} batch {b}: first call {first_ms:.3f} ms (batch 1), warm "
-                f"{row[b]['warm_ms']:.3f} ms (median of 20), device {dev_ms:.4f} ms in "
-                f"{launches:.0f} launches, bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{row[b]['warm_ms']:.3f} ms (median of 20), device {eager['device']:.4f} ms "
+                f"in {eager['launches']:.0f} launches; replayed warm {row[b]['replayed_ms']:.3f} "
+                f"ms, device {graphed['device']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
                 f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            del graph
         out[name] = row
         del params, cpu_params
     return out
@@ -1091,6 +1232,12 @@ def main() -> int:
     if fd.launches != cfg.num_layers * e2e["steps"]:
         raise SystemExit(f"K2 launched {fd.launches} times, not layers x steps "
                          f"{cfg.num_layers * e2e['steps']}")
+    log(f"[kernels] {e2e['prefills']} prefills on the card (engine and admission replays "
+        f"and capture warm-ups) x {cfg.num_layers} layers = "
+        f"{e2e['prefills'] * cfg.num_layers}; flash_attention {flash.launches}")
+    if flash.launches != cfg.num_layers * e2e["prefills"]:
+        raise SystemExit(f"K1 launched {flash.launches} times, not layers x prefills "
+                         f"{cfg.num_layers * e2e['prefills']}")
 
     rcfg = get("rwkv6-1.6b").config
     reng = rwkv_engine(rcfg, dev)
@@ -1141,25 +1288,40 @@ def main() -> int:
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": t["library_ms"],
                          "library_device_ms": t["library_device_ms"]})
-    steps = {cfg.name: breakdown(eng, cfg, dev)}
+    prefills, steps = {}, {}
+    prefills[cfg.name], steps[cfg.name] = breakdown(eng, cfg, dev)
     del eng
-    steps[rcfg.name] = rwkv_breakdown(reng, rcfg, dev)
+    prefills[rcfg.name], steps[rcfg.name] = rwkv_breakdown(reng, rcfg, dev)
     del reng
     calibration_phase(dev)
     for name, r in ((cfg.name, e2e), (rcfg.name, rwkv_e2e)):
-        log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms, "
+        log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms (replayed; "
+            f"logits within {r['prefill_err']:.3e} of the uncaptured prefill's), "
             f"decode {r['decode_tok_s']:.1f} tok/s ({card})")
-    log(f"[server] {cfg.name} full width: {e2e['server_tok_s']:.1f} tok/s ({card})")
+    log(f"[server] {cfg.name} full width: {e2e['server_tok_s']:.1f} tok/s; drain "
+        + "; ".join(f"{k} {sp['wall_s']:.3f} s, admission {sp['admit_s']:.3f} s in "
+                    f"{sp['rounds']} rounds" for k, sp in e2e["split"].items()) + f" ({card})")
+    for name, timed in prefills.items():
+        r, u = timed["replayed"], timed["uncaptured"]
+        busy = r["device"] / r["wall"]
+        log(f"[graph] {name} prefill, batch 4, replayed: host wall {r['wall']:.3f} ms, device "
+            f"{r['device']:.4f} ms, busy {busy:.3f} ({'at least' if busy >= 0.85 else 'BELOW'} "
+            f"0.85), {r['calls']:.1f} host launch calls of which {r['graphs']:.1f} graph "
+            f"launches; uncaptured: {u['wall']:.3f} ms, {u['device']:.4f} ms, busy "
+            f"{u['device'] / u['wall']:.3f}, {u['calls']:.1f} calls ({card})")
     for name, (wall, dev_ms, calls, pwall, pdev, pcalls) in steps.items():
         log(f"[graph] {name} decode step, replayed: host wall {wall:.3f} ms, device "
             f"{dev_ms:.4f} ms, busy {dev_ms / wall:.3f}, {calls:.1f} host launch calls; "
             f"uncaptured: {pwall:.3f} ms, {pdev:.4f} ms, busy {pdev / pwall:.3f}, "
             f"{pcalls:.1f} calls ({card})")
     for name, r in cnns.items():
-        log(f"[cnn] {name} 224 px: first call {r['first_ms']:.3f} ms; warm batch 1 "
-            f"{r[1]['warm_ms']:.3f} ms (device {r[1]['device_ms']:.4f}, bound "
-            f"{r[1]['bound_ms']:.4f}), batch 4 {r[4]['warm_ms']:.3f} ms (device "
-            f"{r[4]['device_ms']:.4f}, bound {r[4]['bound_ms']:.4f}) ({card})")
+        log(f"[cnn] {name} 224 px: first call {r['first_ms']:.3f} ms, captured "
+            f"{r['first_replayed_ms']:.3f} ms (warm-up, capture, first replay); " + "; ".join(
+                f"batch {b} warm replayed {r[b]['replayed_ms']:.3f} ms (device "
+                f"{r[b]['replayed_device_ms']:.4f}, {r[b]['replayed_calls']:.1f} calls), "
+                f"uncaptured {r[b]['warm_ms']:.3f} ms (device {r[b]['device_ms']:.4f}, "
+                f"{r[b]['calls']:.1f} calls), bound {r[b]['bound_ms']:.4f}" for b in (1, 4))
+            + f" ({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

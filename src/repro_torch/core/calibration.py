@@ -19,15 +19,17 @@ Cache schema (v2), the reference's, so that ``repro.core.calibration``'s
               "configs": "full" | "smoke"},
      "models": {
        "<cnn>": {"kind": "cnn",
-                 "warm_exec_s":  median forward seconds, batch 1,
-                 "first_call_s": the first forward's seconds (the cold part
-                                 on the card: cuDNN's set-up and the first
-                                 loads of its kernels)},
+                 "warm_exec_s":  median replayed forward seconds, batch 1,
+                 "first_call_s": the first forward's seconds: its warm-up
+                                 (on the card cuDNN's set-up and the first
+                                 loads of its kernels), its CUDA-graph
+                                 capture and its first replay},
        "<llm>": {"kind": "llm",
                  "warm_exec_s": steady generate (prefill+decode) seconds,
                  "init_s":      param init wall seconds,
                  "compile_s":   warm-up wall: kernel builds, first launches and
-                                the decode step's CUDA-graph capture,
+                                the decode step's and the prefill's
+                                CUDA-graph captures,
                  "package_mb":  parameter bytes / 1e6,
                  "tokens_per_s": steady decode throughput,
                  "batch_curve": [[batch, rel_per_request_cost], ...]
@@ -60,6 +62,7 @@ from repro_torch import resolve_device, synchronize
 from repro_torch.core.function import Handler, normalize_batch_curve
 from repro_torch.models import cnn
 from repro_torch.models.common import ModelConfig, param_bytes
+from repro_torch.serving.graphs import ForwardGraph
 
 SCHEMA_VERSION = 2
 
@@ -155,18 +158,24 @@ def _wall(device: torch.device, fn) -> float:
 
 def _measure_cnn(cfg: ModelConfig, *, device: torch.device, repeats: int = 5,
                  seed: int = 0) -> dict:
-    """One image (the paper's Lambda request) of zeros: the first forward,
-    then the median of ``repeats`` more."""
+    """One image (the paper's Lambda request) of zeros through the forward
+    captured into a CUDA graph (``ForwardGraph``; eager on the CPU), the
+    counterpart of the reference's jitted forward: the first call is the
+    warm-up, the capture and the first replay (the reference's compile and
+    first call), then the median of ``repeats`` replays."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = cnn.init_params(cfg, gen, device)
     img = torch.zeros((1, 3, cfg.image_size, cfg.image_size), dtype=torch.float32,
                       device=device)
+    graph = ForwardGraph(img.shape, cfg.num_classes, device,
+                         lambda images: cnn.forward(params, images, cfg))
 
-    def fwd():
-        cnn.forward(params, img, cfg)
+    def first_call():
+        graph.capture()
+        graph.run(img)
 
-    first = _wall(device, fwd)
-    times = sorted(_wall(device, fwd) for _ in range(repeats))
+    first = _wall(device, first_call)
+    times = sorted(_wall(device, lambda: graph.run(img)) for _ in range(repeats))
     return {"kind": "cnn", "warm_exec_s": times[len(times) // 2],
             "first_call_s": first}
 

@@ -210,7 +210,9 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None, *,
     state is O(1) in length).
 
     ``cache``, when given, is a preallocated state that is reset to zero and
-    then carried through the prompt in place; otherwise a new one is made.
+    then carried through the prompt in place (so a captured prefill,
+    ``serving/graphs.py::PrefillGraph``, replays exactly); otherwise a new
+    one is made.
     A prompt over ``chunk`` tokens that is a multiple of it runs chunk by
     chunk with the state carried between them (exact; only the per-chunk
     activations shrink).  Only the last position is normed and unembedded.

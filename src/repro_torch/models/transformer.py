@@ -98,7 +98,9 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None,
     """Returns (last_logits (B,V), cache dict (L,B,cache_len,K,hd)).
 
     ``last_pos`` selects which position's logits count as "last": an int or
-    a (B,) int tensor of per-row indices.  Bucketed serving right-pads
+    a (B,) int tensor of per-row indices.  A captured prefill
+    (``serving/graphs.py::PrefillGraph``) always passes the (B,) tensor: an
+    int would be baked into the graph.  Bucketed serving right-pads
     prompts to a shared length, so the real last token sits at
     ``length - 1``; causal masking keeps the logits there identical to an
     exact-length prefill (pad tokens only influence positions after
@@ -106,8 +108,11 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None,
 
     ``cache``, when given, is a preallocated cache that the prompt's keys and
     values are written into in place (positions past the prompt are zeroed,
-    as the reference's padding leaves them); otherwise a new one is made.
-    Only the last positions are normed and unembedded."""
+    as the reference's padding leaves them, over a span fixed by the
+    prompt's length, so fixed per bucket); otherwise a new one is made.
+    Only the last positions are normed and unembedded.  With a preallocated
+    cache and a (B,) ``last_pos`` nothing here syncs with the host, so the
+    call can be captured into a CUDA graph."""
     b, s = tokens.shape
     cache_len = cache_len or s
     if cache is None:

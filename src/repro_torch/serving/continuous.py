@@ -14,13 +14,18 @@ deterministically, copied from the reference unchanged.  ``run()`` decodes
 fetches each chunk's token block in one device-to-host copy; a chunk is
 that many replays of the step, where the reference runs one scan.  Rows
 outside ``active`` are frozen with ``where(active, ...)`` so the token
-streams equal a per-step loop's.  Admission runs one batched prefill per round (prompts
-right-padded to a power-of-two bucket) and one in-place slot scatter.
-Greedy decoding.
+streams equal a per-step loop's.  Admission runs one batched prefill per
+round (prompts right-padded to a power-of-two bucket, the batch padded to the
+slot count), captured into a CUDA graph per bucket and replayed (eager on the
+CPU): the graph writes the admitted rows' keys and values into a staging
+cache that every bucket shares (a view of one buffer sized for ``max_seq``),
+and one eager scatter copies the admitted rows, and only those, into their
+slots, through a slot index held in a static device buffer.  Greedy decoding.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import deque
 
 import numpy as np
@@ -30,7 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.engine import bucket_len
-from repro_torch.serving.graphs import BLOCK, DecodeGraph
+from repro_torch.serving.graphs import BLOCK, DecodeGraph, PrefillGraph
 
 # fused-step chunk cap: step counts decompose into powers of two up to this,
 # which the decode step's token block holds
@@ -100,6 +105,13 @@ class ContinuousServer:
         self._step = DecodeGraph(slots, self.device,
                                  _advance(self.params, self.cache, self._active_dev, cfg))
         self._tok_dev, self._pos_dev = self._step.tok, self._step.pos
+        # admission: a prefill graph per bucket over one staging cache, in one
+        # memory pool (they never replay concurrently), and the slots that
+        # the admitted rows go to
+        self._admissions: dict[int, tuple[PrefillGraph, dict]] = {}
+        self._staging = None
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self._slots_dev = torch.zeros((slots,), dtype=torch.long, device=self.device)
         self.out: dict[int, list] = {}
         self.queue: deque[Request] = deque()
         self._done: list[Completion] = []
@@ -115,11 +127,39 @@ class ContinuousServer:
         return api.prefill(self.params, {"tokens": toks}, self.cfg,
                            cache_len=cache_len, last_pos=last_pos)
 
+    def _admission(self, bucket: int) -> tuple[PrefillGraph, dict]:
+        """The admission prefill at the slot count and ``bucket``, captured
+        at its first use, and the cache it writes: the staging buffer's
+        first (L, slots, bucket, K, hd) elements."""
+        if bucket not in self._admissions:
+            if self._staging is None:
+                full = api.init_cache(self.cfg, self.slots, self.max_seq, device=self.device)
+                self._staging = {n: t.view(-1) for n, t in full.items()}
+            shape = (self.cfg.num_layers, self.slots, bucket) + self.cache["k"].shape[3:]
+            n = math.prod(shape)
+            cache = {name: t[:n].view(shape) for name, t in self._staging.items()}
+            params, cfg = self.params, self.cfg
+
+            def prefill(tokens, last):
+                logits, _ = api.prefill(params, {"tokens": tokens}, cfg, bucket,
+                                        last_pos=last, cache=cache)
+                return logits
+
+            graph = PrefillGraph(self.slots, bucket, cfg.vocab_size, cfg.cdt, self.device,
+                                 prefill, pool=self._pool)
+            graph.capture()
+            self._admissions[bucket] = graph, cache
+        return self._admissions[bucket]
+
     def _scatter(self, rows: dict, idx: list):
         """Write admitted rows (L,m,s,K,hd) into slots ``idx`` in place, and
-        zero the slots past s, as the reference's padded rows do."""
-        self._shapes["scatter"].add((len(idx), rows["k"].shape[2]))
-        slots = torch.as_tensor(idx, device=self.device)
+        zero the slots past s, as the reference's padded rows do.  The slot
+        index goes through a static device buffer; no other slot is
+        written.  Its shape count keys on the rows admitted, as the
+        reference's scatter jit, whose rows always span ``max_seq``."""
+        self._shapes["scatter"].add(len(idx))
+        slots = self._slots_dev[:len(idx)]
+        slots.copy_(torch.as_tensor(idx))
         s = rows["k"].shape[2]
         for name in ("k", "v"):
             full = self.cache[name]
@@ -166,8 +206,10 @@ class ContinuousServer:
         for j, r in enumerate(reqs):
             toks[j, :len(r.prompt)] = r.prompt
             last[j] = len(r.prompt) - 1
-        logits, pc = self._prefill(toks, last, bucket)
-        return logits[:m], {n: t[:, :m] for n, t in pc.items()}
+        self._shapes["prefill"].add((toks.shape, False, bucket))
+        graph, cache = self._admission(bucket)
+        logits = graph.run(torch.from_numpy(toks), torch.from_numpy(last))
+        return logits[:m], {n: t[:, :m] for n, t in cache.items()}
 
     def _prefill_exact(self, reqs):
         """Per-request exact-length prefills, for families whose pad tokens
@@ -257,6 +299,8 @@ class ContinuousServer:
     def compile_stats(self) -> dict:
         """Distinct prefill shapes, chunk lengths and scatter shapes seen —
         the counterparts of the reference's jit-cache sizes — and the decode
-        steps captured into CUDA graphs (0 on the CPU)."""
+        step (``graphs``) and admission prefills (``prefill_graphs``)
+        captured into CUDA graphs (0 on the CPU)."""
         return {**{k: len(v) for k, v in self._shapes.items()},
-                "graphs": int(self._step.captured)}
+                "graphs": int(self._step.captured),
+                "prefill_graphs": sum(g.captured for g, _ in self._admissions.values())}

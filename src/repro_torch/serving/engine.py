@@ -1,12 +1,16 @@
 """InferenceEngine: the model-serving runtime, on the card.
 
-Wraps the ported families (dense, and ssm: RWKV-6) behind an eager prefill
-and a decode step that is captured once into a CUDA graph and replayed
-(``serving/graphs.py``; on the CPU the same step runs eagerly).  Dense prompt lengths are bucketed to powers of two, so the
-number of distinct prefill shapes grows with the number of buckets, not of
+Wraps the ported families (dense, and ssm: RWKV-6) behind a prefill and a
+decode step, each captured once into a CUDA graph and replayed
+(``serving/graphs.py``; on the CPU the same steps run eagerly).  Dense prompt
+lengths are bucketed to powers of two, so the number of distinct prefill
+shapes, and of prefill graphs, grows with the number of buckets, not of
 prompt lengths; recurrent (ssm) prompts keep their exact length, since pad
-tokens would advance the state (``compile_stats`` counts the shapes, as the
-reference counts its jit caches).  The family's cache (a KV cache of
+tokens would advance the state, and take a graph per (batch, length), as the
+reference jits its prefill per exact shape (``compile_stats`` counts the
+shapes, as the reference counts its jit caches, and the graphs).  A prompt
+and its last positions are copied into the prefill graph's static buffers
+outside the graph, then the graph is replayed.  The family's cache (a KV cache of
 ``max_cache`` positions, or the recurrent state) is preallocated, reused while
 the batch size holds and updated in place (the counterpart of the
 reference's donated cache).  The decode step is keyed on the batch (so on
@@ -28,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device, synchronize
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig, count_params
-from repro_torch.serving.graphs import BLOCK, DecodeGraph
+from repro_torch.serving.graphs import BLOCK, DecodeGraph, PrefillGraph
 from repro_torch.serving.sampler import sample_token
 
 
@@ -65,6 +69,11 @@ class InferenceEngine:
         # decode steps over that cache, by (batch, temperature)
         self._graphs: dict[tuple, DecodeGraph] = {}
         self._captures = 0
+        # prefills into that cache, by (batch, padded or exact length), and
+        # the memory pool they share (they never replay concurrently)
+        self._prefills: dict[tuple, PrefillGraph] = {}
+        self._prefill_captures = 0
+        self._pool = None
         # sampling draws from this generator, reseeded per request; each
         # sampling graph registers it
         self._gen = torch.Generator(device=self.device)
@@ -76,10 +85,13 @@ class InferenceEngine:
     def _cache_for(self, batch: int) -> dict:
         """The preallocated cache (every family keeps the batch on axis 1)."""
         if self._cache is None or next(iter(self._cache.values())).shape[1] != batch:
-            self._cache = None   # free the old one, and the steps captured on it
+            self._cache = None   # free the old one, and the graphs captured on it
             self._graphs.clear()
+            self._prefills.clear()
             self._cache = api.init_cache(self.cfg, batch, self.max_cache,
                                          device=self.device)
+            if self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
         return self._cache
 
     def _decoder(self, batch: int, temperature: float) -> DecodeGraph:
@@ -106,17 +118,44 @@ class InferenceEngine:
             self._captures += step.captured
         return self._graphs[key]
 
+    def _prefiller(self, batch: int, length: int) -> PrefillGraph:
+        """The prefill of a (batch, length) prompt into the cache, captured
+        at its first use and replayed while the cache lives.  Its capture
+        writes the cache, which its replay then writes again: so callers
+        take the decode step first (``_decoder``)."""
+        cache = self._cache_for(batch)
+        key = (batch, length)
+        if key not in self._prefills:
+            params, cfg, cache_len = self.params, self.cfg, self.max_cache
+            dense = cfg.family == "dense"
+
+            def prefill(tokens, last):
+                logits, _ = api.prefill(params, {"tokens": tokens}, cfg, cache_len,
+                                        last_pos=last if dense else None, cache=cache)
+                return logits
+
+            graph = PrefillGraph(batch, length, cfg.vocab_size, cfg.cdt, self.device,
+                                 prefill, pool=self._pool)
+            graph.capture()
+            self._prefills[key] = graph
+            self._prefill_captures += graph.captured
+        return self._prefills[key]
+
     def _prefill(self, tokens, last_pos, cache_len: int):
+        """The prompt (B, S), on the host or the device, through its prefill
+        graph; ``last_pos`` is the position whose logits are the last
+        token's (None: S - 1; an int, or (B,), for every row).  -> (the
+        graph's static logits (B, V), the cache)."""
         b, s = tokens.shape
         self._shapes["prefill"].add((b, s, cache_len, last_pos is None))
-        return api.prefill(self.params, {"tokens": tokens}, self.cfg, cache_len,
-                           last_pos=last_pos, cache=self._cache_for(b))
+        return self._prefiller(b, s).run(tokens, last_pos), self._cache
 
     def _prompt(self, tokens, n_new: int):
-        """The prompt on the device, right-padded to its bucket, the
+        """The prompt, right-padded to its bucket, where it was given (the
+        host, as a rule: the prefill copies it into its graph's buffer), the
         position whose logits are the last token's (None: the last), and
         the cache length."""
-        tokens = torch.as_tensor(tokens, device=self.device).long()
+        tokens = torch.as_tensor(tokens).long()
         s = tokens.shape[1]
         s_pad, cache_len = self._prefill_shapes(s, n_new)
         if s_pad > s:
@@ -125,11 +164,12 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def warmup(self, batch: int, prompt_len: int):
-        """Run both steps once, capturing the greedy decode step (and
-        building the kernels on first use on the card) — the modern 'cold
-        start', as the reference's warmup compiles."""
+        """Run both steps once, capturing the greedy decode step and the
+        prompt's prefill (and building the kernels on first use on the
+        card) — the modern 'cold start', as the reference's warmup compiles
+        its prefill and decode."""
         t0 = time.perf_counter()
-        tokens = torch.zeros((batch, prompt_len), dtype=torch.long, device=self.device)
+        tokens = torch.zeros((batch, prompt_len), dtype=torch.long)
         step = self._decoder(batch, 0.0)
         self._prefill(tokens, None, self.max_cache)
         self._shapes["decode"].add(batch)
@@ -219,8 +259,10 @@ class InferenceEngine:
         """Distinct prefill shapes, per-token decode batches and fused
         decode lengths seen — the counterparts of the reference's jit-cache
         sizes, which its bucketing tests assert on — and the decode steps
-        captured into CUDA graphs (0 on the CPU)."""
-        return {**{k: len(v) for k, v in self._shapes.items()}, "graphs": self._captures}
+        (``graphs``) and prefills (``prefill_graphs``) captured into CUDA
+        graphs (0 on the CPU)."""
+        return {**{k: len(v) for k, v in self._shapes.items()}, "graphs": self._captures,
+                "prefill_graphs": self._prefill_captures}
 
     def stats(self) -> dict:
         return {"arch": self.cfg.name, "params": count_params(self.params),
