@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Two serving paths, each at full width: deepseek-7b (the dense path, kernels
-K1 flash-attention and K2 flash-decode) and rwkv6-1.6b (the RWKV-6 path,
-kernel K3 WKV-6); the paper's three CNN payloads at 224 px; and the
-calibration that turns all five into the serverless simulator's numbers.
-Phases, in order; any failure exits non-zero:
+Four serving paths, each at full width: deepseek-7b (the dense path, kernels
+K1 flash-attention and K2 flash-decode), granite-moe-3b-a800m (the MoE path:
+K1 and K2 at GQA 24/8 and head dim 64, exact-length prefills), mistral-nemo-12b
+(K1 and K2 at GQA 32/8 and head dim 128; the engine only) and rwkv6-1.6b (the
+RWKV-6 path, kernel K3 WKV-6); the paper's three CNN payloads at 224 px; and
+the calibration that turns six of them into the serverless simulator's
+numbers.  Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), and the seconds of
      ``import torch`` and of the first CUDA context in a fresh process;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each, all
      at once) and print the build time and ptxas's register/shared-memory lines;
   3. hold each kernel against its plain PyTorch version on the card: each
-     path's shapes plus GQA, window, ragged-S, head-dim and float32 cases,
+     path's shapes (granite's ragged S=100 at batch 4 and S=300 at batch 1
+     for K1, its per-row masks over a 512 cache for K2, mistral-nemo's GQA
+     32/8) plus GQA, window, ragged-S, head-dim and float32 cases,
      and for K2 masks whose all-false tiles lie at the start, around a band,
      in the middle and at the end, a row with no valid position (the mean of
      V), and a band slice of a longer cache; for K3 one head alone, a T that
@@ -26,14 +30,20 @@ Phases, in order; any failure exits non-zero:
      sampled; then the path itself, every prefill, admission and decode
      step a replay of its captured CUDA graph — deepseek through the
      engine's ``generate`` and the ``ContinuousServer``, rwkv through
-     ``generate`` and ``generate_stream`` — with every kernel's launch count
-     set to 0 just before and read just after: the replayed prefill's
-     logits must equal the uncaptured one's within the bf16 tolerance and
-     the replayed tokens the uncaptured path's; K1's count, replays
-     included, layers x prefills (replays and capture warm-ups), K2's
-     layers x steps and K3's layers x (prefills + steps); the server's
-     drain split between admission and decode, and the memory of its
-     admission graphs;
+     ``generate`` and ``generate_stream``, granite-moe-3b-a800m through
+     ``generate`` at the exact prompt length and the ``ContinuousServer``
+     (each admission an eager batch-1 prefill at the exact length) — with
+     every kernel's launch count set to 0 just before and read just after:
+     the replayed prefill's logits must equal the uncaptured one's within
+     the bf16 tolerance and the replayed tokens the uncaptured path's; K1's
+     count, replays included, layers x prefills (replays, capture warm-ups
+     and eager admissions), K2's layers x steps and K3's layers x (prefills
+     + steps); the server's drain split between admission and decode, and
+     the memory of its admission graphs.  granite's logits check runs a
+     float32 copy of its weights (the gate) and the bf16 weights (reported,
+     with the share of expert routes the plain path would pick otherwise),
+     the plain path taking the kernel path's routes, so that a routing flip
+     from rounding cannot stand in for a kernel fault;
   5. SqueezeNet, ResNet-18 and ResNeXt-50 at 224 px, float32, seeded
      weights: batch 1 and batch 4 of random images on the card against the
      CPU (top-1 and logits), parameter MB against the paper's, the first
@@ -42,7 +52,8 @@ Phases, in order; any failure exits non-zero:
      into a ``ForwardGraph``: its logits against the uncaptured forward's,
      its first call, warm ms, device time and host launch calls;
   6. each kernel's time at its path's shapes (the engine's, and for K1 and
-     K2 the continuous server's too): CUDA events over back-to-back calls
+     K2 the continuous server's and granite's engine's too): CUDA events
+     over back-to-back calls
      (inputs rotated through copies that span four times the L2) and the
      device time of the same calls from a torch.profiler trace (every kernel
      a call launches, summed), its bound, the plain version's time and one
@@ -54,13 +65,19 @@ Phases, in order; any failure exits non-zero:
      and each one's bound; the prefill and the decode step each replayed
      (the trace must name K1's, K2's or K3's kernels, and a replayed prefill
      make one graph launch) and uncaptured, with the busy share of each;
-  8. with the engines of phases 4-7 freed, the port's ``calibrate`` of the
-     three CNNs, deepseek-7b and rwkv6-1.6b at full width into a temporary
+     then, with those engines freed, mistral-nemo-12b through the engine
+     (batch 4, prompt 100 in bucket 128, 32 new): logits kernel against
+     plain, replayed greedy and sampled tokens against the uncaptured ones,
+     K1 and K2 counted, the peak memory, and its prefill and decode rows;
+  8. the port's ``calibrate`` of the three CNNs, deepseek-7b,
+     granite-moe-3b-a800m and rwkv6-1.6b at full width into a temporary
      cache file: every entry printed and checked against the v2 schema, K1
-     and K2 launched while deepseek-7b is measured and K3 while rwkv6-1.6b
-     is, the handlers built from the cache, the peak memory (this phase
-     follows 6 and 7 because it frees the engines they use);
-  9. one JSON line with the kernels, then the last line ``{"ok": true, ...}``.
+     and K2 launched while deepseek-7b and granite are measured (each with
+     a batch curve) and K3 while rwkv6-1.6b is, the handlers built from
+     the cache, the peak memory (this phase follows 6 and 7 because it
+     frees the engines they use);
+  9. one JSON line with the kernels (launches summed over every path), then
+     the last line ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -115,7 +132,14 @@ CNN_MIN_PER_IMAGE_SHARE = 1e-3
 CNN_PAPER_MB = {"squeezenet": (5, 3, 7), "resnet18": (45, 40, 50), "resnext50": (98, 85, 105)}
 # sampled decoding in phase 4: temperature and seed
 SAMPLE_T, SAMPLE_SEED = 0.8, 17
-CALIBRATED = ["squeezenet", "resnet18", "resnext50", "deepseek-7b", "rwkv6-1.6b"]
+# granite-moe-3b-a800m, kernel path vs plain path on the same expert routes
+# (the plain path takes the kernel path's top-k): with the weights in
+# float32, where nothing is rounded to bf16, K1's and K2's float32 sums
+# differ from the plain versions' by about 1e-7 a layer; this bar is far
+# above that and far below a broken kernel's error (of order 1)
+MOE_REL_TOL = 1e-3
+CALIBRATED = ["squeezenet", "resnet18", "resnext50", "deepseek-7b", "granite-moe-3b-a800m",
+              "rwkv6-1.6b"]
 CNN_ENTRY = {"kind", "warm_exec_s", "first_call_s"}
 LLM_ENTRY = {"kind", "warm_exec_s", "init_s", "compile_s", "package_mb", "tokens_per_s",
              "batch_curve"}
@@ -148,23 +172,33 @@ def time_ms(fn, arg_sets: list, iters: int = 60, warm: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, arg_sets: list, iters: int = 30) -> float:
+def device_ms(fn, arg_sets: list, iters: int = 30, tries: int = 3) -> float | None:
     """Device time per call of ``fn(*args)`` over the same rotation of
     inputs as ``time_ms``: every kernel the calls launch, summed from a
-    torch.profiler trace, so host work between launches does not count."""
+    torch.profiler trace, so host work between launches does not count.
+    A trace that holds no device time (the profiler drops one now and
+    then) is taken again, up to ``tries`` times; then None: not
+    measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    return None
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def host_us(fn, args, iters: int = 200) -> float:
@@ -255,6 +289,11 @@ def kernel_checks(dev) -> dict:
     for (b, s, h, kh, hd, win, dt, main) in [
             (4, 128, 32, 32, 128, 0, torch.bfloat16, True),   # engine prefill
             (4, 512, 32, 32, 128, 0, torch.bfloat16, True),   # server prefill
+            (4, 100, 24, 8, 64, 0, torch.bfloat16, True),     # granite engine prefill
+            (1, 300, 24, 8, 64, 0, torch.bfloat16, True),     # granite admission, S=300
+            (1, 20, 24, 8, 64, 0, torch.bfloat16, True),      # granite admission, S=20
+            (4, 128, 32, 8, 128, 0, torch.bfloat16, True),    # mistral-nemo engine prefill
+            (4, 100, 24, 8, 64, 0, torch.float32, False),     # granite, float32 copy
             (2, 256, 8, 2, 64, 0, torch.bfloat16, False),     # GQA
             (1, 256, 4, 4, 128, 64, torch.bfloat16, False),   # window 64
             (1, 300, 4, 1, 128, 0, torch.float32, False),     # ragged, MQA, f32
@@ -273,6 +312,10 @@ def kernel_checks(dev) -> dict:
             (4, 256, 32, 32, 128, False, 0, torch.bfloat16, True),   # engine decode
             (4, 256, 32, 32, 128, True, 0, torch.bfloat16, True),    # same, per row
             (4, 512, 32, 32, 128, True, 0, torch.bfloat16, True),    # server decode
+            (4, 256, 24, 8, 64, False, 0, torch.bfloat16, True),     # granite engine decode
+            (4, 512, 24, 8, 64, True, 0, torch.bfloat16, True),      # granite server decode
+            (4, 256, 32, 8, 128, False, 0, torch.bfloat16, True),    # mistral-nemo decode
+            (4, 256, 24, 8, 64, False, 0, torch.float32, False),     # granite, float32 copy
             (2, 1024, 8, 2, 64, False, 0, torch.bfloat16, False),    # GQA
             (2, 512, 8, 8, 128, True, 64, torch.bfloat16, False),    # window 64
             (3, 300, 4, 1, 128, True, 0, torch.float32, False),      # ragged, MQA, f32
@@ -402,9 +445,11 @@ def uncaptured():
 def serve(srv, reqs) -> tuple[dict, float]:
     """Drain ``reqs`` through ``srv``: ({rid: tokens}, wall seconds).  The
     seconds spent in admission rounds (prefill, scatter and the first
-    tokens' copy to the host, which waits for them) and their count are
+    tokens' copy to the host, which waits for them), their count and the
+    eager prefills among them (a MoE server's exact-length admissions) are
     kept in ``srv.split``."""
-    admit, split = srv._admit, {"admit_s": 0.0, "rounds": 0}
+    admit, prefill = srv._admit, srv._prefill
+    split = {"admit_s": 0.0, "rounds": 0, "eager_prefills": 0}
 
     def timed_admit():
         t0 = time.perf_counter()
@@ -413,10 +458,15 @@ def serve(srv, reqs) -> tuple[dict, float]:
         split["admit_s"] += time.perf_counter() - t0
         split["rounds"] += admitted
 
+    def counted_prefill(*args):
+        split["eager_prefills"] += 1
+        return prefill(*args)
+
     for r in reqs:
         srv.submit(r)
     t0 = time.perf_counter()
-    with mock.patch.object(srv, "_admit", timed_admit):
+    with mock.patch.object(srv, "_admit", timed_admit), \
+            mock.patch.object(srv, "_prefill", counted_prefill):
         done = srv.run()
     torch.cuda.synchronize()
     srv.split = split
@@ -501,37 +551,55 @@ def same_tokens(what: str, got, want) -> None:
                          "uncaptured step's")
 
 
-def main_path(eng, cfg, want: dict, prompts, reqs) -> dict:
-    """Phase 4b: the engine (one prefill, then greedy twice, sampled once)
-    and the continuous server (the 8 requests twice) at full width, each
-    prefill, admission and decode step a replay of its captured graph, held
-    against the uncaptured prefill's logits and the uncaptured path's
-    tokens.  Returns the rates, the prefills and the decode steps that ran
-    on the card (replays and each capture's warm-up step), and the
-    server's drains split between admission and decode."""
-    from repro_torch.serving.continuous import ContinuousServer
-
+def engine_path(eng, cfg, want: dict, prompts) -> dict:
+    """Phase 4b, the engine: one prefill, then greedy twice and sampled once
+    (batch 4, 32 new), each prefill and decode step a replay of its
+    captured graph, held against the uncaptured prefill's logits and the
+    uncaptured path's tokens.  Returns the rates, the prefills and the
+    decode steps that ran on the card (replays and each capture's warm-up
+    step)."""
     prefill_err = prefill_check(eng, prompts, want["prefill"])
     first = eng.generate(prompts, 32)
     res = eng.generate(prompts, 32)
     toks = res.tokens
     if toks.shape != (4, 32) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise SystemExit(f"generate: bad tokens {toks.shape}")
+        raise SystemExit(f"{cfg.name} generate: bad tokens {toks.shape}")
     if not torch.equal(first.tokens, toks):
-        raise SystemExit("generate: two greedy runs on the same prompts differ")
+        raise SystemExit(f"{cfg.name} generate: two greedy runs on the same prompts differ")
     same_tokens(f"{cfg.name} engine greedy, batch 4, 32 new", toks, want["greedy"])
     sampled = eng.generate(prompts, 32, temperature=SAMPLE_T, seed=SAMPLE_SEED)
     same_tokens(f"{cfg.name} engine sampled (temperature {SAMPLE_T}, seed {SAMPLE_SEED})",
                 sampled.tokens, want["sampled"])
-    log(f"[engine] generate batch 4, prompt 100 (bucket 128), max_cache 256, 32 new: "
-        f"prefill {res.prefill_s * 1e3:.3f} ms, decode {res.decode_s * 1e3:.3f} ms, "
-        f"{res.tokens_per_s:.1f} tok/s; sampled {sampled.tokens_per_s:.1f} tok/s; "
-        f"graphs captured {eng.compile_stats()['graphs']}")
+    s = prompts.shape[1]
+    prompt = (f"{s} (exact)" if cfg.family == "moe" else
+              f"{s} (bucket {eng._prefill_shapes(s, 32)[0]})")
+    log(f"[engine] {cfg.name} generate batch 4, prompt {prompt}, max_cache "
+        f"{eng.max_cache}, 32 new: prefill {res.prefill_s * 1e3:.3f} ms, decode "
+        f"{res.decode_s * 1e3:.3f} ms, {res.tokens_per_s:.1f} tok/s; sampled "
+        f"{sampled.tokens_per_s:.1f} tok/s; graphs captured {eng.compile_stats()['graphs']}")
+    return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s,
+            "steps": 3 * 31 + eng.compile_stats()["graphs"],
+            "prefills": graph_runs(eng._prefills.values()), "prefill_err": prefill_err}
 
+
+def main_path(eng, cfg, want: dict, prompts, reqs) -> dict:
+    """Phase 4b: the engine (``engine_path``) and the continuous server (the
+    8 requests twice) at full width, each prefill, admission and decode
+    step a replay of its captured graph, or, where the server admits by
+    an exact-length prefill (MoE), that prefill eager, held against the
+    uncaptured path's tokens.  Returns the engine's numbers with the
+    server's rate and its prefills (admission replays, capture warm-ups
+    and eager admissions) and decode steps added, and the server's drains
+    split between admission and decode."""
+    from repro_torch.serving.continuous import ContinuousServer
+
+    out = engine_path(eng, cfg, want, prompts)
     srv = ContinuousServer(cfg, slots=4, max_seq=512, params=eng.params)
     got, first_wall = serve(srv, reqs)
+    eager = srv.split["eager_prefills"]
     same_tokens(f"{cfg.name} server, 8 requests on 4 slots", got, want["server"])
     got, wall = serve(srv, reqs)
+    eager += srv.split["eager_prefills"]
     same_tokens(f"{cfg.name} server, the same 8 requests again on its graph", got,
                 want["server"])
     if any(len(got[r.rid]) != r.n_new for r in reqs):
@@ -540,26 +608,26 @@ def main_path(eng, cfg, want: dict, prompts, reqs) -> dict:
     if any(not 0 <= t < cfg.vocab_size for t in sum(got.values(), [])):
         raise SystemExit("continuous server: token out of the vocabulary")
     n_tok = sum(r.n_new for r in reqs)
-    log(f"[server] 8 requests, prompts {min(len(r.prompt) for r in reqs)}-"
+    log(f"[server] {cfg.name} 8 requests, prompts {min(len(r.prompt) for r in reqs)}-"
         f"{max(len(r.prompt) for r in reqs)} tokens, 4 slots, max_seq 512: {n_tok} tokens "
         f"in {wall:.3f} s ({n_tok / wall:.1f} tok/s; the first drain, which captures, "
-        f"{first_wall:.3f} s), {srv.steps} decode steps over both")
+        f"{first_wall:.3f} s), {srv.steps} decode steps over both, {eager} eager "
+        "admission prefills")
     admissions = [g for g, _ in srv._admissions.values()]
     split = {"replayed": dict(srv.split, wall_s=wall), "uncaptured": want["server split"]}
     for name, sp in split.items():
-        log(f"[server] drain split, {name}: {sp['wall_s']:.3f} s = admission "
+        log(f"[server] {cfg.name} drain split, {name}: {sp['wall_s']:.3f} s = admission "
             f"{sp['admit_s']:.3f} s in {sp['rounds']} rounds (prefill, scatter and the "
             f"first tokens) + decode and host bookkeeping {sp['wall_s'] - sp['admit_s']:.3f} s")
-    log(f"[memory] server admission graphs: buckets {sorted(srv._admissions)}, their shared "
-        f"pool {pool_mb(srv._pool):.1f} MB, the staging cache "
-        f"{sum(t.numel() * t.element_size() for t in srv._staging.values()) / 1e6:.1f} MB; "
-        f"the engine's prefill graphs {sorted(eng._prefills)}, pool "
+    staging = sum(t.numel() * t.element_size() for t in (srv._staging or {}).values())
+    log(f"[memory] {cfg.name} server admission graphs: buckets {sorted(srv._admissions)}, "
+        f"their shared pool {pool_mb(srv._pool):.1f} MB, the staging cache "
+        f"{staging / 1e6:.1f} MB; the engine's prefill graphs {sorted(eng._prefills)}, pool "
         f"{pool_mb(eng._pool):.1f} MB")
-    captures = eng.compile_stats()["graphs"] + srv.compile_stats()["graphs"]
-    return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s,
-            "server_tok_s": n_tok / wall, "steps": 3 * 31 + srv.steps + captures,
-            "prefills": graph_runs(eng._prefills.values()) + graph_runs(admissions),
-            "prefill_err": prefill_err, "split": split}
+    out.update(server_tok_s=n_tok / wall, split=split,
+               steps=out["steps"] + srv.steps + srv.compile_stats()["graphs"],
+               prefills=out["prefills"] + graph_runs(admissions) + eager)
+    return out
 
 
 def rwkv_engine(cfg, dev):
@@ -683,6 +751,108 @@ def rwkv_uncaptured_tokens(eng) -> dict:
     return uncaptured_tokens(eng, prompts)
 
 
+def moe_logits_check(params, cfg, dev) -> None:
+    """Phase 4a for granite: a full-width prefill of (4, 100) tokens at the
+    exact length and one decode step, kernel path against plain path on the
+    same weights and tokens.  The plain path takes the kernel path's expert
+    routes (its ``torch.topk`` returns the kernel run's indices, in call
+    order, and its own probabilities there): otherwise a rounding
+    difference in attention that reorders two experts' scores at a token's
+    top-8 boundary (routing flips) would send that token elsewhere, and the
+    logits would differ with no kernel at fault.  How many routes the plain
+    path would have chosen otherwise is counted and printed.  In float32
+    the logits are held to ``MOE_REL_TOL``; in bf16 they are printed."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.decode.ref import flash_decode_ref
+    from repro_torch.models import api
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 100), generator=gen, device=dev)
+    nxt = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device=dev)
+    topk, routes, differ = torch.topk, [], [0, 0]
+
+    def recording(probs, k, dim=-1):
+        out = topk(probs, k, dim=dim)
+        routes.append(out.indices)
+        return out
+
+    def replaying(probs, k, dim=-1):
+        idx = routes[differ[1]]
+        own = topk(probs, k, dim=dim).indices
+        differ[0] += int((own[..., :, None] != idx[..., None, :]).all(-1).sum())
+        differ[1] += 1
+        return torch.gather(probs, dim, idx), idx
+
+    def run():
+        last, cache = api.prefill(params, {"tokens": tokens}, cfg, 256)
+        step, _ = api.decode_step(params, cache, nxt, 100, cfg)
+        return last.float(), step.float()
+
+    with mock.patch.object(torch, "topk", recording):
+        kern = run()
+    with mock.patch.object(dispatch, "flash_attention", flash_attention_ref), \
+            mock.patch.object(dispatch, "flash_decode", flash_decode_ref), \
+            mock.patch.object(torch, "topk", replaying):
+        plain = run()
+    n_routes = sum(r.numel() for r in routes)
+    if differ[1] != len(routes) or len(routes) != 2 * cfg.num_layers:
+        raise SystemExit(f"{cfg.name}: {len(routes)} routings recorded, {differ[1]} replayed, "
+                         f"not 2 x {cfg.num_layers} layers")
+    gated = cfg.cdt == torch.float32
+    for what, a, b in zip(("prefill last logits", "decode-step logits"), kern, plain):
+        rel = ((a - b).norm() / b.norm()).item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        log(f"[model] {cfg.name} {cfg.compute_dtype} {what} {tuple(a.shape)}: kernel vs plain "
+            f"on the kernel path's routes rel_l2={rel:.3e} "
+            f"({f'tol {MOE_REL_TOL:g}' if gated else 'reported, not held'}) "
+            f"max_abs={(a - b).abs().max().item():.3e} argmax agreement={agree:.2f}")
+        if not torch.isfinite(a).all() or (gated and rel > MOE_REL_TOL):
+            raise SystemExit(f"full-width {cfg.name} {cfg.compute_dtype} {what}: kernel "
+                             "path disagrees with plain path")
+    log(f"[model] {cfg.name} {cfg.compute_dtype}: the plain path's own router picks another "
+        f"expert for {differ[0]} of {n_routes} (token, choice) routes "
+        f"({differ[0] / n_routes:.3e}) over the prefill and the step")
+
+
+def granite_engine(cfg, dev):
+    from repro_torch.serving.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, seed=0, max_cache=256)
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, {cfg.num_experts} "
+        f"experts top-{cfg.num_experts_per_tok} of d_ff {cfg.d_ff}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}, "
+        f"{eng.stats()['params'] / 1e9:.3f} B params {cfg.param_dtype}, seeded init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return eng
+
+
+def kernel_counts(cfg, e2e: dict) -> dict:
+    """The K1 and K2 launches since the counts were set to 0, held to layers
+    x prefills and layers x decode steps of the path's run ``e2e``."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.rwkv import wkv
+
+    launches = {"flash_attention": flash.launches, "flash_decode": fd.launches}
+    log(f"[kernels] launches on the {cfg.name} path: {launches}, wkv6 {wkv.launches}; "
+        f"{e2e['steps']} decode steps on the card (replays and capture warm-ups) x "
+        f"{cfg.num_layers} layers = {e2e['steps'] * cfg.num_layers}; {e2e['prefills']} "
+        f"prefills (replays, capture warm-ups and eager admissions) x {cfg.num_layers} "
+        f"layers = {e2e['prefills'] * cfg.num_layers}")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"a kernel of the {cfg.name} path never launched: {launches}")
+    if fd.launches != cfg.num_layers * e2e["steps"]:
+        raise SystemExit(f"K2 launched {fd.launches} times on {cfg.name}, not layers x steps "
+                         f"{cfg.num_layers * e2e['steps']}")
+    if flash.launches != cfg.num_layers * e2e["prefills"]:
+        raise SystemExit(f"K1 launched {flash.launches} times on {cfg.name}, not layers x "
+                         f"prefills {cfg.num_layers * e2e['prefills']}")
+    return launches
+
+
 def timings(dev) -> dict:
     """Phase 6: each kernel at its paths' shapes, by CUDA events and by
     device time, beside its bound, its plain version and a library call."""
@@ -708,30 +878,35 @@ def timings(dev) -> dict:
                     library_device_ms=None if library is None else device_ms(library, sets),
                     bound=bound_)
 
-    h, kh, hd = 32, 32, 128
-    # K1 at the engine's prefill (batch 4, bucket 128) and the server's
-    # admission prefill (4 slots, bucket 512)
-    for tag, (b, s) in (("", (4, 128)), ("server", (4, 512))):
+    # K1 at deepseek's engine prefill (batch 4, bucket 128), its server's
+    # admission prefill (4 slots, bucket 512) and granite's engine prefill
+    # (batch 4, 100 tokens exact, GQA 24/8, head dim 64)
+    for tag, (b, s, h, kh, hd) in (("", (4, 128, 32, 32, 128)),
+                                   ("server", (4, 512, 32, 32, 128)),
+                                   ("granite", (4, 100, 24, 8, 64))):
         nbytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * 2   # q, k, v in; o out
         flops = 4 * hd * h * b * s * (s + 1) // 2   # QK^T and PV over the causal pairs
         sets = cold_copies(lambda: (rand((b, s, h, hd), dt, gen, dev),
                                     rand((b, s, kh, hd), dt, gen, dev),
                                     rand((b, s, kh, hd), dt, gen, dev)), nbytes)
         out["flash_attention" + (f" {tag}" if tag else "")] = row(
-            f"q {(b, s, h, hd)} bf16 causal",
+            f"q {(b, s, h, hd)} kv heads {kh} bf16 causal",
             lambda q, k, v: flash.flash_attention(q, k, v),
             lambda q, k, v: flash_attention_ref(q, k, v),
-            lambda q, k, v: F.scaled_dot_product_attention(*bhsd(q, k, v), is_causal=True),
+            lambda q, k, v, gqa=h != kh: F.scaled_dot_product_attention(
+                *bhsd(q, k, v), is_causal=True, enable_gqa=gqa),
             sets, bound(nbytes, flops, dt))
 
-    # K2 at the engine's last decode step (100 + 32 positions of a 256 cache,
-    # one (S,) mask) and at the server's (a 512 cache, a (B,S) mask whose rows
-    # end in different tiles)
+    # K2 at deepseek's engine's last decode step (100 + 32 positions of a 256
+    # cache, one (S,) mask), at its server's (a 512 cache, a (B,S) mask whose
+    # rows end in different tiles) and at granite's engine's last step
     b = 4
     kv = torch.arange(512, device=dev)
-    for tag, s, valid in (("", 256, kv[:256] < 132),
-                          ("server", 512, kv[None, :] <= torch.tensor(
-                              [[40], [170], [300], [470]], device=dev))):
+    for tag, s, valid, (h, kh, hd) in (
+            ("", 256, kv[:256] < 132, (32, 32, 128)),
+            ("server", 512, kv[None, :] <= torch.tensor([[40], [170], [300], [470]],
+                                                        device=dev), (32, 32, 128)),
+            ("granite", 256, kv[:256] < 132, (24, 8, 64))):
         n_valid = int(valid.sum()) * (b if valid.dim() == 1 else 1)   # over the batch
         # the valid positions of the cache are read, q read, o written, the mask read
         nbytes = (2 * b * h * hd + 2 * n_valid * kh * hd) * 2 + valid.numel()
@@ -746,16 +921,16 @@ def timings(dev) -> dict:
             f"q {(b, 1, h, hd)} cache {(b, s, kh, hd)} bf16, {ends}",
             lambda q, k, v, valid=valid: fd.flash_decode(q, k, v, valid),
             lambda q, k, v, valid=valid: flash_decode_ref(q, k, v, valid),
-            lambda q, k, v, mask=mask: F.scaled_dot_product_attention(*bhsd(q, k, v),
-                                                                      attn_mask=mask),
+            lambda q, k, v, mask=mask, gqa=h != kh: F.scaled_dot_product_attention(
+                *bhsd(q, k, v), attn_mask=mask, enable_gqa=gqa),
             sets, bound(nbytes, flops, dt))
         if not tag:
             out["flash_decode"]["host_us"] = host_us(
                 lambda q, k, v: fd.flash_decode(q, k, v, valid), sets[0])
     out["flash_attention"]["host_us"] = host_us(
         lambda q, k, v: flash.flash_attention(q, k, v),
-        (rand((4, 128, h, hd), dt, gen, dev), rand((4, 128, kh, hd), dt, gen, dev),
-         rand((4, 128, kh, hd), dt, gen, dev)))
+        (rand((4, 128, 32, 128), dt, gen, dev), rand((4, 128, 32, 128), dt, gen, dev),
+         rand((4, 128, 32, 128), dt, gen, dev)))
 
     # K3 at the rwkv engine's prefill (the row) and decode-step shapes, the
     # state updated in place as the model does; no PyTorch call computes the
@@ -851,6 +1026,10 @@ def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
     calls = sum(e.count for e in events if e.key in LAUNCH_CALLS) / n
     out = {"wall": wall_ms, "device": device_ms, "launches": launches, "calls": calls,
            "graphs": sum(e.count for e in events if e.key == "cudaGraphLaunch") / n}
+    kernel_calls = sum(e.count for e in events if e.key in LAUNCH_CALLS[:4]) / n
+    if not out["graphs"] and launches < kernel_calls:
+        log(f"[{tag}] the trace holds {launches:.1f} kernels a call for {kernel_calls:.1f} "
+            "kernel launch calls: it lost events, so its device time is a lower bound")
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     log(f"[{tag}] host wall {wall_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
         f"{calls:.1f} host launch calls (" + ", ".join(
@@ -938,8 +1117,9 @@ def prefill_rows(tag, eng, tokens, last, nbytes, flops, watch) -> dict:
     return out
 
 
-def breakdown(eng, cfg, dev) -> tuple:
-    """Phase 7 for deepseek: where the engine's time goes at full width, for
+def breakdown(eng, cfg, dev, tag: str = "") -> tuple:
+    """Phase 7 for a dense model (deepseek; mistral-nemo with ``tag``, the
+    prefix of its log lines): where the engine's time goes at full width, for
     a prefill (batch 4, bucket 128) and for a decode step (batch 4, 100..115
     cached positions), replayed and uncaptured: the host wall, the device
     time by kernel from torch.profiler, the host's launch calls, and the
@@ -954,12 +1134,12 @@ def breakdown(eng, cfg, dev) -> tuple:
     kv_row = 2 * cfg.num_layers * cfg.kv_dim * 2       # k and v of one position, bf16
 
     attn_flops = 4 * cfg.num_layers * cfg.q_dim * b * s * (s + 1) // 2
-    prefill = prefill_rows("prefill", eng, tokens, last, w_bytes + kv_row * b * s,
+    prefill = prefill_rows(f"{tag}prefill", eng, tokens, last, w_bytes + kv_row * b * s,
                            2 * layer_params * b * s + 2 * head_params * b + attn_flops,
                            ("flash_fwd",))
 
     n = 16
-    return prefill, decode_steps("decode", eng,
+    return prefill, decode_steps(f"{tag}decode", eng,
                                  lambda e: e._prefill(tokens, last, e.max_cache)[0],
                                  last + 1, n,
                                  w_bytes + kv_row * b * (last + 1 + n // 2),
@@ -990,6 +1170,76 @@ def rwkv_breakdown(eng, cfg, dev) -> tuple:
                                  w_bytes + 2 * state_bytes,
                                  (2 * (layer_params + head_params) + wkv_flops) * b,
                                  ("wkv6_kernel",))
+
+
+def moe_breakdown(eng, cfg, dev) -> tuple:
+    """Phase 7 for granite: a full-width prefill (batch 4, 100 tokens at the
+    exact length) and a decode step (batch 4, 100..107 cached positions),
+    each replayed and uncaptured.  Bound: every weight but the embedding
+    table read once (the capacity dispatch runs every expert, at a decode
+    step too), the cache written or read once; the products at the bf16
+    peak, the experts' over their whole capacity buffers (E, C, d), C the
+    capacity of the step's one group, and the router's."""
+    from repro_torch.models.common import count_params
+    from repro_torch.models.moe import capacity
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b, s, n = 4, 100, 8     # 8 steps: an uncaptured step launches about 3,600 kernels
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    w_bytes, _, head_params = weight_counts(eng.params)
+    attn_params = count_params(eng.params["layers"][0]["attn"])
+    kv_row = 2 * cfg.num_layers * cfg.kv_dim * 2       # k and v of one position, bf16
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+
+    def layer_flops(t):     # the products of every layer over t tokens
+        return cfg.num_layers * (2 * attn_params * t + 2 * d * e * t
+                                 + 6 * d * f * e * capacity(t, cfg))
+
+    attn_flops = 4 * cfg.num_layers * cfg.q_dim * b * s * (s + 1) // 2
+    prefill = prefill_rows("granite prefill", eng, tokens, None, w_bytes + kv_row * b * s,
+                           layer_flops(b * s) + attn_flops + 2 * head_params * b,
+                           ("flash_fwd",))
+    return prefill, decode_steps("granite decode", eng,
+                                 lambda e_: e_._prefill(tokens, None, e_.max_cache)[0], s, n,
+                                 w_bytes + kv_row * b * (s + n // 2),
+                                 layer_flops(b) + 2 * head_params * b,
+                                 ("decode_split", "decode_combine"))
+
+
+def mistral_phase(cfg, dev) -> tuple:
+    """mistral-nemo-12b at full width through the engine alone, with every
+    other engine freed: logits kernel against plain path, then batch 4,
+    prompt 100 (bucket 128), 32 new, greedy twice and sampled once, each
+    prefill and step replayed and held against the uncaptured path's
+    tokens, K1 and K2 counted; then phase 7's prefill and decode rows.
+    -> (the run's numbers, the launches, the prefill rows, the decode
+    rows)."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.rwkv import wkv
+    from repro_torch.serving.engine import InferenceEngine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, seed=0, max_cache=256)
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}, "
+        f"{eng.stats()['params'] / 1e9:.3f} B params {cfg.param_dtype}, seeded init "
+        f"{time.perf_counter() - t0:.1f} s")
+    logits_check(eng, cfg, dev)
+    prompts, _ = deepseek_inputs(cfg)
+    want = uncaptured_tokens(eng, prompts)
+    flash.launches = fd.launches = wkv.launches = 0
+    out = engine_path(eng, cfg, want, prompts)
+    launches = kernel_counts(cfg, out)
+    log(f"[memory] {cfg.name} alone on the card: peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prefill, steps = breakdown(eng, cfg, dev, "mistral-nemo ")
+    del eng
+    torch.cuda.empty_cache()
+    return out, launches, prefill, steps
 
 
 def bootstrap_line() -> None:
@@ -1128,10 +1378,11 @@ def cnn_phase(dev) -> dict:
 
 
 def calibration_phase(dev) -> None:
-    """Phase 8: the port's calibration of all five models at full width on
-    the card, into a temporary cache file, every launch counter set to 0
-    before each model and read after it: K1 and K2 must launch while
-    deepseek-7b is measured and K3 while rwkv6-1.6b is."""
+    """Phase 8: the port's calibration of six models at full width on the
+    card, into a temporary cache file, every launch counter set to 0 before
+    each model and read after it: K1 and K2 must launch while deepseek-7b
+    and granite-moe-3b-a800m are measured (each with a batch curve) and K3
+    while rwkv6-1.6b is."""
     from repro_torch.core import calibration
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.decode import flash_decode as fd
@@ -1166,11 +1417,13 @@ def calibration_phase(dev) -> None:
         if set(entry) != want or not all(v > 0 and math.isfinite(v) for v in times):
             raise SystemExit(f"calibration entry {name}: fields {sorted(entry)} or times "
                              f"{times} are not those of the v2 schema")
-    curves = {n: len(cache["models"][n]["batch_curve"]) for n in ("deepseek-7b", "rwkv6-1.6b")}
-    if curves != {"deepseek-7b": 3, "rwkv6-1.6b": 0}:
+    llms = ("deepseek-7b", "granite-moe-3b-a800m", "rwkv6-1.6b")
+    curves = {n: len(cache["models"][n]["batch_curve"]) for n in llms}
+    if curves != {"deepseek-7b": 3, "granite-moe-3b-a800m": 3, "rwkv6-1.6b": 0}:
         raise SystemExit(f"calibration: batch curves of {curves} points")
-    ds, rw = launches["deepseek-7b"], launches["rwkv6-1.6b"]
-    if not (ds["flash_attention"] and ds["flash_decode"] and rw["wkv6"]):
+    ds, gr, rw = (launches[n] for n in llms)
+    if not (ds["flash_attention"] and ds["flash_decode"] and gr["flash_attention"]
+            and gr["flash_decode"] and rw["wkv6"]):
         raise SystemExit(f"calibration: a kernel of the LLM paths never launched: {launches}")
     for name in CALIBRATED:
         h = (calibration.paper_handler(name, calibrated=cache)
@@ -1222,22 +1475,8 @@ def main() -> int:
     want = uncaptured_tokens(eng, prompts, reqs)
 
     flash.launches = fd.launches = wkv.launches = 0
-    e2e = main_path(eng, cfg, want, prompts, reqs)
-    launches = {"flash_attention": flash.launches, "flash_decode": fd.launches}
-    log(f"[kernels] launches on the {cfg.name} path: {launches}, wkv6 {wkv.launches}; "
-        f"{e2e['steps']} decode steps on the card (replays and capture warm-ups) x "
-        f"{cfg.num_layers} layers = {e2e['steps'] * cfg.num_layers}")
-    if min(launches.values()) == 0:
-        raise SystemExit(f"a kernel of the {cfg.name} path never launched: {launches}")
-    if fd.launches != cfg.num_layers * e2e["steps"]:
-        raise SystemExit(f"K2 launched {fd.launches} times, not layers x steps "
-                         f"{cfg.num_layers * e2e['steps']}")
-    log(f"[kernels] {e2e['prefills']} prefills on the card (engine and admission replays "
-        f"and capture warm-ups) x {cfg.num_layers} layers = "
-        f"{e2e['prefills'] * cfg.num_layers}; flash_attention {flash.launches}")
-    if flash.launches != cfg.num_layers * e2e["prefills"]:
-        raise SystemExit(f"K1 launched {flash.launches} times, not layers x prefills "
-                         f"{cfg.num_layers * e2e['prefills']}")
+    e2e = {cfg.name: main_path(eng, cfg, want, prompts, reqs)}
+    launches = kernel_counts(cfg, e2e[cfg.name])
 
     rcfg = get("rwkv6-1.6b").config
     reng = rwkv_engine(rcfg, dev)
@@ -1246,7 +1485,7 @@ def main() -> int:
                       rcfg.replace(param_dtype="float32", compute_dtype="float32"), dev)
     rwant = rwkv_uncaptured_tokens(reng)
     flash.launches = fd.launches = wkv.launches = 0
-    rwkv_e2e = rwkv_main_path(reng, rcfg, rwant)
+    e2e[rcfg.name] = rwkv_e2e = rwkv_main_path(reng, rcfg, rwant)
     launches["wkv6"] = wkv.launches
     k3_want = rcfg.num_layers * (rwkv_e2e["prefills"] + rwkv_e2e["steps"])
     log(f"[kernels] launches on the {rcfg.name} path: wkv6 {wkv.launches}, "
@@ -1258,49 +1497,76 @@ def main() -> int:
     if wkv.launches != k3_want:
         raise SystemExit(f"K3 launched {wkv.launches} times, not layers x (prefills + "
                          f"steps) {k3_want}")
+
+    gcfg = get("granite-moe-3b-a800m").config
+    geng = granite_engine(gcfg, dev)
+    f32 = gcfg.replace(param_dtype="float32", compute_dtype="float32")
+    moe_logits_check(tree_map(torch.Tensor.float, geng.params), f32, dev)
+    torch.cuda.empty_cache()
+    moe_logits_check(geng.params, gcfg, dev)
+    gprompts, greqs = deepseek_inputs(gcfg)
+    gwant = uncaptured_tokens(geng, gprompts, greqs)
+    flash.launches = fd.launches = wkv.launches = 0
+    e2e[gcfg.name] = main_path(geng, gcfg, gwant, gprompts, greqs)
+    for name, n in kernel_counts(gcfg, e2e[gcfg.name]).items():
+        launches[name] += n
     log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     cnns = cnn_phase(dev)
     times = timings(dev)
+    plans = times.pop("wkv6 plans")
+    log("[time] wkv6 device / event ms by split plan (CTAs per head, columns, lanes), the "
+        "first split_plan's: " + "; ".join(f"{k} {fmt_ms(d)} / {e:.4f}"
+                                            for k, (d, e) in plans.items()))
+    for name, t in times.items():
+        bound_ms, bound_by = t["bound"]
+        library = ("none" if t["library_ms"] is None else
+                   f"{t['library_ms']:.4f} ms (device {fmt_ms(t['library_device_ms'])})")
+        log(f"[time] {name} at {t['shape']}: {t['ms']:.4f} ms (device {fmt_ms(t['device_ms'])}); "
+            f"bound {bound_ms:.4f} ms ({bound_by}); plain {t['plain_ms']:.4f} ms (device "
+            f"{fmt_ms(t['plain_device_ms'])}); library {library}")
+        if "host_us" in t:
+            log(f"[time] {name} wrapper: {t['host_us']:.1f} us of host time per call")
+    prefills, steps = {}, {}
+    prefills[cfg.name], steps[cfg.name] = breakdown(eng, cfg, dev)
+    del eng
+    prefills[rcfg.name], steps[rcfg.name] = rwkv_breakdown(reng, rcfg, dev)
+    del reng
+    prefills[gcfg.name], steps[gcfg.name] = moe_breakdown(geng, gcfg, dev)
+    del geng
+    mcfg = get("mistral-nemo-12b").config
+    e2e[mcfg.name], mlaunches, prefills[mcfg.name], steps[mcfg.name] = mistral_phase(mcfg, dev)
+    for name, n in mlaunches.items():
+        launches[name] += n
+    calibration_phase(dev)
+
     meta = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/attention/flash.py:69"),
             "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                              "src/repro/kernels/decode/flash_decode.py:62"),
             "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv/wkv.py:57")}
     rows = []
-    plans = times.pop("wkv6 plans")
-    log("[time] wkv6 device / event ms by split plan (CTAs per head, columns, lanes), the "
-        "first split_plan's: " + "; ".join(f"{k} {d:.4f} / {e:.4f}" for k, (d, e) in plans.items()))
-    for name, t in times.items():
+    for name, (source, replaces) in meta.items():
+        t = times[name]
         bound_ms, bound_by = t["bound"]
-        library = ("none" if t["library_ms"] is None else
-                   f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f} ms)")
-        log(f"[time] {name} at {t['shape']}: {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms); "
-            f"bound {bound_ms:.4f} ms ({bound_by}); plain {t['plain_ms']:.4f} ms (device "
-            f"{t['plain_device_ms']:.4f} ms); library {library}")
-        if "host_us" in t:
-            log(f"[time] {name} wrapper: {t['host_us']:.1f} us of host time per call")
-        if name in meta:
-            rows.append({"name": name, "route": "cuda", "source": meta[name][0],
-                         "replaces": meta[name][1], "launches": launches[name],
-                         "max_abs_err": main_err[name], "ms": t["ms"],
-                         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": t["library_ms"],
-                         "library_device_ms": t["library_device_ms"]})
-    prefills, steps = {}, {}
-    prefills[cfg.name], steps[cfg.name] = breakdown(eng, cfg, dev)
-    del eng
-    prefills[rcfg.name], steps[rcfg.name] = rwkv_breakdown(reng, rcfg, dev)
-    del reng
-    calibration_phase(dev)
-    for name, r in ((cfg.name, e2e), (rcfg.name, rwkv_e2e)):
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": main_err[name], "ms": t["ms"],
+                     "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": t["library_ms"],
+                     "library_device_ms": t["library_device_ms"]})
+    log(f"[kernels] launches summed over the deepseek-7b, rwkv6-1.6b, granite-moe-3b-a800m "
+        f"and mistral-nemo-12b paths: {launches}")
+    for name, r in e2e.items():
         log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms (replayed; "
             f"logits within {r['prefill_err']:.3e} of the uncaptured prefill's), "
             f"decode {r['decode_tok_s']:.1f} tok/s ({card})")
-    log(f"[server] {cfg.name} full width: {e2e['server_tok_s']:.1f} tok/s; drain "
-        + "; ".join(f"{k} {sp['wall_s']:.3f} s, admission {sp['admit_s']:.3f} s in "
-                    f"{sp['rounds']} rounds" for k, sp in e2e["split"].items()) + f" ({card})")
+        if "server_tok_s" in r:
+            log(f"[server] {name} full width: {r['server_tok_s']:.1f} tok/s; drain "
+                + "; ".join(f"{k} {sp['wall_s']:.3f} s, admission {sp['admit_s']:.3f} s in "
+                            f"{sp['rounds']} rounds" for k, sp in r["split"].items())
+                + f" ({card})")
     for name, timed in prefills.items():
         r, u = timed["replayed"], timed["uncaptured"]
         busy = r["device"] / r["wall"]
@@ -1327,7 +1593,6 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

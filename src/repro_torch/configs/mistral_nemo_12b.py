@@ -1,0 +1,22 @@
+"""mistral-nemo-12b — dense GQA, 128k ctx [hf:mistralai/Mistral-Nemo-Base-2407]."""
+from repro_torch.configs.base import ArchSpec
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-nemo-12b", family="dense",
+    num_layers=40, d_model=5120, num_heads=32, num_kv_heads=8,
+    d_ff=14336, vocab_size=131072, head_dim=128,
+    rope_theta=1e6,
+)
+
+SMOKE = CONFIG.replace(
+    name="mistral-nemo-smoke", num_layers=2, d_model=128, num_heads=4,
+    num_kv_heads=2, d_ff=256, vocab_size=512, head_dim=32,
+    param_dtype="float32", compute_dtype="float32",
+)
+
+SPEC = ArchSpec(
+    arch_id="mistral-nemo-12b", config=CONFIG, smoke=SMOKE,
+    source="hf:mistralai/Mistral-Nemo-Base-2407",
+    long_strategy="window", long_window=4096,
+)

@@ -1,12 +1,25 @@
 """Architecture registry of the port: the language models it can serve so
-far (``ARCHS``, which the serve CLI offers), and the paper's CNN payloads
-(``PAPER_MODELS``); ``get`` finds both."""
+far (``ARCHS``, which the serve CLI offers), in the reference registry's
+order, and the paper's CNN payloads (``PAPER_MODELS``); ``get`` finds both."""
 from __future__ import annotations
 
-from repro_torch.configs import cnn_configs, deepseek_7b, rwkv6_1p6b
+from repro_torch.configs import (cnn_configs, deepseek_7b, granite_moe_3b,
+                                 mistral_nemo_12b, qwen1p5_110b, qwen2p5_32b,
+                                 qwen3_moe_235b, rwkv6_1p6b)
 from repro_torch.configs.base import ArchSpec
 
-ARCHS: dict[str, ArchSpec] = {s.arch_id: s for s in (deepseek_7b.SPEC, rwkv6_1p6b.SPEC)}
+ARCHS: dict[str, ArchSpec] = {
+    s.arch_id: s
+    for s in (
+        rwkv6_1p6b.SPEC,
+        deepseek_7b.SPEC,
+        granite_moe_3b.SPEC,
+        qwen2p5_32b.SPEC,
+        qwen3_moe_235b.SPEC,
+        qwen1p5_110b.SPEC,
+        mistral_nemo_12b.SPEC,
+    )
+}
 
 # the paper's own serving payloads
 PAPER_MODELS: dict[str, ArchSpec] = {

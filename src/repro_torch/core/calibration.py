@@ -87,7 +87,9 @@ PAPER_MODELS = {
 # MXNet import) and each modern model's declared working set for deploy-time
 # OOM validation.  They are not measured here.
 MODERN_BOOTSTRAP_CPU_S = 1.0
-MODERN_PEAK_MB = {"deepseek-7b": 512.0, "rwkv6-1.6b": 384.0}
+MODERN_PEAK_MB = {"deepseek-7b": 512.0, "qwen2.5-32b": 512.0,
+                  "qwen3-moe-235b-a22b": 768.0, "rwkv6-1.6b": 384.0,
+                  "qwen1.5-110b": 768.0}
 
 
 # ------------------------------------------------------------- cache schema
@@ -217,7 +219,7 @@ def _measure_llm(cfg: ModelConfig, *, device: torch.device, prompt: int = 16,
         tps = res.tokens_per_s
     walls.sort()
     curve = []
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):   # the reference's also takes vlm, not ported
         # the engine's weights: the same seeded draw, not another copy
         curve = _measure_batch_curve(cfg, eng.params, device=device)
     return {"kind": "llm",

@@ -4,6 +4,12 @@
         --requests 8 [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --requests 8 [--smoke] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+        --requests 8 [--smoke] [--device cpu]
+
+``--arch`` takes every language model of the port's registry; at full
+width qwen2.5-32b fits one 80 GB card only alone, and qwen3-moe-235b-a22b
+and qwen1.5-110b fit none (their sharded paths are not ported).
 
 The counterpart of ``repro.launch.serve``; its ``--serverless`` run through
 the platform simulator is not ported yet (ROADMAP.md Queue 1).

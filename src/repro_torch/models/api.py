@@ -5,9 +5,10 @@ Every family module exposes:
     prefill(params, tokens, cfg, cache_len, last_pos=, cache=) -> (last_logits, cache)
     decode_step(params, cache, token, pos, cfg) -> (logits, cache)
     init_cache(cfg, batch, seq, dtype, device)
-The dense and ssm (RWKV-6) families are ported so far, and the paper's CNN
-payloads (``cnn``: ``init_params`` here, then ``cnn.forward``/``cnn.predict``);
-the cnn family has no prefill, decode or cache.
+The dense, moe (the transformer with MoE layers) and ssm (RWKV-6) families
+are ported so far, and the paper's CNN payloads (``cnn``: ``init_params``
+here, then ``cnn.forward``/``cnn.predict``); the cnn family has no prefill,
+decode or cache.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from repro_torch import resolve_device
 from . import cnn, ssm, transformer
 from .common import ModelConfig
 
-_FAMILIES = {"dense": transformer, "ssm": ssm, "cnn": cnn}
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm, "cnn": cnn}
 
 
 def module_for(cfg: ModelConfig):
@@ -44,9 +45,10 @@ def prefill(params, inputs, cfg: ModelConfig, cache_len: int | None = None,
             last_pos=None, cache: dict | None = None):
     """``last_pos`` (int or (B,) int tensor) selects which position's logits
     to return — the bucketed-prefill hook (right-padded prompts read their
-    real last token, not the pad tail).  Only the dense family takes it: a
-    recurrent state is length-sensitive, so ssm callers keep exact-length
-    prompts and ssm's prefill refuses a ``last_pos``.  ``cache`` is a
+    real last token, not the pad tail).  Only the dense family's callers
+    pass one: a recurrent state is length-sensitive and pad tokens would
+    change MoE routing, so ssm and moe callers keep exact-length prompts
+    (ssm's prefill refuses a ``last_pos``).  ``cache`` is a
     preallocated cache (or recurrent state) written in place."""
     return _lm_module(cfg).prefill(params, inputs["tokens"], cfg, cache_len,
                                    last_pos=last_pos, cache=cache)

@@ -1,14 +1,15 @@
 """Weights bridge: the reference's parameter tree -> the port's.
 
 The reference trees (``repro.models.transformer.init_params`` for the dense
-family, ``repro.models.ssm.init_params`` for RWKV-6) are nested dicts of
-arrays whose layer params are stacked on a leading axis of length
+and moe families, ``repro.models.ssm.init_params`` for RWKV-6) are nested
+dicts of arrays whose layer params are stacked on a leading axis of length
 ``num_layers`` (built by ``vmap``).  The caller hands one over as numpy arrays
 (this module imports neither JAX nor the reference); the converter unstacks
 the layers into a list of per-layer dicts and keeps every other key (the
 dense tree's ``embed`` and ``final_norm``, and the ssm tree's ``ln_in`` too).
 Every leaf keeps its dtype: RWKV-6's ``u`` and ``w0`` stay float32 in a
-bfloat16 tree.
+bfloat16 tree, as does a MoE layer's float32 router ``moe.router.w`` (d, E)
+beside its expert weights ``moe.wi``/``wu`` (E, d, f) and ``wd`` (E, f, d).
 
 Dense weights stay ``(d_in, d_out)`` and the port applies them as ``x @ w``,
 as the reference does, so nothing is transposed.  bfloat16 arrays (numpy's
@@ -58,10 +59,11 @@ def _layer(tree, i: int):
 
 
 def from_reference(np_params: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """np_params: the reference dense, ssm or cnn param tree with numpy leaves."""
-    if cfg.is_moe or cfg.family not in ("dense", "ssm", "cnn"):
-        raise NotImplementedError(f"{cfg.name}: only the dense, ssm and cnn families "
-                                  "are ported (ROADMAP.md Queue 1)")
+    """np_params: the reference dense, moe, ssm or cnn param tree with numpy
+    leaves."""
+    if cfg.family not in ("dense", "moe", "ssm", "cnn"):
+        raise NotImplementedError(f"{cfg.name}: only the dense, moe, ssm and cnn "
+                                  "families are ported (ROADMAP.md Queue 1)")
     dev = resolve_device(device)
     if cfg.family == "cnn":
         return _convert_cnn(np_params, dev)

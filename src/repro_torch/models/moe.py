@@ -1,0 +1,139 @@
+"""Mixture-of-Experts layer: top-k router and sort-based capacity dispatch.
+
+The single-device path of the reference's ``repro/models/moe.py``.  Per
+group of tokens:
+
+  1. router -> top-k (expert id, gate) per token, gates renormalised;
+  2. stable argsort of the (token, choice) pairs by expert id;
+  3. the slot within an expert = rank - first rank of that expert
+     (``searchsorted``); a pair whose slot is past the capacity C is dropped;
+  4. the kept tokens are scattered into per-expert buffers (E, C, d) and the
+     three expert products run batched over E;
+  5. each pair reads its expert's output back, scaled by its gate, and the
+     k choices of a token are summed.
+
+Tokens are routed in groups (``DEFAULT_GROUP``) so that C stays bounded;
+rows share capacity within a group, so a token's output depends on what is
+batched with it, as in the reference.  All groups go through one pass here
+(the reference vmaps over them): the buffers are laid out expert-major,
+(E, G, C, d), so the products are three ``bmm`` over E.
+
+Nothing here syncs with the host: group size and capacity are Python ints
+fixed by the shapes, the drop is a spill row of the buffer that is cut off,
+and the combine is deterministic (a sum over the k axis in (token, choice)
+order, not an atomic add), so the layer can be captured into a CUDA graph
+and its replay gives the uncaptured step's values bit for bit.  The
+expert-parallel ``shard_map`` of the reference is not ported (ROADMAP.md
+Queue 1, slice F).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .common import ModelConfig, activation, dense_init
+
+DEFAULT_GROUP = 4096
+
+
+def moe_init(generator, cfg: ModelConfig, device) -> dict:
+    """The router (d, E) float32 N(0, 1/d); ``wi`` and ``wu`` (E, d, f)
+    N(0, 1/d) and ``wd`` (E, f, d) N(0, 1/f), drawn in float32 and cast to
+    the param dtype, as the reference draws them (the draws are torch's)."""
+    d, f, e, pdt = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.pdt
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w * scale).to(pdt)
+
+    return {
+        "router": dense_init(generator, d, e, torch.float32, device),
+        "wi": normal((e, d, f), d ** -0.5),
+        "wu": normal((e, d, f), d ** -0.5),
+        "wd": normal((e, f, d), f ** -0.5),
+    }
+
+
+def capacity(group_size: int, cfg: ModelConfig) -> int:
+    c = int(math.ceil(group_size * cfg.num_experts_per_tok
+                      * cfg.moe_capacity_factor / cfg.num_experts))
+    return max(c, 1)
+
+
+def _route_groups(xg, idx, gate, wi, wu, wd, cfg: ModelConfig, cap: int):
+    """Every group at once: xg (G,gs,d), idx/gate (G,gs,k) -> (G,gs,d)."""
+    g, gs, d = xg.shape
+    e, k = wi.shape[0], cfg.num_experts_per_tok
+    n, dev = gs * k, xg.device
+    act = activation(cfg.act)
+
+    eflat = idx.reshape(g, n)                                  # (token, choice) order
+    order = torch.argsort(eflat, dim=-1, stable=True)
+    sorted_e = torch.gather(eflat, 1, order)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    ranks = torch.arange(n, device=dev) - first                # slot, in sorted order
+    pos = torch.empty_like(ranks).scatter_(1, order, ranks)    # back in (token, choice) order
+    valid = pos < cap
+    slot = (eflat * g + torch.arange(g, device=dev)[:, None]) * cap + pos
+    spill = e * g * cap                                        # the row dropped pairs go to
+    dest = torch.where(valid, slot, spill)
+
+    buf = torch.zeros((spill + 1, d), dtype=cfg.cdt, device=dev)
+    buf[dest.reshape(-1)] = xg.to(cfg.cdt)[:, :, None].expand(g, gs, k, d).reshape(-1, d)
+    buf = buf[:spill].view(e, g * cap, d)
+
+    h = act(torch.bmm(buf, wi)) * torch.bmm(buf, wu)
+    yb = torch.bmm(h, wd).reshape(spill, d)
+
+    gflat = gate.reshape(g, n).to(cfg.cdt) * valid.to(cfg.cdt)
+    contrib = yb[torch.where(valid, slot, 0)] * gflat[..., None]
+    # The reference adds each pair into its token's row in sorted order
+    # (``y.at[tok].add``); this sums a token's k choices in choice order.
+    # The two differ by rounding only (within 1e-5 at float32), and this
+    # order is the same on every run.
+    return contrib.view(g, gs, k, d).sum(dim=2)
+
+
+def _dispatch_all_groups(xt, rw, wi, wu, wd, cfg: ModelConfig, group_size: int):
+    """xt: (T, d) -> (T, d) MoE output."""
+    t, d = xt.shape
+    gs = min(t, group_size)
+    if t % gs:
+        gs = math.gcd(t, gs)
+    g = t // gs
+    cap = capacity(gs, cfg)
+    xg = xt.reshape(g, gs, d)
+    probs = torch.softmax(xg.float() @ rw, dim=-1)             # (G,gs,E)
+    gate, idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    return _route_groups(xg, idx, gate, wi, wu, wd, cfg, cap).reshape(t, d)
+
+
+def _aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balance loss."""
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    t = x.shape[0] * x.shape[1]
+    probs = torch.softmax(x.reshape(t, -1).float() @ p["router"]["w"], dim=-1)
+    _, idx = torch.topk(probs, k, dim=-1)
+    counts = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
+        0, idx.reshape(-1), torch.ones((t * k,), dtype=torch.float32, device=x.device))
+    frac_tokens = counts / float(t * k)
+    frac_probs = probs.mean(dim=0)
+    return e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_weight
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
+            group_size: int = DEFAULT_GROUP) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d), the layer's output without its loss (what
+    the prefill and the decode step run)."""
+    b, s, d = x.shape
+    y = _dispatch_all_groups(x.reshape(b * s, d), p["router"]["w"], p["wi"].to(cfg.cdt),
+                             p["wu"].to(cfg.cdt), p["wd"].to(cfg.cdt), cfg, group_size)
+    return y.reshape(b, s, d).to(x.dtype)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              group_size: int = DEFAULT_GROUP):
+    """x: (B, S, d) -> (y, aux_loss)."""
+    return moe_ffn(p, x, cfg, group_size), _aux_loss(p, x, cfg)

@@ -1,9 +1,12 @@
-"""Decoder-only transformer LM, dense branch: GQA / QKV-bias / sliding window.
+"""Decoder-only transformer LM: dense / GQA / QKV-bias / MoE / sliding window.
 
 The reference stacks layers on a leading axis and scans them; here the layer
 stack is a list of per-layer param dicts walked by a Python loop.  The KV
 cache keeps the reference layout, a dict of (L,B,S,K,hd) tensors, and is
-written in place.
+written in place.  A MoE config (``num_experts > 0``) has a ``moe`` layer
+(``models/moe.py``) where a dense one has its ``mlp``; only ``forward``
+computes the MoE load-balance loss, as only the reference's training reads
+it (its jitted prefill and decode drop it as dead code).
 """
 from __future__ import annotations
 
@@ -11,16 +14,10 @@ import torch
 
 from repro_torch import resolve_device
 
+from . import moe
 from .common import ModelConfig, apply_norm, norm_init
 from .layers import (attn_init, attention_decode, attention_full, embed,
                      embed_init, mlp_apply, mlp_init, unembed)
-
-
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE branch of the transformer is not ported yet "
-            "(ROADMAP.md Queue 1)")
 
 
 # ----------------------------------------------------------------------
@@ -28,19 +25,22 @@ def _dense_only(cfg: ModelConfig) -> None:
 # ----------------------------------------------------------------------
 
 def layer_init(generator, cfg: ModelConfig, device) -> dict:
-    return {
+    p = {
         "ln1": norm_init(cfg.d_model, cfg.norm, cfg.pdt, device),
         "ln2": norm_init(cfg.d_model, cfg.norm, cfg.pdt, device),
         "attn": attn_init(generator, cfg, device),
-        "mlp": mlp_init(generator, cfg, device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe.moe_init(generator, cfg, device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     """Random weights with the reference's distributions, drawn from
     ``generator`` (torch's draws, not JAX's: tests convert reference weights
     with ``repro_torch.models.convert.from_reference`` instead)."""
-    _dense_only(cfg)
     return {
         "embed": embed_init(generator, cfg, device),
         "layers": [layer_init(generator, cfg, device) for _ in range(cfg.num_layers)],
@@ -52,32 +52,47 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
 # forward (prefill)
 # ----------------------------------------------------------------------
 
-def _block(x, lp, positions, cfg: ModelConfig):
+def _ffn(lp, h, cfg: ModelConfig, aux: list | None = None):
+    """The block's feed-forward: the MLP, or the MoE layer, whose
+    load-balance loss is appended to ``aux`` when one is given."""
+    if not cfg.is_moe:
+        return mlp_apply(lp["mlp"], h, cfg)
+    if aux is None:
+        return moe.moe_ffn(lp["moe"], h, cfg)
+    y, loss = moe.moe_apply(lp["moe"], h, cfg)
+    aux.append(loss)
+    return y
+
+
+def _block(x, lp, positions, cfg: ModelConfig, aux: list | None = None):
     h = apply_norm(lp["ln1"], x, cfg.norm)
     a, kv = attention_full(lp["attn"], h, positions, cfg, return_kv=True)
     x = x + a
     h = apply_norm(lp["ln2"], x, cfg.norm)
-    return x + mlp_apply(lp["mlp"], h, cfg), kv
+    return x + _ffn(lp, h, cfg, aux), kv
 
 
-def _hidden(params, tokens, cfg: ModelConfig, on_kv=None):
+def _hidden(params, tokens, cfg: ModelConfig, on_kv=None, aux: list | None = None):
     """The layer stack; calls ``on_kv(layer, k, v)`` with each layer's
-    (B,S,K,hd) keys and values.  -> final hidden states before the norm."""
-    _dense_only(cfg)
+    (B,S,K,hd) keys and values, and appends each MoE layer's loss to
+    ``aux`` when one is given.  -> final hidden states before the norm."""
     x = embed(params["embed"], tokens, cfg).to(cfg.cdt)
     positions = torch.arange(x.shape[1], device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x, (k, v) = _block(x, lp, positions, cfg)
+        x, (k, v) = _block(x, lp, positions, cfg, aux)
         if on_kv is not None:
             on_kv(i, k, v)
     return x
 
 
 def forward(params, tokens, cfg: ModelConfig):
-    """tokens: (B,S) int.  -> (logits (B,S,V), aux); aux is 0 for dense."""
-    x = _hidden(params, tokens, cfg)
+    """tokens: (B,S) int.  -> (logits (B,S,V), aux): the MoE layers'
+    load-balance losses summed (0 for dense)."""
+    aux = []
+    x = _hidden(params, tokens, cfg, aux=aux)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return unembed(params["embed"], x, cfg), torch.zeros((), device=x.device)
+    total = torch.stack(aux).sum() if aux else torch.zeros((), device=x.device)
+    return unembed(params["embed"], x, cfg), total
 
 
 # ----------------------------------------------------------------------
@@ -141,7 +156,6 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None,
 def decode_step(params, cache: dict, token: torch.Tensor, pos, cfg: ModelConfig):
     """token: (B,) int; pos: int or (B,) int tensor.  -> (logits (B,V), cache),
     where cache is the argument, updated in place."""
-    _dense_only(cfg)
     x = embed(params["embed"], token[:, None], cfg).to(cfg.cdt)
     for i, lp in enumerate(params["layers"]):
         h = apply_norm(lp["ln1"], x, cfg.norm)
@@ -149,6 +163,6 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos, cfg: ModelConfig)
                                    cache["v"][i], cfg)
         y = x + a
         h = apply_norm(lp["ln2"], y, cfg.norm)
-        x = y + mlp_apply(lp["mlp"], h, cfg)
+        x = y + _ffn(lp, h, cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed(params["embed"], x, cfg)[:, 0], cache

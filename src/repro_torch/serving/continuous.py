@@ -20,7 +20,11 @@ slot count), captured into a CUDA graph per bucket and replayed (eager on the
 CPU): the graph writes the admitted rows' keys and values into a staging
 cache that every bucket shares (a view of one buffer sized for ``max_seq``),
 and one eager scatter copies the admitted rows, and only those, into their
-slots, through a slot index held in a static device buffer.  Greedy decoding.
+slots, through a slot index held in a static device buffer.  A MoE config
+admits each request by its own exact-length prefill instead (pad tokens
+would change the experts' routing), batch 1 and eager, as the reference
+jits one per prompt length; the round's rows still go through one scatter.
+Greedy decoding.
 """
 from __future__ import annotations
 
@@ -213,8 +217,9 @@ class ContinuousServer:
 
     def _prefill_exact(self, reqs):
         """Per-request exact-length prefills, for families whose pad tokens
-        would change real tokens (MoE routing); the caches still merge into
-        one per-round scatter."""
+        would change real tokens (MoE routing), run eagerly (not captured:
+        a graph per prompt length is a follow-up, ROADMAP.md); the caches
+        still merge into one per-round scatter."""
         logits, rows = [], []
         for r in reqs:
             lg, pc = self._prefill(np.asarray([r.prompt], np.int64), None, self.max_seq)

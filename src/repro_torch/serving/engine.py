@@ -1,14 +1,16 @@
 """InferenceEngine: the model-serving runtime, on the card.
 
-Wraps the ported families (dense, and ssm: RWKV-6) behind a prefill and a
-decode step, each captured once into a CUDA graph and replayed
+Wraps the ported families (dense, moe, and ssm: RWKV-6) behind a prefill
+and a decode step, each captured once into a CUDA graph and replayed
 (``serving/graphs.py``; on the CPU the same steps run eagerly).  Dense prompt
 lengths are bucketed to powers of two, so the number of distinct prefill
 shapes, and of prefill graphs, grows with the number of buckets, not of
-prompt lengths; recurrent (ssm) prompts keep their exact length, since pad
-tokens would advance the state, and take a graph per (batch, length), as the
-reference jits its prefill per exact shape (``compile_stats`` counts the
-shapes, as the reference counts its jit caches, and the graphs).  A prompt
+prompt lengths; MoE prompts keep their exact length, since pad tokens would
+change the experts' routing and capacity, and so do recurrent (ssm) ones,
+since pad tokens would advance the state: both take a graph per (batch,
+length), as the reference jits its prefill per exact shape
+(``compile_stats`` counts the shapes, as the reference counts its jit
+caches, and the graphs).  A prompt
 and its last positions are copied into the prefill graph's static buffers
 outside the graph, then the graph is replayed.  The family's cache (a KV cache of
 ``max_cache`` positions, or the recurrent state) is preallocated, reused while
@@ -120,9 +122,12 @@ class InferenceEngine:
 
     def _prefiller(self, batch: int, length: int) -> PrefillGraph:
         """The prefill of a (batch, length) prompt into the cache, captured
-        at its first use and replayed while the cache lives.  Its capture
-        writes the cache, which its replay then writes again: so callers
-        take the decode step first (``_decoder``)."""
+        at its first use and replayed while the cache lives: ``length`` is
+        a dense prompt's bucket, whose last real positions the replay
+        reads, or a moe or ssm prompt's exact length, whose last position
+        it reads.  Its capture writes the cache, which its replay then
+        writes again: so callers take the decode step first
+        (``_decoder``)."""
         cache = self._cache_for(batch)
         key = (batch, length)
         if key not in self._prefills:
@@ -185,11 +190,15 @@ class InferenceEngine:
 
         dense: prompts pad to a power-of-two bucket and the cache is always
         ``max_cache``, so shapes vary per bucket, not per (s, n_new).
+        moe: the exact prompt (pad tokens would shift the experts' routing)
+        and the fixed cache.
         ssm: exact prompt lengths (pad tokens would advance the recurrent
         state) and the reference's cache length, which the O(1) state
         ignores but the reference's prefill jit is keyed on."""
         if self.cfg.family == "dense":
             return min(bucket_len(s), self.max_cache), self.max_cache
+        if self.cfg.family == "moe":
+            return s, self.max_cache
         return s, min(self.max_cache, s + n_new)
 
     # ------------------------------------------------------------------

@@ -209,6 +209,25 @@ def test_reference_modern_handler_takes_the_port_cache(port_cache):
     assert ours.batch_curve == tuple((b, r) for b, r in entry["batch_curve"])
 
 
+def test_moe_entry_has_a_batch_curve_and_feeds_the_reference_handler(tmp_path):
+    """A MoE model is measured as the reference measures dense, moe and vlm:
+    the engine, then the continuous server's batch curve."""
+    name = "granite-moe-3b-a800m"
+    cache = cal.calibrate(str(tmp_path / "cal.json"), models=[name], smoke=True,
+                          device="cpu")
+    entry = cache["models"][name]
+    assert set(entry) == LLM_FIELDS and entry["kind"] == "llm"
+    assert [b for b, _ in entry["batch_curve"]] == [1, 2, 4]
+    assert entry["batch_curve"][0] == [1, 1.0]
+    ours = cal.modern_handler(name, calibrated=cache)
+    assert _fields(ours) == _fields(ref_cal.modern_handler(name, calibrated=cache))
+    assert ours.batch_curve == tuple((b, r) for b, r in entry["batch_curve"])
+
+
+def test_declared_peak_memory_equals_the_references():
+    assert cal.MODERN_PEAK_MB == {n: m["peak_mb"] for n, m in ref_cal.MODERN_MODELS.items()}
+
+
 def test_port_modern_handler_needs_a_measured_entry(port_cache):
     _, cache = port_cache
     with pytest.raises(KeyError, match="measure it first"):

@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs import deepseek_7b, registry, rwkv6_1p6b
+from repro_torch.configs import deepseek_7b, granite_moe_3b, registry, rwkv6_1p6b
 from repro_torch.core import calibration
 from repro_torch.models import api, cnn
 from repro_torch.serving.continuous import ContinuousServer
@@ -40,7 +40,8 @@ def test_scan_sees_the_whole_port():
     for module in ("models/transformer.py", "kernels/dispatch.py", "serving/continuous.py",
                    "launch/serve.py", "configs/registry.py", "models/ssm.py",
                    "kernels/rwkv/wkv.py", "models/cnn.py", "core/calibration.py",
-                   "core/function.py", "serving/handler.py"):
+                   "core/function.py", "serving/handler.py", "models/moe.py",
+                   "configs/granite_moe_3b.py", "configs/mistral_nemo_12b.py"):
         assert module in names
     assert "torch" in _imported_roots(ROOT / "src" / "repro_torch" / "__init__.py")
 
@@ -72,7 +73,8 @@ def test_rwkv_engine_defaults_to_the_card():
     assert InferenceEngine(cfg, max_cache=16, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("cfg", [deepseek_7b.SMOKE, rwkv6_1p6b.SMOKE], ids=lambda c: c.family)
+@pytest.mark.parametrize("cfg", [deepseek_7b.SMOKE, rwkv6_1p6b.SMOKE, granite_moe_3b.SMOKE],
+                         ids=lambda c: c.family)
 def test_init_cache_defaults_to_the_card(cfg):
     if torch.cuda.is_available():
         assert all(t.is_cuda for t in api.init_cache(cfg, 2, 16).values())

@@ -50,12 +50,22 @@ def test_model_config_has_the_reference_fields():
 
 
 @pytest.mark.parametrize("which", ["config", "smoke"])
-def test_deepseek_configs_equal_the_reference(which):
-    ours = getattr(registry.get("deepseek-7b"), which)
-    ref = getattr(ARCHS["deepseek-7b"], which)
+@pytest.mark.parametrize("arch", sorted(registry.ARCHS))
+def test_configs_equal_the_reference(arch, which):
+    ours = getattr(registry.get(arch), which)
+    ref = getattr(ARCHS[arch], which)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     assert ours.param_count() == ref.param_count()
     assert ours.pdt == getattr(torch, str(ref.pdt))
+    spec, ref_spec = registry.get(arch), ARCHS[arch]
+    assert (spec.source, spec.long_strategy, spec.long_window, spec.notes) == (
+        ref_spec.source, ref_spec.long_strategy, ref_spec.long_window, ref_spec.notes)
+
+
+def test_registry_lists_the_reference_archs_in_its_order():
+    assert list(registry.ARCHS) == [a for a in ARCHS if a in registry.ARCHS]
+    assert {a for a in ARCHS if ARCHS[a].config.family in ("dense", "moe", "ssm")} == set(
+        registry.ARCHS)
 
 
 def test_registry_names_the_queue_for_unported_archs():
@@ -64,9 +74,8 @@ def test_registry_names_the_queue_for_unported_archs():
 
 
 def test_moe_and_other_families_raise_not_implemented():
-    moe = CFG.replace(num_experts=4, num_experts_per_tok=2)
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        api.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+        api.init_params(CFG.replace(family="audio"), torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="Queue 1"):
         api.init_params(CFG.replace(family="hybrid"), torch.Generator().manual_seed(0), "cpu")
 
