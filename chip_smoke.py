@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-Four serving paths, each at full width: deepseek-7b (the dense path, kernels
-K1 flash-attention and K2 flash-decode), granite-moe-3b-a800m (the MoE path:
-K1 and K2 at GQA 24/8 and head dim 64, exact-length prefills), mistral-nemo-12b
-(K1 and K2 at GQA 32/8 and head dim 128; the engine only) and rwkv6-1.6b (the
-RWKV-6 path, kernel K3 WKV-6); the paper's three CNN payloads at 224 px; and
-the calibration that turns six of them into the serverless simulator's
-numbers.  Phases, in order; any failure exits non-zero:
+Every serving family of the port at full width: deepseek-7b (the dense
+path, kernels K1 flash-attention and K2 flash-decode), granite-moe-3b-a800m
+(the MoE path: K1 and K2 at GQA 24/8 and head dim 64, exact-length
+prefills), mistral-nemo-12b (K1 and K2 at GQA 32/8 and head dim 128; the
+engine only), llava-next-mistral-7b (the vlm path: K1 over an image
+request's 2944 positions and K2 over a 3072 cache, GQA 32/8),
+rwkv6-1.6b (the RWKV-6 path, kernel K3 WKV-6), recurrentgemma-9b (the
+hybrid path: RG-LRU and ring-buffer local attention, no kernel) and
+whisper-tiny (the encoder-decoder, no kernel); the paper's three CNN
+payloads at 224 px; and the calibration that turns eight of them into the
+serverless simulator's numbers.  Phases, in order; any failure exits
+non-zero:
   1. the card's name and power limit (nvidia-smi), and the seconds of
      ``import torch`` and of the first CUDA context in a fresh process;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each, all
@@ -17,8 +22,13 @@ numbers.  Phases, in order; any failure exits non-zero:
   3. hold each kernel against its plain PyTorch version on the card: each
      path's shapes (granite's ragged S=100 at batch 4 and S=300 at batch 1
      for K1, its per-row masks over a 512 cache for K2, mistral-nemo's GQA
-     32/8) plus GQA, window, ragged-S, head-dim and float32 cases,
-     and for K2 masks whose all-false tiles lie at the start, around a band,
+     32/8, llava's (2, 2944) at GQA 32/8 for K1 and its per-row masks over a
+     3072 cache for K2, also at the llava engine's positions) plus GQA,
+     window, ragged-S, head-dim and float32 cases; every bf16 case of K1
+     and K2 also row by row against the plain version in float32 (each
+     row's relative L2 error, ``ROW_REL_TOL``), and at llava's shapes the
+     plain version with one KV tile dropped must read above that bar; for
+     K2 also masks whose all-false tiles lie at the start, around a band,
      in the middle and at the end, a row with no valid position (the mean of
      V), and a band slice of a longer cache; for K3 one head alone, a T that
      is not a multiple of its chunk, decays near 0 and near 1, and the state
@@ -69,13 +79,27 @@ numbers.  Phases, in order; any failure exits non-zero:
      (batch 4, prompt 100 in bucket 128, 32 new): logits kernel against
      plain, replayed greedy and sampled tokens against the uncaptured ones,
      K1 and K2 counted, the peak memory, and its prefill and decode rows;
+     then, each alone on the card and freed before the next (phases 4 and
+     7 for each): llava-next-mistral-7b (logits kernel against plain with
+     seeded random patch embeddings, a float32 copy of the weights the gate;
+     the engine at batch 2, prompt 2944 exact over the reference's zero
+     patch embeddings, 32 new, replayed against uncaptured, K1 and K2
+     counted), recurrentgemma-9b (the engine at batch 1, prompt 3072, 16
+     new, which wraps the ring and takes the chunked attention, and at
+     batch 4, prompt 100, 32 new, replayed against uncaptured; a float32
+     copy at 5 layers, the card against the CPU) and whisper-tiny (the
+     engine at batch 4, prompt 100, 32 new over 1500 zero frames, replayed
+     against uncaptured; the float32 model with random frames, the card
+     against the CPU), each with its peak memory;
   8. the port's ``calibrate`` of the three CNNs, deepseek-7b,
-     granite-moe-3b-a800m and rwkv6-1.6b at full width into a temporary
-     cache file: every entry printed and checked against the v2 schema, K1
-     and K2 launched while deepseek-7b and granite are measured (each with
-     a batch curve) and K3 while rwkv6-1.6b is, the handlers built from
-     the cache, the peak memory (this phase follows 6 and 7 because it
-     frees the engines they use);
+     granite-moe-3b-a800m, rwkv6-1.6b, recurrentgemma-9b and whisper-tiny at
+     full width into a temporary cache file: every entry printed and
+     checked against the v2 schema, K1 and K2 launched while deepseek-7b and
+     granite are measured (each with a batch curve) and K3 while rwkv6-1.6b
+     is, the handlers built from the cache, the peak memory (this phase
+     follows 6 and 7 because it frees the engines they use); llava is not
+     calibrated (the reference's vlm calibration fails, and the port's
+     follows it);
   9. one JSON line with the kernels (launches summed over every path), then
      the last line ``{"ok": true, ...}``.
 """
@@ -98,6 +122,17 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 L2_BYTES = 50 * 2**20
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K1 and K2 in bf16 held a second way: each output row (one query's head,
+# hd values) against the plain version in float32 on the same inputs, by
+# the row's relative L2 error, the largest over the rows.  Rounding the
+# probabilities and the output to bf16 gives about 2e-3.  A 64-key tile
+# dropped from a row that attends to about 2900 keys changes that row by
+# about sqrt(64/2900) = 0.15; TOL's elementwise 2e-2 on llava's outputs of
+# about 0.03 would not see it.
+ROW_REL_TOL = 1e-2
+# the keys of the tile that the fault reading drops (phase 3, llava's
+# shapes): for K1 from the rows past FAULT_ROWS, for K2 from every row
+FAULT_TILE, FAULT_ROWS = (1024, 1088), 2048
 # kernel path vs plain path at full width: the plain path rounds attention
 # probabilities to bf16 before PV, the kernels do not; over 30 bf16 layers
 # the last logits may differ by this much relative to their L2 norm
@@ -138,8 +173,20 @@ SAMPLE_T, SAMPLE_SEED = 0.8, 17
 # differ from the plain versions' by about 1e-7 a layer; this bar is far
 # above that and far below a broken kernel's error (of order 1)
 MOE_REL_TOL = 1e-3
+# a float32 model against the same model on another path (llava: kernel
+# against plain; recurrentgemma-9b and whisper-tiny: the card against the
+# CPU): sums in another order, about 1e-6 relative L2 at full width; a
+# broken kernel or a slip per row or channel is of order 1
+F32_REL_TOL = 1e-4
+# llava's engine: an image request, LLaVA-NeXT's 2880 anyres image positions
+# and 64 text tokens, in a cache that holds its 32 new tokens
+LLAVA_PROMPT, LLAVA_CACHE = 2944, 3072
+# recurrentgemma-9b's long prompt: past its 2048 window (the ring wraps
+# during the prefill) and a multiple of 1024 past 2048 (the chunked attention)
+HYBRID_LONG = 3072
+ENGINE_CACHE = {"vlm": LLAVA_CACHE, "hybrid": HYBRID_LONG + 16}
 CALIBRATED = ["squeezenet", "resnet18", "resnext50", "deepseek-7b", "granite-moe-3b-a800m",
-              "rwkv6-1.6b"]
+              "rwkv6-1.6b", "recurrentgemma-9b", "whisper-tiny"]
 CNN_ENTRY = {"kind", "warm_exec_s", "first_call_s"}
 LLM_ENTRY = {"kind", "warm_exec_s", "init_s", "compile_s", "package_mb", "tokens_per_s",
              "batch_curve"}
@@ -254,6 +301,46 @@ def check_rel(name: str, got: torch.Tensor, want: torch.Tensor, rel_tol: float) 
     return err
 
 
+def row_rel(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Each output row's relative L2 error over the last axis (hd)."""
+    return (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+
+
+def check_rows(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A bf16 kernel's output against its plain version in float32
+    (``want``), row by row: the largest row's relative L2 error, held to
+    ``ROW_REL_TOL``."""
+    torch.cuda.synchronize()
+    rel = row_rel(got, want)
+    worst = rel.max().item()
+    ok = bool(torch.isfinite(got).all()) and worst <= ROW_REL_TOL
+    log(f"[check] {name}, each row against float32: worst row rel_l2={worst:.3e} "
+        f"median {rel.median().item():.3e} tol={ROW_REL_TOL:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def fault_reads(name: str, want: torch.Tensor, plain: torch.Tensor,
+                faulty: torch.Tensor) -> None:
+    """The plain version in float32 with the keys of ``FAULT_TILE``
+    dropped, as a kernel that skips that tile would compute it, read by
+    ``check_rows``'s measure against ``want``: it must lie above the bar, or
+    the bar could not see the fault.  Also says whether ``check``'s
+    elementwise bf16 tolerance, against the bf16 ``plain`` version, would
+    let the fault pass."""
+    worst = row_rel(faulty, want).max().item()
+    f16 = faulty.to(plain.dtype).float()
+    passes = torch.allclose(f16, plain.float(), atol=TOL[plain.dtype], rtol=TOL[plain.dtype])
+    log(f"[check] {name}, keys {FAULT_TILE[0]}-{FAULT_TILE[1] - 1} dropped in the plain "
+        f"version: worst row rel_l2={worst:.3e} against the bar {ROW_REL_TOL:g}: "
+        f"{'seen' if worst > ROW_REL_TOL else 'NOT SEEN'}; the elementwise tol "
+        f"{TOL[plain.dtype]:g} would {'pass' if passes else 'fail'} it (max_abs_err "
+        f"{(f16 - plain.float()).abs().max().item():.3e})")
+    if not worst > ROW_REL_TOL:
+        raise SystemExit(f"{name}: the row bar cannot see a dropped KV tile")
+
+
 def wkv_inputs(b, t, h, hd, gen, dev, log_decay=-2.0):
     """r, k, v ~ N(0,1); decays w = exp(-exp(randn + log_decay)), realistic
     at -2, near 0 at +2, near 1 at -6; u and a small initial state, all
@@ -283,6 +370,7 @@ def kernel_checks(dev) -> dict:
     from repro_torch.kernels.decode.ref import flash_decode_ref
     from repro_torch.kernels.rwkv import wkv
     from repro_torch.kernels.rwkv.ref import wkv6_ref
+    from repro_torch.models.layers import causal_window_mask, sdpa
 
     gen = torch.Generator(device=dev).manual_seed(0)
     main_err = {"flash_attention": 0.0, "flash_decode": 0.0, "wkv6": 0.0}
@@ -293,6 +381,7 @@ def kernel_checks(dev) -> dict:
             (1, 300, 24, 8, 64, 0, torch.bfloat16, True),     # granite admission, S=300
             (1, 20, 24, 8, 64, 0, torch.bfloat16, True),      # granite admission, S=20
             (4, 128, 32, 8, 128, 0, torch.bfloat16, True),    # mistral-nemo engine prefill
+            (2, 2944, 32, 8, 128, 0, torch.bfloat16, True),   # llava engine prefill
             (4, 100, 24, 8, 64, 0, torch.float32, False),     # granite, float32 copy
             (2, 256, 8, 2, 64, 0, torch.bfloat16, False),     # GQA
             (1, 256, 4, 4, 128, 64, torch.bfloat16, False),   # window 64
@@ -303,9 +392,21 @@ def kernel_checks(dev) -> dict:
             (2, 333, 4, 2, 32, 100, torch.bfloat16, False)]:  # head dim 32, ragged, window
         q = rand((b, s, h, hd), dt, gen, dev)
         k, v = rand((b, s, kh, hd), dt, gen, dev), rand((b, s, kh, hd), dt, gen, dev)
-        err = check(f"K1 flash_attention q{(b, s, h, hd)} kv{kh} window={win} {dt}",
-                    flash.flash_attention(q, k, v, window=win),
-                    flash_attention_ref(q, k, v, window=win), TOL[dt])
+        name = f"K1 flash_attention q{(b, s, h, hd)} kv{kh} window={win} {dt}"
+        got = flash.flash_attention(q, k, v, window=win)
+        plain = flash_attention_ref(q, k, v, window=win)
+        if dt == torch.bfloat16:
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            want = flash_attention_ref(q32, k32, v32, window=win)
+            check_rows(name, got, want)
+            if s == LLAVA_PROMPT:
+                pos = torch.arange(s, device=dev)
+                drop = ((pos[:, None] >= FAULT_ROWS) & (pos[None, :] >= FAULT_TILE[0])
+                        & (pos[None, :] < FAULT_TILE[1]))
+                fault_reads(name, want, plain,
+                            sdpa(q32, k32, v32, causal_window_mask(pos, pos, win) & ~drop))
+            del q32, k32, v32, want
+        err = check(name, got, plain, TOL[dt])
         if main:
             main_err["flash_attention"] = max(main_err["flash_attention"], err)
     for (b, s, h, kh, hd, per_row, win, dt, main) in [
@@ -315,6 +416,7 @@ def kernel_checks(dev) -> dict:
             (4, 256, 24, 8, 64, False, 0, torch.bfloat16, True),     # granite engine decode
             (4, 512, 24, 8, 64, True, 0, torch.bfloat16, True),      # granite server decode
             (4, 256, 32, 8, 128, False, 0, torch.bfloat16, True),    # mistral-nemo decode
+            (2, 3072, 32, 8, 128, True, 0, torch.bfloat16, True),    # llava decode
             (4, 256, 24, 8, 64, False, 0, torch.float32, False),     # granite, float32 copy
             (2, 1024, 8, 2, 64, False, 0, torch.bfloat16, False),    # GQA
             (2, 512, 8, 8, 128, True, 64, torch.bfloat16, False),    # window 64
@@ -331,12 +433,16 @@ def kernel_checks(dev) -> dict:
         else:
             valid = kv <= (2 * s) // 3
         form = "(B,S)" if per_row else "(S,)"
-        err = check(f"K2 flash_decode q{(b, 1, h, hd)} cache{(b, s, kh, hd)} mask {form} "
-                    f"window={win} {dt}",
-                    fd.flash_decode(q, k, v, valid),
-                    flash_decode_ref(q, k, v, valid), TOL[dt])
+        name = (f"K2 flash_decode q{(b, 1, h, hd)} cache{(b, s, kh, hd)} mask {form} "
+                f"window={win} {dt}")
+        got = fd.flash_decode(q, k, v, valid)
+        if dt == torch.bfloat16:
+            check_rows(name, got, flash_decode_ref(q.float(), k.float(), v.float(), valid))
+        err = check(name, got, flash_decode_ref(q, k, v, valid), TOL[dt])
         if main:
             main_err["flash_decode"] = max(main_err["flash_decode"], err)
+    err = llava_decode_check(gen, dev)
+    main_err["flash_decode"] = max(main_err["flash_decode"], err)
     decode_skip_checks(gen, dev)
     for (b, t, h, hd, log_decay, main) in [
             (4, 100, 32, 64, -2.0, True),     # the rwkv engine's prefill
@@ -369,6 +475,32 @@ def kernel_checks(dev) -> dict:
         log(f"[check] K3 wkv6 (4, {t}, 32, 64) in place over s0 equals a separate state "
             "buffer bit for bit: ok")
     return main_err
+
+
+def llava_decode_check(gen, dev) -> float:
+    """Phase 3 for K2 at the llava engine's decode: a 3072 cache with 2944
+    to 2975 valid positions per row (its first and last step), in bf16,
+    elementwise and row by row, and the fault reading with a tile of the
+    rows' keys dropped.  -> the largest elementwise error."""
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.decode.ref import flash_decode_ref
+
+    b, s, h, kh, hd, dt = 2, LLAVA_CACHE, 32, 8, 128, torch.bfloat16
+    q = rand((b, 1, h, hd), dt, gen, dev)
+    k, v = rand((b, s, kh, hd), dt, gen, dev), rand((b, s, kh, hd), dt, gen, dev)
+    kv = torch.arange(s, device=dev)
+    last = torch.tensor([LLAVA_PROMPT + 31, LLAVA_PROMPT], device=dev)
+    valid = kv[None, :] <= last[:, None]
+    name = (f"K2 flash_decode q{(b, 1, h, hd)} cache{(b, s, kh, hd)} mask (B,S), the llava "
+            f"engine's positions {last.tolist()} {dt}")
+    got = fd.flash_decode(q, k, v, valid)
+    plain = flash_decode_ref(q, k, v, valid)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    want = flash_decode_ref(q32, k32, v32, valid)
+    check_rows(name, got, want)
+    tile = (kv >= FAULT_TILE[0]) & (kv < FAULT_TILE[1])
+    fault_reads(name, want, plain, flash_decode_ref(q32, k32, v32, valid & ~tile))
+    return check(name, got, plain, TOL[dt])
 
 
 def decode_skip_checks(gen, dev) -> None:
@@ -497,20 +629,20 @@ def deepseek_inputs(cfg) -> tuple:
     return prompts, reqs
 
 
-def uncaptured_tokens(eng, prompts, reqs=None) -> dict:
+def uncaptured_tokens(eng, prompts, reqs=None, n_new: int = 32) -> dict:
     """The uncaptured prefill's logits and the tokens of the uncaptured
     prefill and decode step on the card, on ``eng``'s weights: the engine
-    greedy and sampled, and the server's completions and its drain's split
-    between admission and decode."""
+    greedy and sampled (``n_new`` tokens), and the server's completions and
+    its drain's split between admission and decode."""
     from repro_torch.serving.continuous import ContinuousServer
     from repro_torch.serving.engine import InferenceEngine
 
     with uncaptured():
         plain = InferenceEngine(eng.cfg, params=eng.params, max_cache=eng.max_cache)
-        logits, _ = plain._prefill(*plain._prompt(prompts, 32))
+        logits, _ = plain._prefill(*plain._prompt(prompts, n_new))
         out = {"prefill": logits.clone(),
-               "greedy": plain.generate(prompts, 32).tokens,
-               "sampled": plain.generate(prompts, 32, temperature=SAMPLE_T,
+               "greedy": plain.generate(prompts, n_new).tokens,
+               "sampled": plain.generate(prompts, n_new, temperature=SAMPLE_T,
                                          seed=SAMPLE_SEED).tokens}
         if reqs is not None:
             srv = ContinuousServer(eng.cfg, slots=4, max_seq=512, params=eng.params)
@@ -523,11 +655,11 @@ def uncaptured_tokens(eng, prompts, reqs=None) -> dict:
     return out
 
 
-def prefill_check(eng, prompts, want) -> float:
+def prefill_check(eng, prompts, want, n_new: int = 32) -> float:
     """Phase 4: the engine's replayed prefill of ``prompts`` (capturing its
     graph at the first use) against the uncaptured prefill's logits, on the
     card.  -> the largest difference."""
-    tokens, last_pos, cache_len = eng._prompt(prompts, 32)
+    tokens, last_pos, cache_len = eng._prompt(prompts, n_new)
     got, _ = eng._prefill(tokens, last_pos, cache_len)
     graph = eng._prefills[tuple(tokens.shape)]
     if not graph.captured:
@@ -551,34 +683,40 @@ def same_tokens(what: str, got, want) -> None:
                          "uncaptured step's")
 
 
-def engine_path(eng, cfg, want: dict, prompts) -> dict:
+def engine_path(eng, cfg, want: dict, prompts, n_new: int = 32) -> dict:
     """Phase 4b, the engine: one prefill, then greedy twice and sampled once
-    (batch 4, 32 new), each prefill and decode step a replay of its
+    (``n_new`` tokens), each prefill and decode step a replay of its
     captured graph, held against the uncaptured prefill's logits and the
     uncaptured path's tokens.  Returns the rates, the prefills and the
     decode steps that ran on the card (replays and each capture's warm-up
     step)."""
-    prefill_err = prefill_check(eng, prompts, want["prefill"])
-    first = eng.generate(prompts, 32)
-    res = eng.generate(prompts, 32)
+    b, s = prompts.shape
+    graphs = eng.compile_stats()["graphs"]
+    prefill_err = prefill_check(eng, prompts, want["prefill"], n_new)
+    first = eng.generate(prompts, n_new)
+    res = eng.generate(prompts, n_new)
     toks = res.tokens
-    if toks.shape != (4, 32) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+    if toks.shape != (b, n_new) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise SystemExit(f"{cfg.name} generate: bad tokens {toks.shape}")
     if not torch.equal(first.tokens, toks):
-        raise SystemExit(f"{cfg.name} generate: two greedy runs on the same prompts differ")
-    same_tokens(f"{cfg.name} engine greedy, batch 4, 32 new", toks, want["greedy"])
-    sampled = eng.generate(prompts, 32, temperature=SAMPLE_T, seed=SAMPLE_SEED)
+        rows, steps = (first.tokens != toks).nonzero(as_tuple=True)
+        raise SystemExit(f"{cfg.name} generate: two greedy runs on the same prompts differ, "
+                         f"first at row {int(rows[0])}, token {int(steps[0])} "
+                         f"({len(rows)} tokens in all); the first run equals the uncaptured "
+                         f"path's: {torch.equal(first.tokens, want['greedy'])}, the second: "
+                         f"{torch.equal(toks, want['greedy'])}")
+    same_tokens(f"{cfg.name} engine greedy, batch {b}, {n_new} new", toks, want["greedy"])
+    sampled = eng.generate(prompts, n_new, temperature=SAMPLE_T, seed=SAMPLE_SEED)
     same_tokens(f"{cfg.name} engine sampled (temperature {SAMPLE_T}, seed {SAMPLE_SEED})",
                 sampled.tokens, want["sampled"])
-    s = prompts.shape[1]
-    prompt = (f"{s} (exact)" if cfg.family == "moe" else
-              f"{s} (bucket {eng._prefill_shapes(s, 32)[0]})")
-    log(f"[engine] {cfg.name} generate batch 4, prompt {prompt}, max_cache "
-        f"{eng.max_cache}, 32 new: prefill {res.prefill_s * 1e3:.3f} ms, decode "
+    prompt = (f"{s} (bucket {eng._prefill_shapes(s, n_new)[0]})" if cfg.family == "dense"
+              else f"{s} (exact)")
+    log(f"[engine] {cfg.name} generate batch {b}, prompt {prompt}, max_cache "
+        f"{eng.max_cache}, {n_new} new: prefill {res.prefill_s * 1e3:.3f} ms, decode "
         f"{res.decode_s * 1e3:.3f} ms, {res.tokens_per_s:.1f} tok/s; sampled "
         f"{sampled.tokens_per_s:.1f} tok/s; graphs captured {eng.compile_stats()['graphs']}")
     return {"prefill_ms": res.prefill_s * 1e3, "decode_tok_s": res.tokens_per_s,
-            "steps": 3 * 31 + eng.compile_stats()["graphs"],
+            "steps": 3 * (n_new - 1) + eng.compile_stats()["graphs"] - graphs,
             "prefills": graph_runs(eng._prefills.values()), "prefill_err": prefill_err}
 
 
@@ -879,11 +1017,13 @@ def timings(dev) -> dict:
                     bound=bound_)
 
     # K1 at deepseek's engine prefill (batch 4, bucket 128), its server's
-    # admission prefill (4 slots, bucket 512) and granite's engine prefill
-    # (batch 4, 100 tokens exact, GQA 24/8, head dim 64)
+    # admission prefill (4 slots, bucket 512), granite's engine prefill
+    # (batch 4, 100 tokens exact, GQA 24/8, head dim 64) and llava's (batch
+    # 2, 2880 image and 64 text positions exact, GQA 32/8)
     for tag, (b, s, h, kh, hd) in (("", (4, 128, 32, 32, 128)),
                                    ("server", (4, 512, 32, 32, 128)),
-                                   ("granite", (4, 100, 24, 8, 64))):
+                                   ("granite", (4, 100, 24, 8, 64)),
+                                   ("llava", (2, 2944, 32, 8, 128))):
         nbytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * 2   # q, k, v in; o out
         flops = 4 * hd * h * b * s * (s + 1) // 2   # QK^T and PV over the causal pairs
         sets = cold_copies(lambda: (rand((b, s, h, hd), dt, gen, dev),
@@ -899,14 +1039,16 @@ def timings(dev) -> dict:
 
     # K2 at deepseek's engine's last decode step (100 + 32 positions of a 256
     # cache, one (S,) mask), at its server's (a 512 cache, a (B,S) mask whose
-    # rows end in different tiles) and at granite's engine's last step
-    b = 4
-    kv = torch.arange(512, device=dev)
-    for tag, s, valid, (h, kh, hd) in (
-            ("", 256, kv[:256] < 132, (32, 32, 128)),
-            ("server", 512, kv[None, :] <= torch.tensor([[40], [170], [300], [470]],
-                                                        device=dev), (32, 32, 128)),
-            ("granite", 256, kv[:256] < 132, (24, 8, 64))):
+    # rows end in different tiles), at granite's engine's last step and at
+    # llava's (batch 2, 2944 + 32 positions of a 3072 cache, the engine's
+    # (B,S) mask)
+    kv = torch.arange(3072, device=dev)
+    for tag, b, s, valid, (h, kh, hd) in (
+            ("", 4, 256, kv[:256] < 132, (32, 32, 128)),
+            ("server", 4, 512, kv[None, :512] <= torch.tensor([[40], [170], [300], [470]],
+                                                              device=dev), (32, 32, 128)),
+            ("granite", 4, 256, kv[:256] < 132, (24, 8, 64)),
+            ("llava", 2, 3072, (kv < 2976)[None].repeat(2, 1), (32, 8, 128))):
         n_valid = int(valid.sum()) * (b if valid.dim() == 1 else 1)   # over the batch
         # the valid positions of the cache are read, q read, o written, the mask read
         nbytes = (2 * b * h * hd + 2 * n_valid * kh * hd) * 2 + valid.numel()
@@ -1056,21 +1198,22 @@ def weight_counts(params) -> tuple[int, int, int]:
     from repro_torch.models.common import count_params, param_bytes
 
     table = params["embed"]["embedding"]
+    layers = params["layers"] if "layers" in params else (params["units"], params["extra"])
     return (param_bytes(params) - table.numel() * table.element_size(),
-            count_params(params["layers"]), count_params(params["embed"]) - table.numel())
+            count_params(layers), count_params(params["embed"]) - table.numel())
 
 
-def decode_steps(tag, eng, setup, pos, n, nbytes, flops, watch) -> tuple:
+def decode_steps(tag, eng, setup, pos, n, nbytes, flops, watch, batch: int = 4) -> tuple:
     """Phase 7's decode rows: ``n`` replays of the engine's captured step at
-    batch 4 from position ``pos``, after ``setup(engine)`` (a prefill that
-    returns the last logits), then ``n`` steps of an uncaptured step on the
-    same weights.  The replayed trace must hold the
+    ``batch`` rows from position ``pos``, after ``setup(engine)`` (a prefill
+    that returns the last logits), then ``n`` steps of an uncaptured step on
+    the same weights.  The replayed trace must hold the
     ``watch`` kernels.  -> (host wall, device ms, host launch calls) of a
     replayed step, then of an uncaptured one."""
     from repro_torch.serving.engine import InferenceEngine
 
     def run(engine):
-        step = engine._decoder(4, 0.0)    # before the prefill: a capture runs a step
+        step = engine._decoder(batch, 0.0)   # before the prefill: a capture runs a step
 
         def prefill():
             step.start(setup(engine).argmax(-1), pos)
@@ -1217,29 +1360,272 @@ def mistral_phase(cfg, dev) -> tuple:
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.decode import flash_decode as fd
     from repro_torch.kernels.rwkv import wkv
-    from repro_torch.serving.engine import InferenceEngine
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng = InferenceEngine(cfg, seed=0, max_cache=256)
-    torch.cuda.synchronize()
-    log(f"[model] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, heads "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}, "
-        f"{eng.stats()['params'] / 1e9:.3f} B params {cfg.param_dtype}, seeded init "
-        f"{time.perf_counter() - t0:.1f} s")
+    eng = phase_start(cfg, dev)
     logits_check(eng, cfg, dev)
     prompts, _ = deepseek_inputs(cfg)
     want = uncaptured_tokens(eng, prompts)
     flash.launches = fd.launches = wkv.launches = 0
     out = engine_path(eng, cfg, want, prompts)
     launches = kernel_counts(cfg, out)
-    log(f"[memory] {cfg.name} alone on the card: peak allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak_line(cfg)
     prefill, steps = breakdown(eng, cfg, dev, "mistral-nemo ")
     del eng
     torch.cuda.empty_cache()
     return out, launches, prefill, steps
+
+
+def phase_start(cfg, dev):
+    """Free what earlier phases left, reset the peak memory and seed the
+    model's engine, alone on the card.  -> the engine."""
+    from repro_torch.serving.engine import InferenceEngine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, seed=0, max_cache=ENGINE_CACHE.get(cfg.family, 256))
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim}, "
+        f"{eng.stats()['params'] / 1e9:.3f} B params {cfg.param_dtype}, seeded init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return eng
+
+
+def peak_line(cfg) -> None:
+    log(f"[memory] {cfg.name} alone on the card: peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def vlm_logits_check(params, cfg, dev, tol: float) -> None:
+    """Phase 4a for llava: a full-width prefill of (2, 2944) tokens whose
+    first 2880 positions are seeded random patch embeddings, N(0, 0.02) as
+    a projector's output (zeros would let a merge that drops them pass), and
+    one decode step at a (B,) position, kernel path against plain path on
+    the same weights and inputs; the logits held to ``tol`` relative L2."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.decode.ref import flash_decode_ref
+    from repro_torch.models import api
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, s = 2, LLAVA_PROMPT
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    patches = (rand((b, cfg.num_image_tokens, cfg.d_model), torch.float32, gen, dev)
+               * 0.02).to(cfg.cdt)
+    nxt = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=dev)
+    pos = torch.full((b,), s, device=dev)
+
+    def run():
+        last, cache = api.prefill(params, {"tokens": tokens, "patch_embeds": patches}, cfg,
+                                  LLAVA_CACHE)
+        step, _ = api.decode_step(params, cache, nxt, pos, cfg)
+        return last.float(), step.float()
+
+    kern = run()
+    with mock.patch.object(dispatch, "flash_attention", flash_attention_ref), \
+            mock.patch.object(dispatch, "flash_decode", flash_decode_ref):
+        plain = run()
+    for what, a, w in zip(("prefill last logits", "decode-step logits"), kern, plain):
+        rel = ((a - w).norm() / w.norm()).item()
+        agree = (a.argmax(-1) == w.argmax(-1)).float().mean().item()
+        log(f"[model] {cfg.name} {cfg.compute_dtype} {what} {tuple(a.shape)}, random patch "
+            f"embeddings: kernel vs plain rel_l2={rel:.3e} (tol {tol:g}) "
+            f"max_abs={(a - w).abs().max().item():.3e} argmax agreement={agree:.2f}")
+        if not torch.isfinite(a).all() or rel > tol:
+            raise SystemExit(f"full-width {cfg.name} {cfg.compute_dtype} {what}: kernel "
+                             "path disagrees with plain path")
+
+
+def llava_phase(cfg, dev) -> tuple:
+    """llava-next-mistral-7b at full width alone on the card, the path
+    through K1 and K2 at an image request's length: logits kernel against
+    plain path (a float32 copy of the weights, the gate, then the bf16
+    weights at the bf16 bar); then the engine at batch 2, prompt 2944 exact
+    (2880 image positions, the reference's zero patch embeddings, and 64
+    text tokens), 32 new, max_cache 3072, greedy twice and sampled once,
+    each prefill and step replayed and held against the uncaptured path, K1
+    and K2 counted; then phase 7's prefill and decode rows.  -> (the run's
+    numbers, the launches, the prefill rows, the decode rows)."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.rwkv import wkv
+
+    eng = phase_start(cfg, dev)
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    vlm_logits_check(tree_map(torch.Tensor.float, eng.params), f32, dev, F32_REL_TOL)
+    torch.cuda.empty_cache()
+    vlm_logits_check(eng.params, cfg, dev, LOGITS_REL_TOL)
+    prompts = torch.randint(0, cfg.vocab_size, (2, LLAVA_PROMPT),
+                            generator=torch.Generator().manual_seed(14))
+    want = uncaptured_tokens(eng, prompts)
+    flash.launches = fd.launches = wkv.launches = 0
+    out = engine_path(eng, cfg, want, prompts)
+    launches = kernel_counts(cfg, out)
+    peak_line(cfg)
+
+    b, s = prompts.shape
+    tokens = prompts.to(dev)
+    w_bytes, layer_params, head_params = weight_counts(eng.params)
+    kv_row = 2 * cfg.num_layers * cfg.kv_dim * 2       # k and v of one position, bf16
+    attn_flops = 4 * cfg.num_layers * cfg.q_dim * b * s * (s + 1) // 2
+    prefill = prefill_rows("llava prefill", eng, tokens, None, w_bytes + kv_row * b * s,
+                           2 * layer_params * b * s + 2 * head_params * b + attn_flops,
+                           ("flash_fwd",))
+    n = 16
+    steps = decode_steps("llava decode", eng,
+                         lambda e: e._prefill(tokens, None, e.max_cache)[0], s, n,
+                         w_bytes + kv_row * b * (s + n // 2),
+                         2 * (layer_params + head_params) * b,
+                         ("decode_split", "decode_combine"), batch=b)
+    del eng
+    torch.cuda.empty_cache()
+    return out, launches, prefill, steps
+
+
+def card_vs_cpu(tag, params, cfg, dev, inputs: dict, n_steps: int = 4) -> None:
+    """A float32 model on the card against the same model on the CPU: the
+    prefill's last logits and ``n_steps`` decode steps at (B,) positions,
+    fed the same seeded tokens, each held to ``F32_REL_TOL`` relative L2."""
+    from repro_torch.models import api
+
+    cpu = tree_map(torch.Tensor.cpu, params)
+    b, s = inputs["tokens"].shape
+    nxt = torch.randint(0, cfg.vocab_size, (n_steps, b), generator=torch.Generator().manual_seed(18))
+
+    def run(p, device):
+        out = []
+        logits, cache = api.prefill(p, {k: v.to(device) for k, v in inputs.items()}, cfg,
+                                    s + n_steps)
+        out.append(logits.float().cpu())
+        for i in range(n_steps):
+            logits, cache = api.decode_step(p, cache, nxt[i].to(device),
+                                            torch.full((b,), s + i, device=device), cfg)
+            out.append(logits.float().cpu())
+        return out
+
+    for i, (a, w) in enumerate(zip(run(params, dev), run(cpu, torch.device("cpu")))):
+        rel = ((a - w).norm() / w.norm()).item()
+        what = "prefill last logits" if i == 0 else f"decode step {i} logits"
+        log(f"[model] {tag} {what} {tuple(a.shape)}: card vs CPU rel_l2={rel:.3e} "
+            f"(tol {F32_REL_TOL:g}) max_abs={(a - w).abs().max().item():.3e}")
+        if not torch.isfinite(a).all() or rel > F32_REL_TOL:
+            raise SystemExit(f"{tag} {what}: the card disagrees with the CPU")
+
+
+def redraw(tree, gen, names: dict):
+    """``tree`` with each leaf whose key is in ``names`` drawn anew, as
+    ``names[key](shape)`` says (on ``gen``'s device): the init sets these
+    to constants, which would hide a slip per channel."""
+    if isinstance(tree, list):
+        return [redraw(t, gen, names) for t in tree]
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (names[k](v, gen) if k in names and isinstance(v, torch.Tensor)
+                else redraw(v, gen, names)) for k, v in tree.items()}
+
+
+def _normal(mean, std):
+    return lambda t, gen: (mean + std * torch.randn(t.shape, generator=gen, device=t.device,
+                                                    dtype=torch.float32)).to(t.dtype)
+
+
+def hybrid_phase(cfg, dev) -> tuple:
+    """recurrentgemma-9b at full width alone on the card: the engine at
+    batch 1, prompt 3072 exact (the chunked attention, the ring wrapped
+    during the prefill), 16 new, then at batch 4, prompt 100 exact, 32 new,
+    each prefill and step replayed and held against the uncaptured path;
+    a float32 copy at full width and 5 layers (one pattern unit and the
+    2-layer remainder, the init's constant biases and decay redrawn) on the
+    card against the CPU; then phase 7's rows at batch 4.  -> ({run: its
+    numbers}, the prefill rows, the decode rows)."""
+    from repro_torch.models import hybrid
+    from repro_torch.models.common import tensor_leaves
+
+    eng = phase_start(cfg, dev)
+    runs = {}
+    for b, s, n_new in ((1, HYBRID_LONG, 16), (4, 100, 32)):
+        prompts = torch.randint(0, cfg.vocab_size, (b, s),
+                                generator=torch.Generator().manual_seed(15))
+        want = uncaptured_tokens(eng, prompts, n_new=n_new)
+        runs[f"{cfg.name} ({b},{s})"] = engine_path(eng, cfg, want, prompts, n_new)
+    peak_line(cfg)
+
+    cfg5 = cfg.replace(num_layers=5, param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    params = redraw(hybrid.init_params(cfg5, gen, dev), gen,
+                    {"conv_b": _normal(0.0, 0.1), "b": _normal(0.0, 0.1),
+                     "lam": _normal(2.0, 0.5)})
+    tokens = torch.randint(0, cfg.vocab_size, (4, 100), generator=torch.Generator().manual_seed(17))
+    card_vs_cpu(f"{cfg.name} float32, 5 layers", params, cfg5, dev, {"tokens": tokens})
+    del params
+
+    b, s = 4, 100
+    tokens = prompts.to(dev)
+    w_bytes, layer_params, head_params = weight_counts(eng.params)
+    ring = sum(t.numel() * t.element_size() for t in tensor_leaves(eng._cache))
+    prefill = prefill_rows("recurrentgemma prefill", eng, tokens, None, w_bytes + ring,
+                           2 * layer_params * b * s + 2 * head_params * b, ())
+    steps = decode_steps("recurrentgemma decode", eng,
+                         lambda e: e._prefill(tokens, None, e.max_cache)[0], s, 16,
+                         w_bytes + 2 * ring, 2 * (layer_params + head_params) * b, ())
+    del eng
+    torch.cuda.empty_cache()
+    return runs, prefill, steps
+
+
+def whisper_phase(cfg, dev) -> tuple:
+    """whisper-tiny at full width alone on the card: the engine at batch 4,
+    prompt 100 exact, 32 new, over the reference's 1500 zero frames, each
+    prefill and step replayed and held against the uncaptured path; the
+    float32 model with random frames (the init's constant biases and
+    LayerNorms redrawn) on the card against the CPU; then phase 7's rows.
+    -> (the run's numbers, the prefill rows, the decode rows)."""
+    from repro_torch.models import encdec
+    from repro_torch.models.common import count_params, param_bytes
+
+    eng = phase_start(cfg, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 100), generator=torch.Generator().manual_seed(19))
+    want = uncaptured_tokens(eng, prompts)
+    out = engine_path(eng, cfg, want, prompts)
+    peak_line(cfg)
+
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    params = redraw(encdec.init_params(f32, gen, dev), gen,
+                    {"b": _normal(0.0, 0.1), "scale": _normal(1.0, 0.2),
+                     "bias": _normal(0.0, 0.1)})
+    cpu_gen = torch.Generator().manual_seed(21)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (4, 100), generator=cpu_gen),
+              "frame_embeds": torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=cpu_gen)}
+    card_vs_cpu(f"{cfg.name} float32", params, f32, dev, inputs)
+    del params
+
+    b, s, se, d = 4, 100, cfg.encoder_seq, cfg.d_model
+    tokens = prompts.to(dev)
+    p = eng.params
+    # every weight read once (the tied embedding table by the unembedding),
+    # the decoder positions a row each; the cross-attention's keys and values
+    # over the frames are written (prefill) or read (a step) once
+    pos_table = p["dec_pos"]
+    w_bytes = param_bytes(p) - pos_table.numel() * pos_table.element_size()
+    x_kv = 2 * cfg.num_layers * b * se * cfg.kv_dim * 2
+    enc, dec = count_params(p["enc_layers"]), count_params(p["dec_layers"])
+    x_proj = 2 * d * cfg.kv_dim * cfg.num_layers          # xattn wk and wv
+    table = count_params(p["embed"])
+    prefill_flops = (2 * enc * b * se + 4 * cfg.encoder_layers * d * b * se * se
+                     + 2 * (dec - x_proj) * b * s + 2 * x_proj * b * se
+                     + 4 * cfg.num_layers * d * b * (s * (s + 1) // 2 + s * se)
+                     + 2 * table * b)
+    prefill = prefill_rows("whisper prefill", eng, tokens, None, w_bytes + x_kv,
+                           prefill_flops, ())
+    step_flops = 2 * (dec - x_proj + table) * b + 4 * cfg.num_layers * d * b * (s + se)
+    steps = decode_steps("whisper decode", eng,
+                         lambda e: e._prefill(tokens, None, e.max_cache)[0], s, 16,
+                         w_bytes + x_kv, step_flops, ())
+    del eng
+    torch.cuda.empty_cache()
+    return out, prefill, steps
 
 
 def bootstrap_line() -> None:
@@ -1378,11 +1764,14 @@ def cnn_phase(dev) -> dict:
 
 
 def calibration_phase(dev) -> None:
-    """Phase 8: the port's calibration of six models at full width on the
+    """Phase 8: the port's calibration of eight models at full width on the
     card, into a temporary cache file, every launch counter set to 0 before
     each model and read after it: K1 and K2 must launch while deepseek-7b
     and granite-moe-3b-a800m are measured (each with a batch curve) and K3
-    while rwkv6-1.6b is."""
+    while rwkv6-1.6b is; recurrentgemma-9b and whisper-tiny run no kernel
+    and take no batch curve, as in the reference.  llava-next-mistral-7b is
+    not calibrated: the reference's calibration of a vlm fails at its batch
+    curve, and the port's follows it."""
     from repro_torch.core import calibration
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.decode import flash_decode as fd
@@ -1390,6 +1779,11 @@ def calibration_phase(dev) -> None:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    log("[calibration] llava-next-mistral-7b is not calibrated: the reference's "
+        "calibration takes a vlm's batch curve through its ContinuousServer "
+        "(repro/core/calibration.py:266-267), whose admission hands the vlm prefill no "
+        "patch embeddings (repro/serving/continuous.py:92-95 against "
+        "repro/models/vlm.py:60-61) and raises KeyError; the port's does the same")
     measure, launches = calibration.measure_model, {}
 
     def counted(name, **kw):
@@ -1417,11 +1811,12 @@ def calibration_phase(dev) -> None:
         if set(entry) != want or not all(v > 0 and math.isfinite(v) for v in times):
             raise SystemExit(f"calibration entry {name}: fields {sorted(entry)} or times "
                              f"{times} are not those of the v2 schema")
-    llms = ("deepseek-7b", "granite-moe-3b-a800m", "rwkv6-1.6b")
-    curves = {n: len(cache["models"][n]["batch_curve"]) for n in llms}
-    if curves != {"deepseek-7b": 3, "granite-moe-3b-a800m": 3, "rwkv6-1.6b": 0}:
+    want_points = {"deepseek-7b": 3, "granite-moe-3b-a800m": 3, "rwkv6-1.6b": 0,
+                   "recurrentgemma-9b": 0, "whisper-tiny": 0}
+    curves = {n: len(cache["models"][n]["batch_curve"]) for n in want_points}
+    if curves != want_points:
         raise SystemExit(f"calibration: batch curves of {curves} points")
-    ds, gr, rw = (launches[n] for n in llms)
+    ds, gr, rw = (launches[n] for n in ("deepseek-7b", "granite-moe-3b-a800m", "rwkv6-1.6b"))
     if not (ds["flash_attention"] and ds["flash_decode"] and gr["flash_attention"]
             and gr["flash_decode"] and rw["wkv6"]):
         raise SystemExit(f"calibration: a kernel of the LLM paths never launched: {launches}")
@@ -1538,6 +1933,15 @@ def main() -> int:
     e2e[mcfg.name], mlaunches, prefills[mcfg.name], steps[mcfg.name] = mistral_phase(mcfg, dev)
     for name, n in mlaunches.items():
         launches[name] += n
+    lcfg = get("llava-next-mistral-7b").config
+    e2e[lcfg.name], llaunches, prefills[lcfg.name], steps[lcfg.name] = llava_phase(lcfg, dev)
+    for name, n in llaunches.items():
+        launches[name] += n
+    hcfg = get("recurrentgemma-9b").config
+    hruns, prefills[hcfg.name], steps[hcfg.name] = hybrid_phase(hcfg, dev)
+    e2e.update(hruns)
+    wcfg = get("whisper-tiny").config
+    e2e[wcfg.name], prefills[wcfg.name], steps[wcfg.name] = whisper_phase(wcfg, dev)
     calibration_phase(dev)
 
     meta = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1556,8 +1960,8 @@ def main() -> int:
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": t["library_ms"],
                      "library_device_ms": t["library_device_ms"]})
-    log(f"[kernels] launches summed over the deepseek-7b, rwkv6-1.6b, granite-moe-3b-a800m "
-        f"and mistral-nemo-12b paths: {launches}")
+    log(f"[kernels] launches summed over the deepseek-7b, rwkv6-1.6b, granite-moe-3b-a800m, "
+        f"mistral-nemo-12b and llava-next-mistral-7b paths: {launches}")
     for name, r in e2e.items():
         log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms (replayed; "
             f"logits within {r['prefill_err']:.3e} of the uncaptured prefill's), "
@@ -1570,7 +1974,7 @@ def main() -> int:
     for name, timed in prefills.items():
         r, u = timed["replayed"], timed["uncaptured"]
         busy = r["device"] / r["wall"]
-        log(f"[graph] {name} prefill, batch 4, replayed: host wall {r['wall']:.3f} ms, device "
+        log(f"[graph] {name} prefill, replayed: host wall {r['wall']:.3f} ms, device "
             f"{r['device']:.4f} ms, busy {busy:.3f} ({'at least' if busy >= 0.85 else 'BELOW'} "
             f"0.85), {r['calls']:.1f} host launch calls of which {r['graphs']:.1f} graph "
             f"launches; uncaptured: {u['wall']:.3f} ms, {u['device']:.4f} ms, busy "

@@ -1,5 +1,7 @@
-"""PyTorch and CUDA port of the serving paths of ``repro``: the dense
-(deepseek-7b) and the RWKV-6 (rwkv6-1.6b) families (see ROADMAP.md).
+"""PyTorch and CUDA port of the serving paths of ``repro``: every family of
+its registry (dense, moe, ssm: RWKV-6, hybrid: RecurrentGemma, audio:
+Whisper, vlm: LLaVA-NeXT), the paper's CNNs, the calibration bridge, and the
+KV-cache and int8 quantization utilities (see ROADMAP.md).
 
 The package imports ``torch`` and nothing of ``jax`` or ``repro``; its tests hold
 it against the JAX package on the same weights and inputs.  Entry points run on

@@ -219,8 +219,10 @@ def _measure_llm(cfg: ModelConfig, *, device: torch.device, prompt: int = 16,
         tps = res.tokens_per_s
     walls.sort()
     curve = []
-    if cfg.family in ("dense", "moe"):   # the reference's also takes vlm, not ported
-        # the engine's weights: the same seeded draw, not another copy
+    if cfg.family in ("dense", "moe", "vlm"):
+        # the engine's weights: the same seeded draw, not another copy.  A vlm
+        # curve fails at its first admission, as the reference's does: the
+        # continuous server hands the vlm prefill no patch embeddings
         curve = _measure_batch_curve(cfg, eng.params, device=device)
     return {"kind": "llm",
             "warm_exec_s": walls[len(walls) // 2],

@@ -7,9 +7,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
         --requests 8 [--smoke] [--device cpu]
 
-``--arch`` takes every language model of the port's registry; at full
-width qwen2.5-32b fits one 80 GB card only alone, and qwen3-moe-235b-a22b
-and qwen1.5-110b fit none (their sharded paths are not ported).
+``--arch`` takes every language model of the registry, the reference's
+ten (recurrentgemma-9b, whisper-tiny and llava-next-mistral-7b too; the
+last two get the reference's zero frame or patch embeddings); at full width
+qwen2.5-32b fits one 80 GB card only alone, and qwen3-moe-235b-a22b and
+qwen1.5-110b fit none (their sharded paths are not ported).
 
 The counterpart of ``repro.launch.serve``; its ``--serverless`` run through
 the platform simulator is not ported yet (ROADMAP.md Queue 1).

@@ -1,29 +1,37 @@
-"""Family dispatch: one uniform API over the ported architecture families.
+"""Family dispatch: one uniform API over every architecture family.
 
 Every family module exposes:
     init_params(cfg, generator, device) -> params
-    prefill(params, tokens, cfg, cache_len, last_pos=, cache=) -> (last_logits, cache)
+    prefill(params, inputs, cfg, cache_len, last_pos=, cache=) -> (last_logits, cache)
     decode_step(params, cache, token, pos, cfg) -> (logits, cache)
     init_cache(cfg, batch, seq, dtype, device)
-The dense, moe (the transformer with MoE layers) and ssm (RWKV-6) families
-are ported so far, and the paper's CNN payloads (``cnn``: ``init_params``
-here, then ``cnn.forward``/``cnn.predict``); the cnn family has no prefill,
-decode or cache.
+The language-model families are dense and moe (the transformer), ssm
+(RWKV-6), hybrid (RecurrentGemma), audio (the Whisper encoder-decoder) and
+vlm (LLaVA-NeXT); the paper's CNN payloads (``cnn``) have ``init_params``
+here, then ``cnn.forward``/``cnn.predict``, and no prefill, decode or cache.
 """
 from __future__ import annotations
 
 from repro_torch import resolve_device
 
-from . import cnn, ssm, transformer
+from . import cnn, encdec, hybrid, ssm, transformer, vlm
 from .common import ModelConfig
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm, "cnn": cnn}
+_FAMILIES = {
+    "dense": transformer,
+    "moe": transformer,
+    "ssm": ssm,
+    "hybrid": hybrid,
+    "audio": encdec,
+    "vlm": vlm,
+    "cnn": cnn,
+}
 
 
 def module_for(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP.md Queue 1)")
+        raise NotImplementedError(f"unknown family {cfg.family!r}; the port has "
+                                  f"{sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 
@@ -43,15 +51,22 @@ def init_params(cfg: ModelConfig, generator, device):
 
 def prefill(params, inputs, cfg: ModelConfig, cache_len: int | None = None,
             last_pos=None, cache: dict | None = None):
-    """``last_pos`` (int or (B,) int tensor) selects which position's logits
+    """``inputs``: ``tokens`` (B,S), and for the audio and vlm families
+    their stubbed frontend's ``frame_embeds`` or ``patch_embeds``, which
+    those families' prefills take with the whole dict, as the reference's.
+    ``last_pos`` (int or (B,) int tensor) selects which position's logits
     to return — the bucketed-prefill hook (right-padded prompts read their
     real last token, not the pad tail).  Only the dense family's callers
     pass one: a recurrent state is length-sensitive and pad tokens would
-    change MoE routing, so ssm and moe callers keep exact-length prompts
-    (ssm's prefill refuses a ``last_pos``).  ``cache`` is a
-    preallocated cache (or recurrent state) written in place."""
-    return _lm_module(cfg).prefill(params, inputs["tokens"], cfg, cache_len,
-                                   last_pos=last_pos, cache=cache)
+    change MoE routing, so the other families' callers keep exact-length
+    prompts (the ssm, hybrid, audio and vlm prefills refuse a
+    ``last_pos``).  ``cache`` is a preallocated cache (or recurrent state)
+    written in place."""
+    mod = _lm_module(cfg)
+    if cfg.family in ("audio", "vlm"):
+        return mod.prefill(params, inputs, cfg, cache_len, last_pos=last_pos, cache=cache)
+    return mod.prefill(params, inputs["tokens"], cfg, cache_len, last_pos=last_pos,
+                       cache=cache)
 
 
 def decode_step(params, cache, token, pos, cfg: ModelConfig):

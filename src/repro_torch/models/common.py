@@ -221,20 +221,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def _tensor_leaves(params: Params):
+def row_positions(pos, batch: int, device) -> torch.Tensor:
+    """A decode step's position as a (B,) int tensor on the device: a (B,)
+    or 0-d tensor as given, a host int filled in (an int is then fixed in
+    a captured step, so the engine passes a tensor)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(-1).expand(batch)
+    return torch.full((batch,), int(pos), dtype=torch.long, device=device)
+
+
+def tensor_leaves(params: Params):
+    """Every tensor of a nested dict / list tree, in order."""
     if isinstance(params, torch.Tensor):
         yield params
     elif isinstance(params, dict):
         for v in params.values():
-            yield from _tensor_leaves(v)
+            yield from tensor_leaves(v)
     elif isinstance(params, (list, tuple)):
         for v in params:
-            yield from _tensor_leaves(v)
+            yield from tensor_leaves(v)
 
 
 def count_params(params: Params) -> int:
-    return sum(t.numel() for t in _tensor_leaves(params))
+    return sum(t.numel() for t in tensor_leaves(params))
 
 
 def param_bytes(params: Params) -> int:
-    return sum(t.numel() * t.element_size() for t in _tensor_leaves(params))
+    return sum(t.numel() * t.element_size() for t in tensor_leaves(params))

@@ -1,15 +1,26 @@
 """Weights bridge: the reference's parameter tree -> the port's.
 
-The reference trees (``repro.models.transformer.init_params`` for the dense
-and moe families, ``repro.models.ssm.init_params`` for RWKV-6) are nested
-dicts of arrays whose layer params are stacked on a leading axis of length
-``num_layers`` (built by ``vmap``).  The caller hands one over as numpy arrays
-(this module imports neither JAX nor the reference); the converter unstacks
-the layers into a list of per-layer dicts and keeps every other key (the
-dense tree's ``embed`` and ``final_norm``, and the ssm tree's ``ln_in`` too).
+The reference trees are nested dicts of arrays whose layer params are
+stacked on a leading axis (built by ``vmap``).  The caller hands one over as
+numpy arrays (this module imports neither JAX nor the reference); the
+converter unstacks each stack into a list of per-layer dicts and keeps every
+other key:
+
+* dense, moe and vlm (``repro.models.transformer.init_params``; vlm's is the
+  transformer's): ``layers`` becomes a list, ``embed`` and ``final_norm`` are
+  kept;
+* ssm (``repro.models.ssm.init_params``): the same, and ``ln_in`` is kept;
+* hybrid (``repro.models.hybrid.init_params``): ``units``, a dict of pattern
+  blocks ``b0``.. each stacked on ``n_units``, becomes a list of per-unit
+  dicts, and ``extra``, already a list, is converted block by block;
+* audio (``repro.models.encdec.init_params``): ``enc_layers`` and
+  ``dec_layers`` become lists, and ``dec_pos`` (the learned decoder
+  positions) and the norms are kept.
+
 Every leaf keeps its dtype: RWKV-6's ``u`` and ``w0`` stay float32 in a
-bfloat16 tree, as does a MoE layer's float32 router ``moe.router.w`` (d, E)
-beside its expert weights ``moe.wi``/``wu`` (E, d, f) and ``wd`` (E, f, d).
+bfloat16 tree, as do a MoE layer's float32 router ``moe.router.w`` (d, E)
+beside its expert weights ``moe.wi``/``wu`` (E, d, f) and ``wd`` (E, f, d),
+and the RG-LRU's ``lam``.
 
 Dense weights stay ``(d_in, d_out)`` and the port applies them as ``x @ w``,
 as the reference does, so nothing is transposed.  bfloat16 arrays (numpy's
@@ -58,19 +69,49 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int, device) -> list:
+    return [_convert(_layer(tree, i), device) for i in range(n)]
+
+
+def _depth(tree) -> int:
+    """The length of the stacked axis of a stacked tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(tree)
+
+
+# the stacked keys of each family's tree, and the config's count of each
+_STACKS = {
+    "dense": {"layers": "num_layers"}, "moe": {"layers": "num_layers"},
+    "vlm": {"layers": "num_layers"}, "ssm": {"layers": "num_layers"},
+    "audio": {"enc_layers": "encoder_layers", "dec_layers": "num_layers"},
+}
+
+
 def from_reference(np_params: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """np_params: the reference dense, moe, ssm or cnn param tree with numpy
+    """np_params: the reference param tree of ``cfg``'s family, with numpy
     leaves."""
-    if cfg.family not in ("dense", "moe", "ssm", "cnn"):
-        raise NotImplementedError(f"{cfg.name}: only the dense, moe, ssm and cnn "
-                                  "families are ported (ROADMAP.md Queue 1)")
+    if cfg.family not in (*_STACKS, "hybrid", "cnn"):
+        raise NotImplementedError(f"{cfg.name}: unknown family {cfg.family!r}")
     dev = resolve_device(device)
     if cfg.family == "cnn":
         return _convert_cnn(np_params, dev)
-    layers = np_params["layers"]
-    n = len(layers["ln1"]["scale"])
-    if n != cfg.num_layers:
-        raise ValueError(f"the tree has {n} layers, {cfg.name} has {cfg.num_layers}")
-    out = {k: _convert(v, dev) for k, v in np_params.items() if k != "layers"}
-    out["layers"] = [_convert(_layer(layers, i), dev) for i in range(n)]
+    if cfg.family == "hybrid":
+        units, extra = np_params["units"], np_params["extra"]
+        out = {k: _convert(v, dev) for k, v in np_params.items()
+               if k not in ("units", "extra")}
+        n_units = _depth(units)
+        if n_units * len(units) + len(extra) != cfg.num_layers:
+            raise ValueError(f"the tree has {n_units} units of {len(units)} and "
+                             f"{len(extra)} extra layers, {cfg.name} has {cfg.num_layers}")
+        out["units"] = _unstack(units, n_units, dev)
+        out["extra"] = [_convert(b, dev) for b in extra]
+        return out
+    stacks = _STACKS[cfg.family]
+    out = {k: _convert(v, dev) for k, v in np_params.items() if k not in stacks}
+    for key, count in stacks.items():
+        n = _depth(np_params[key])
+        if n != getattr(cfg, count):
+            raise ValueError(f"the tree has {n} {key}, {cfg.name} has {getattr(cfg, count)}")
+        out[key] = _unstack(np_params[key], n, dev)
     return out

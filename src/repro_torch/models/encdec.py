@@ -1,0 +1,247 @@
+"""Whisper-style encoder-decoder transformer backbone (arXiv:2212.04356).
+
+As in the reference, the audio frontend (log-mel spectrogram and conv
+feature extractor) is a stub: the inputs carry precomputed frame embeddings
+``(B, encoder_seq, d)``.  This module is the transformer: a bidirectional
+encoder over the frames and a causal decoder with cross-attention, with
+LayerNorm, GELU, learned decoder positions (``MAX_DEC_POS`` of them, the
+reference's 32768) and no RoPE.
+
+The reference stacks the layers and scans them; here each stack is a list
+of per-layer param dicts walked by a Python loop.  The cache keeps the
+reference's layout, ``k``/``v`` (L,B,S,K,hd) and the cross-attention's
+``xk``/``xv`` (L,B,encoder_seq,K,hd), and is written in place: the prefill
+fills all four, a decode step writes ``k``/``v`` at its position and reads
+``xk``/``xv`` unchanged.  No Pallas kernel is on this path in the
+reference: the attention is ``sdpa`` or ``attention_chunked``, and so it
+is here, on every device.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from .common import ModelConfig, apply_norm, dense, dense_init, norm_init, row_positions
+from .layers import (CHUNK_THRESHOLD, Q_CHUNK, _split_heads, attention_chunked, attn_init,
+                     embed, embed_init, sdpa, unembed)
+
+MAX_DEC_POS = 32768
+
+
+def _sinusoid(seq: int, d: int, device) -> torch.Tensor:
+    """(seq, d) float32: sin then cos of pos * 10000^(-j / (d/2 - 1)), each
+    step in float32 as the reference takes it."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None]
+    rate = torch.log(torch.full((), 10000.0, device=device)) / (d // 2 - 1)
+    ang = pos * torch.exp(-dim * rate)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _attn(p, xq, xkv, mask, cfg: ModelConfig):
+    q = _split_heads(dense(p["wq"], xq), cfg.num_heads)
+    k = _split_heads(dense(p["wk"], xkv), cfg.num_kv_heads)
+    v = _split_heads(dense(p["wv"], xkv), cfg.num_kv_heads)
+    out = sdpa(q, k, v, mask)
+    return dense(p["wo"], out.reshape(*xq.shape[:2], -1))
+
+
+def _mlp_init(generator, cfg: ModelConfig, device) -> dict:
+    return {"wi": dense_init(generator, cfg.d_model, cfg.d_ff, cfg.pdt, device, bias=True),
+            "wo": dense_init(generator, cfg.d_ff, cfg.d_model, cfg.pdt, device, bias=True)}
+
+
+def _mlp(p, x):
+    return dense(p["wo"], F.gelu(dense(p["wi"], x), approximate="tanh"))
+
+
+def _ln(cfg: ModelConfig, device) -> dict:
+    return norm_init(cfg.d_model, "layernorm", cfg.pdt, device)
+
+
+def enc_layer_init(generator, cfg: ModelConfig, device) -> dict:
+    return {"ln1": _ln(cfg, device), "ln2": _ln(cfg, device),
+            "attn": attn_init(generator, cfg, device),
+            "mlp": _mlp_init(generator, cfg, device)}
+
+
+def dec_layer_init(generator, cfg: ModelConfig, device) -> dict:
+    return {"ln1": _ln(cfg, device), "ln2": _ln(cfg, device), "ln3": _ln(cfg, device),
+            "attn": attn_init(generator, cfg, device),
+            "xattn": attn_init(generator, cfg, device),
+            "mlp": _mlp_init(generator, cfg, device)}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Random weights with the reference's distributions, from ``generator``
+    (torch's draws, not JAX's)."""
+    dec_pos = torch.randn((MAX_DEC_POS, cfg.d_model), generator=generator, device=device,
+                          dtype=torch.float32) * 0.01
+    return {
+        "embed": embed_init(generator, cfg, device),
+        "dec_pos": dec_pos.to(cfg.pdt),
+        "enc_layers": [enc_layer_init(generator, cfg, device)
+                       for _ in range(cfg.encoder_layers)],
+        "dec_layers": [dec_layer_init(generator, cfg, device)
+                       for _ in range(cfg.num_layers)],
+        "enc_ln_post": _ln(cfg, device),
+        "final_norm": _ln(cfg, device),
+    }
+
+
+# ----------------------------------------------------------------------
+# encoder
+# ----------------------------------------------------------------------
+
+def encode(params, frame_embeds, cfg: ModelConfig) -> torch.Tensor:
+    """frame_embeds: (B, Se, d), the stubbed frontend's output.  -> (B, Se, d)."""
+    se = frame_embeds.shape[1]
+    x = frame_embeds.to(cfg.cdt) + _sinusoid(se, cfg.d_model, frame_embeds.device).to(cfg.cdt)
+    full = torch.ones((se, se), dtype=torch.bool, device=x.device)
+    for lp in params["enc_layers"]:
+        h = apply_norm(lp["ln1"], x, "layernorm")
+        x = x + _attn(lp["attn"], h, h, full, cfg)
+        h = apply_norm(lp["ln2"], x, "layernorm")
+        x = x + _mlp(lp["mlp"], h)
+    return apply_norm(params["enc_ln_post"], x, "layernorm")
+
+
+# ----------------------------------------------------------------------
+# decoder
+# ----------------------------------------------------------------------
+
+def _dec_embed(params, tokens, pos, cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings plus learned positions: positions 0..S-1 over a
+    prompt (``pos`` None), or each row's position (a (B,) tensor, gathered
+    on the device) for one token."""
+    x = embed(params["embed"], tokens, cfg).to(cfg.cdt)
+    table = params["dec_pos"]
+    rows = table[:tokens.shape[1]][None] if pos is None else table[pos][:, None]
+    return x + rows.to(cfg.cdt)
+
+
+def decode_full(params, tokens, enc_out, cfg: ModelConfig, on_kv=None) -> torch.Tensor:
+    """The decoder over the whole prompt; calls ``on_kv(layer, k, v, xk, xv)``
+    with each layer's self- and cross-attention keys and values.  -> the
+    final hidden states before the norm (B,S,d)."""
+    b, s = tokens.shape
+    x = _dec_embed(params, tokens, None, cfg)
+    pos = torch.arange(s, device=x.device)
+    causal = pos[None, :] <= pos[:, None]
+    xfull = torch.ones((s, enc_out.shape[1]), dtype=torch.bool, device=x.device)
+    for i, lp in enumerate(params["dec_layers"]):
+        h = apply_norm(lp["ln1"], x, "layernorm")
+        q = _split_heads(dense(lp["attn"]["wq"], h), cfg.num_heads)
+        k = _split_heads(dense(lp["attn"]["wk"], h), cfg.num_kv_heads)
+        v = _split_heads(dense(lp["attn"]["wv"], h), cfg.num_kv_heads)
+        if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
+            # memory-bounded: the full (S,S) logits would dominate the memory
+            a = attention_chunked(q, k, v, pos, pos, 0)
+        else:
+            a = sdpa(q, k, v, causal)
+        x = x + dense(lp["attn"]["wo"], a.reshape(b, s, -1))
+        h = apply_norm(lp["ln2"], x, "layernorm")
+        xk = _split_heads(dense(lp["xattn"]["wk"], enc_out), cfg.num_kv_heads)
+        xv = _split_heads(dense(lp["xattn"]["wv"], enc_out), cfg.num_kv_heads)
+        xq = _split_heads(dense(lp["xattn"]["wq"], h), cfg.num_heads)
+        x = x + dense(lp["xattn"]["wo"], sdpa(xq, xk, xv, xfull).reshape(b, s, -1))
+        h = apply_norm(lp["ln3"], x, "layernorm")
+        x = x + _mlp(lp["mlp"], h)
+        if on_kv is not None:
+            on_kv(i, k, v, xk, xv)
+    return x
+
+
+# ----------------------------------------------------------------------
+# public API
+# ----------------------------------------------------------------------
+
+def _frames(inputs: dict, cfg: ModelConfig) -> torch.Tensor:
+    if "frame_embeds" not in inputs:
+        raise KeyError(f"{cfg.name}: the audio family's inputs need 'frame_embeds' "
+                       f"(B, {cfg.encoder_seq}, {cfg.d_model}) beside 'tokens'; got "
+                       f"{sorted(inputs)}")
+    return inputs["frame_embeds"]
+
+
+def forward(params, inputs: dict, cfg: ModelConfig):
+    """inputs: ``frame_embeds`` (B,Se,d) and ``tokens`` (B,S).  -> (logits
+    (B,S,V), aux 0)."""
+    enc_out = encode(params, _frames(inputs, cfg), cfg)
+    x = decode_full(params, inputs["tokens"], enc_out, cfg)
+    x = apply_norm(params["final_norm"], x, "layernorm")
+    return unembed(params["embed"], x, cfg), torch.zeros((), device=x.device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cuda") -> dict:
+    device = resolve_device(device)
+    dt = dtype or cfg.cdt
+    hd, l, kh = cfg.resolved_head_dim, cfg.num_layers, cfg.num_kv_heads
+    return {name: torch.zeros((l, batch, n, kh, hd), dtype=dt, device=device)
+            for name, n in (("k", seq), ("v", seq), ("xk", cfg.encoder_seq),
+                            ("xv", cfg.encoder_seq))}
+
+
+def prefill(params, inputs: dict, cfg: ModelConfig, cache_len: int | None = None, *,
+            last_pos=None, cache: dict | None = None):
+    """The encoder over the frames, then the decoder over the prompt.  ->
+    (last logits (B,V), cache).  ``cache``, when given, is written in place
+    (the self-attention positions past the prompt zeroed), else a new one of
+    ``cache_len`` positions is made.  Only the last position is normed and
+    unembedded.  ``last_pos`` must be None: the reference's audio prefill
+    reads the last position only, so callers keep exact-length prompts."""
+    if last_pos is not None:
+        raise ValueError(f"{cfg.name}: the audio prefill takes exact-length prompts "
+                         "(last_pos=None)")
+    tokens = inputs["tokens"]
+    b, s = tokens.shape
+    cache_len = cache_len or s
+    if cache is None:
+        cache = init_cache(cfg, b, cache_len, device=tokens.device)
+    elif cache["k"].shape[2] != cache_len:
+        raise ValueError(f"cache holds {cache['k'].shape[2]} positions, "
+                         f"cache_len is {cache_len}")
+    enc_out = encode(params, _frames(inputs, cfg), cfg)
+
+    def on_kv(i, k, v, xk, xv):
+        cache["k"][i, :, :s] = k.to(cache["k"].dtype)
+        cache["v"][i, :, :s] = v.to(cache["v"].dtype)
+        cache["xk"][i] = xk.to(cache["xk"].dtype)
+        cache["xv"][i] = xv.to(cache["xv"].dtype)
+
+    x = decode_full(params, tokens, enc_out, cfg, on_kv)
+    cache["k"][:, :, s:] = 0
+    cache["v"][:, :, s:] = 0
+    last = apply_norm(params["final_norm"], x[:, -1], "layernorm")
+    return unembed(params["embed"], last, cfg), cache
+
+
+def decode_step(params, cache: dict, token, pos, cfg: ModelConfig):
+    """token: (B,) int; pos: an int, or a (B,) int tensor of each row's
+    position on the device (written per row, masked per row, its decoder
+    position gathered).  -> (logits (B,V), cache), updated in place."""
+    b, dev = token.shape[0], token.device
+    pos = row_positions(pos, b, dev)
+    x = _dec_embed(params, token[:, None], pos, cfg)
+    rows = torch.arange(b, device=dev)
+    valid = torch.arange(cache["k"].shape[2], device=dev)[None, :] <= pos[:, None]
+    xmask = torch.ones((1, cache["xk"].shape[2]), dtype=torch.bool, device=dev)
+    for i, lp in enumerate(params["dec_layers"]):
+        ck, cv = cache["k"][i], cache["v"][i]
+        h = apply_norm(lp["ln1"], x, "layernorm")
+        q = _split_heads(dense(lp["attn"]["wq"], h), cfg.num_heads)
+        k = _split_heads(dense(lp["attn"]["wk"], h), cfg.num_kv_heads)
+        v = _split_heads(dense(lp["attn"]["wv"], h), cfg.num_kv_heads)
+        ck[rows, pos] = k[:, 0].to(ck.dtype)
+        cv[rows, pos] = v[:, 0].to(cv.dtype)
+        a = sdpa(q, ck, cv, valid[:, None, :])
+        x = x + dense(lp["attn"]["wo"], a.reshape(b, 1, -1))
+        h = apply_norm(lp["ln2"], x, "layernorm")
+        xq = _split_heads(dense(lp["xattn"]["wq"], h), cfg.num_heads)
+        xa = sdpa(xq, cache["xk"][i], cache["xv"][i], xmask)
+        x = x + dense(lp["xattn"]["wo"], xa.reshape(b, 1, -1))
+        h = apply_norm(lp["ln3"], x, "layernorm")
+        x = x + _mlp(lp["mlp"], h)
+    x = apply_norm(params["final_norm"], x, "layernorm")
+    return unembed(params["embed"], x, cfg)[:, 0], cache

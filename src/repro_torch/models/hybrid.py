@@ -1,0 +1,354 @@
+"""RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks and local
+attention in a repeating pattern (arXiv:2402.19427).
+
+Temporal mixing follows the config's ``pattern`` (``("rglru", "rglru",
+"attn")``).  As in the reference, the layers are grouped into pattern units
+and a remainder stack covers ``num_layers % len(pattern)`` (the 9B config's
+38 = 12 x 3 + 2 layers).  The parameters keep the reference's layout, with
+its stacked ``units`` unstacked into a list: ``units[u]["b0".."b2"]`` and
+``extra[j]``.  The state keeps the reference's layout as it is: each
+``units["b<i>"]`` leaf stacked on a leading ``n_units`` axis, ``extra`` a
+list of per-layer dicts (the batch on axis 0).  A state handed to
+``prefill``, ``forward`` or ``decode_step`` is updated in place.
+
+* RG-LRU: ``r, i = sigmoid(W_a x), sigmoid(W_x x)``;
+  ``a = exp(-c * softplus(L) * r)``;
+  ``h_t = a h_{t-1} + sqrt(1 - a^2) * (i * x)``, in float32, over a prompt by
+  the reference's log-depth associative scan (``_scan``), one step at a time
+  in decode.
+* Local attention: MQA with a sliding window; the decode state is a ring
+  buffer of the window's size, slot ``p % window`` holding position ``p``.
+
+No Pallas kernel is on this path in the reference: the attention is
+``sdpa`` or ``attention_chunked``, and so it is here, on every device.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from .common import (ModelConfig, apply_norm, apply_rope, dense, dense_init,
+                     norm_init, row_positions, tensor_leaves)
+from .layers import (CHUNK_THRESHOLD, Q_CHUNK, _split_heads, attention_chunked,
+                     attn_init, causal_window_mask, embed, embed_init, mlp_apply,
+                     mlp_init, sdpa, unembed)
+
+LRU_C = 8.0
+
+
+# ----------------------------------------------------------------------
+# RG-LRU recurrent block
+# ----------------------------------------------------------------------
+
+def rec_block_init(generator, cfg: ModelConfig, device) -> dict:
+    d, pdt = cfg.d_model, cfg.pdt
+    dr = d  # lru_width == d_model for RecurrentGemma
+    conv_w = torch.randn((cfg.rglru_conv_width, dr), generator=generator, device=device,
+                         dtype=torch.float32) * 0.1
+    return {
+        "w_in": dense_init(generator, d, 2 * dr, pdt, device),
+        "conv_w": conv_w.to(pdt),
+        "conv_b": torch.zeros((dr,), dtype=pdt, device=device),
+        "wa": dense_init(generator, dr, dr, pdt, device, bias=True),
+        "wx": dense_init(generator, dr, dr, pdt, device, bias=True),
+        "lam": torch.full((dr,), 2.0, dtype=torch.float32, device=device),
+        "w_out": dense_init(generator, dr, d, pdt, device),
+    }
+
+
+def _causal_conv(w, b, x, state):
+    """Depthwise causal conv of width W.  x: (B,T,dr), state: (B,W-1,dr).
+    -> (y, the new state: the last W-1 inputs)."""
+    width, t = w.shape[0], x.shape[1]
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = 0
+    for i in range(width):
+        y = y + xp[:, i:i + t] * w[i].to(x.dtype)
+    return y + b.to(x.dtype), xp[:, -(width - 1):]
+
+
+def _combine(a1, b1, a2, b2):
+    """The recurrence's operator, ``(a1, b1)`` the earlier element."""
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even, odd):
+    """Elements of ``even`` at 0, 2, ... and of ``odd`` at 1, 3, ... of
+    axis 1; ``even`` holds as many as ``odd`` or one more."""
+    n = odd.shape[1]
+    out = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return torch.cat([out, even[:, n:]], dim=1) if even.shape[1] > n else out
+
+
+def _scan(a, b):
+    """Inclusive scan of ``_combine`` over axis 1 in log depth: the
+    algorithm of ``jax.lax.associative_scan`` (pairs combined, the half
+    scanned recursively, the rest filled in), so its sums run in the same
+    order.  a, b: (B,T,dr)."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = _scan(*_combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]))
+    if n % 2 == 0:
+        ea, eb = _combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
+    else:
+        ea, eb = _combine(oa, ob, a[:, 2::2], b[:, 2::2])
+    ea, eb = torch.cat([a[:, :1], ea], dim=1), torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _gates(p, xf):
+    """-> (a, the gated input sqrt(1 - a^2) * (i * x)), float32."""
+    r = torch.sigmoid(dense(p["wa"], xf, dtype=torch.float32))
+    i = torch.sigmoid(dense(p["wx"], xf, dtype=torch.float32))
+    a = torch.exp(-LRU_C * F.softplus(p["lam"].float()) * r)
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * xf)
+
+
+def _rglru(p, x, h0):
+    """x: (B,T,dr), h0: (B,dr) float32 -> (y (B,T,dr) in x's dtype, h_T)."""
+    a, gated = _gates(p, x.float())
+    # the initial state is absorbed into the first step's b
+    b = torch.cat([gated[:, :1] + (a[:, 0] * h0)[:, None], gated[:, 1:]], dim=1)
+    _, h = _scan(a, b)
+    return h.to(x.dtype), h[:, -1]
+
+
+def _rglru_step(p, x, h):
+    """x: (B,1,dr), h: (B,dr) float32 -> (y (B,1,dr), the new h)."""
+    xf = x[:, 0].float()
+    a, gated = _gates(p, xf)
+    h = a * h + gated
+    return h.to(x.dtype)[:, None], h
+
+
+def rec_block_apply(p, x, state, cfg: ModelConfig, *, step: bool):
+    """x: (B,T,d); state {"conv": (B,W-1,dr), "lru": (B,dr) float32},
+    updated in place."""
+    xb, gate = dense(p["w_in"], x).chunk(2, dim=-1)
+    xc, conv = _causal_conv(p["conv_w"], p["conv_b"], xb, state["conv"])
+    y, lru = (_rglru_step if step else _rglru)(p, xc, state["lru"])
+    state["conv"].copy_(conv)
+    state["lru"].copy_(lru)
+    return dense(p["w_out"], y * F.gelu(gate, approximate="tanh"))
+
+
+def rec_state_init(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    d = cfg.d_model
+    return {"conv": torch.zeros((batch, cfg.rglru_conv_width - 1, d), dtype=dtype,
+                                device=device),
+            "lru": torch.zeros((batch, d), dtype=torch.float32, device=device)}
+
+
+# ----------------------------------------------------------------------
+# Local attention with a ring-buffer window cache
+# ----------------------------------------------------------------------
+
+def attn_state_init(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    shape = (batch, cfg.attention_window, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _qkv(p, x, positions, cfg: ModelConfig):
+    q = _split_heads(dense(p["wq"], x), cfg.num_heads)
+    k = _split_heads(dense(p["wk"], x), cfg.num_kv_heads)
+    v = _split_heads(dense(p["wv"], x), cfg.num_kv_heads)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def local_attn_full(p, x, positions, state, cfg: ModelConfig):
+    """Attention over the whole prompt; its ring buffer is written into
+    ``state`` in place: slot ``p % window`` holds position ``p`` when the
+    prompt fills the window, else the prompt's positions lead and the rest
+    is zero."""
+    s, win = x.shape[1], cfg.attention_window
+    q, k, v = _qkv(p, x, positions[None], cfg)
+    if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
+        out = attention_chunked(q, k, v, positions, positions, win)
+    else:
+        out = sdpa(q, k, v, causal_window_mask(positions, positions, win))
+    for name, t in (("k", k), ("v", v)):
+        ring = state[name]
+        if s >= win:
+            # the last window's positions s-win .. s-1 go to their slots
+            ring.copy_(torch.roll(t[:, s - win:], (s - win) % win, dims=1))
+        else:
+            ring[:, :s] = t.to(ring.dtype)
+            ring[:, s:] = 0
+    return dense(p["wo"], out.reshape(*x.shape[:2], -1))
+
+
+def local_attn_step(p, x, pos, state, cfg: ModelConfig):
+    """One token against the ring buffer.  pos: (B,) int tensor of each row's
+    position, on the device: the ring slot and the absolute position each
+    slot holds are computed there, and the new key and value go in by an
+    indexed copy, so the step can be captured."""
+    b, win = x.shape[0], cfg.attention_window
+    q, k, v = _qkv(p, x, pos[:, None], cfg)
+    slot = torch.remainder(pos, win)
+    rows = torch.arange(b, device=x.device)
+    state["k"][rows, slot] = k[:, 0].to(state["k"].dtype)
+    state["v"][rows, slot] = v[:, 0].to(state["v"].dtype)
+    idx = torch.arange(win, device=x.device)[None]
+    base = (pos - slot)[:, None]
+    kv_pos = torch.where(idx <= slot[:, None], base + idx, base - win + idx)
+    valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])               # (B, win)
+    out = sdpa(q, state["k"], state["v"], valid[:, None, :])
+    return dense(p["wo"], out.reshape(b, 1, -1))
+
+
+# ----------------------------------------------------------------------
+# blocks / units
+# ----------------------------------------------------------------------
+
+def block_init(generator, kind: str, cfg: ModelConfig, device) -> dict:
+    p = {"ln1": norm_init(cfg.d_model, cfg.norm, cfg.pdt, device),
+         "ln2": norm_init(cfg.d_model, cfg.norm, cfg.pdt, device)}
+    if kind == "rglru":
+        p["rec"] = rec_block_init(generator, cfg, device)
+    else:
+        p["attn"] = attn_init(generator, cfg, device)
+    p["mlp"] = mlp_init(generator, cfg, device)
+    return p
+
+
+def block_apply(p, kind: str, x, positions, state, cfg: ModelConfig, *, step: bool):
+    """One layer; its ``state`` is updated in place.  positions: (S,) over a
+    prompt, (B,) at a decode step."""
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    if kind == "rglru":
+        a = rec_block_apply(p["rec"], h, state, cfg, step=step)
+    elif step:
+        a = local_attn_step(p["attn"], h, positions, state, cfg)
+    else:
+        a = local_attn_full(p["attn"], h, positions, state, cfg)
+    x = x + a
+    h = apply_norm(p["ln2"], x, cfg.norm)
+    return x + mlp_apply(p["mlp"], h, cfg)
+
+
+def block_state_init(kind: str, cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    return (rec_state_init(cfg, batch, dtype, device) if kind == "rglru"
+            else attn_state_init(cfg, batch, dtype, device))
+
+
+def _split_layers(cfg: ModelConfig):
+    pat = cfg.pattern or ("attn",)
+    n_units = cfg.num_layers // len(pat)
+    rem = cfg.full_pattern()[n_units * len(pat):]
+    return pat, n_units, rem
+
+
+# ----------------------------------------------------------------------
+# init / cache
+# ----------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Random weights with the reference's distributions, from ``generator``
+    (torch's draws, not JAX's)."""
+    pat, n_units, rem = _split_layers(cfg)
+    return {
+        "embed": embed_init(generator, cfg, device),
+        "units": [{f"b{i}": block_init(generator, kind, cfg, device)
+                   for i, kind in enumerate(pat)} for _ in range(n_units)],
+        "extra": [block_init(generator, kind, cfg, device) for kind in rem],
+        "final_norm": norm_init(cfg.d_model, cfg.norm, cfg.pdt, device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int = 0, dtype=None,
+               device="cuda") -> dict:
+    """The zeroed state, O(window) in length (``seq`` is ignored): the
+    reference's layout, ``units`` stacked on a leading ``n_units`` axis."""
+    device = resolve_device(device)
+    dt = dtype or cfg.cdt
+    pat, n_units, rem = _split_layers(cfg)
+    units = {f"b{i}": {n: t.expand(n_units, *t.shape).clone() for n, t in
+                       block_state_init(kind, cfg, batch, dt, device).items()}
+             for i, kind in enumerate(pat)}
+    extra = [block_state_init(kind, cfg, batch, dt, device) for kind in rem]
+    return {"units": units, "extra": extra}
+
+
+def cache_batch(cache: dict) -> int:
+    """The batch a state holds (axis 1 of a unit's leaf, axis 0 of an extra
+    layer's)."""
+    if cache["extra"]:
+        return next(tensor_leaves(cache["extra"])).shape[0]
+    return next(tensor_leaves(cache["units"])).shape[1]
+
+
+# ----------------------------------------------------------------------
+# forward
+# ----------------------------------------------------------------------
+
+def _apply_stack(params, x, positions, cache, cfg: ModelConfig, *, step: bool):
+    pat, _, rem = _split_layers(cfg)
+    for u, unit in enumerate(params["units"]):
+        for i, kind in enumerate(pat):
+            state = {n: t[u] for n, t in cache["units"][f"b{i}"].items()}
+            x = block_apply(unit[f"b{i}"], kind, x, positions, state, cfg, step=step)
+    for j, kind in enumerate(rem):
+        x = block_apply(params["extra"][j], kind, x, positions, cache["extra"][j], cfg,
+                        step=step)
+    return x
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    """The token embeddings times sqrt(d_model), the factor rounded to the
+    compute dtype first (gemma-style, as the reference)."""
+    scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdt))
+    return embed(params["embed"], tokens, cfg).to(cfg.cdt) * scale
+
+
+def forward(params, tokens, cfg: ModelConfig, *, cache=None, return_state: bool = False):
+    """tokens: (B,T) int.  -> (logits (B,T,V), aux 0), or (logits, state)
+    with ``return_state``; a given ``cache`` is the initial state, updated
+    in place."""
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    if cache is None:
+        cache = init_cache(cfg, b, device=x.device)
+    x = _apply_stack(params, x, torch.arange(s, device=x.device), cache, cfg, step=False)
+    logits = unembed(params["embed"], apply_norm(params["final_norm"], x, cfg.norm), cfg)
+    if return_state:
+        return logits, cache
+    return logits, torch.zeros((), device=x.device)
+
+
+def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None, *,
+            last_pos=None, cache: dict | None = None):
+    """Returns (last_logits (B,V), state).  ``cache_len`` is ignored (the
+    state is O(window)).  ``cache``, when given, is reset to zero and then
+    filled in place (so a captured prefill replays exactly); otherwise a new
+    one is made.  Only the last position is normed and unembedded.
+    ``last_pos`` must be None: pad tokens would advance the recurrent
+    state, so callers keep exact-length prompts."""
+    if last_pos is not None:
+        raise ValueError(f"{cfg.name}: a recurrent state is length-sensitive; "
+                         "prefill takes exact-length prompts (last_pos=None)")
+    b, s = tokens.shape
+    if cache is None:
+        cache = init_cache(cfg, b, device=tokens.device)
+    else:
+        if cache_batch(cache) != b:
+            raise ValueError(f"the state holds {cache_batch(cache)} rows, the prompt {b}")
+        for t in tensor_leaves(cache):
+            t.zero_()
+    x = _embed(params, tokens, cfg)
+    x = _apply_stack(params, x, torch.arange(s, device=x.device), cache, cfg, step=False)
+    last = apply_norm(params["final_norm"], x[:, -1], cfg.norm)
+    return unembed(params["embed"], last, cfg), cache
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig):
+    """token: (B,) int; pos: an int, or a (B,) int tensor on the device.
+    -> (logits (B,V), cache), updated in place."""
+    pos = row_positions(pos, token.shape[0], token.device)
+    x = _embed(params, token[:, None], cfg)
+    x = _apply_stack(params, x, pos, cache, cfg, step=True)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return unembed(params["embed"], x, cfg)[:, 0], cache

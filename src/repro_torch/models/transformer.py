@@ -72,11 +72,14 @@ def _block(x, lp, positions, cfg: ModelConfig, aux: list | None = None):
     return x + _ffn(lp, h, cfg, aux), kv
 
 
-def _hidden(params, tokens, cfg: ModelConfig, on_kv=None, aux: list | None = None):
-    """The layer stack; calls ``on_kv(layer, k, v)`` with each layer's
+def _hidden(params, tokens, cfg: ModelConfig, on_kv=None, aux: list | None = None,
+            input_embeds=None):
+    """The layer stack over the tokens' embeddings, or over ``input_embeds``
+    (B,S,d) when given; calls ``on_kv(layer, k, v)`` with each layer's
     (B,S,K,hd) keys and values, and appends each MoE layer's loss to
     ``aux`` when one is given.  -> final hidden states before the norm."""
-    x = embed(params["embed"], tokens, cfg).to(cfg.cdt)
+    x = (embed(params["embed"], tokens, cfg) if input_embeds is None
+         else input_embeds).to(cfg.cdt)
     positions = torch.arange(x.shape[1], device=x.device)
     for i, lp in enumerate(params["layers"]):
         x, (k, v) = _block(x, lp, positions, cfg, aux)
@@ -85,11 +88,11 @@ def _hidden(params, tokens, cfg: ModelConfig, on_kv=None, aux: list | None = Non
     return x
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    """tokens: (B,S) int.  -> (logits (B,S,V), aux): the MoE layers'
-    load-balance losses summed (0 for dense)."""
+def forward(params, tokens, cfg: ModelConfig, *, input_embeds=None):
+    """tokens: (B,S) int (or input_embeds (B,S,d)).  -> (logits (B,S,V),
+    aux): the MoE layers' load-balance losses summed (0 for dense)."""
     aux = []
-    x = _hidden(params, tokens, cfg, aux=aux)
+    x = _hidden(params, tokens, cfg, aux=aux, input_embeds=input_embeds)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     total = torch.stack(aux).sum() if aux else torch.zeros((), device=x.device)
     return unembed(params["embed"], x, cfg), total
@@ -109,8 +112,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
 
 
 def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None,
-            *, last_pos=None, cache: dict | None = None):
+            *, input_embeds=None, last_pos=None, cache: dict | None = None):
     """Returns (last_logits (B,V), cache dict (L,B,cache_len,K,hd)).
+    ``input_embeds`` (B,S,d), when given, stands in for the tokens'
+    embeddings (the vlm family's merged patch and token embeddings).
 
     ``last_pos`` selects which position's logits count as "last": an int or
     a (B,) int tensor of per-row indices.  A captured prefill
@@ -140,7 +145,7 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None,
         cache["k"][i, :, :s] = k.to(cache["k"].dtype)
         cache["v"][i, :, :s] = v.to(cache["v"].dtype)
 
-    x = _hidden(params, tokens, cfg, on_kv)
+    x = _hidden(params, tokens, cfg, on_kv, input_embeds=input_embeds)
     cache["k"][:, :, s:] = 0
     cache["v"][:, :, s:] = 0
     if last_pos is None:

@@ -24,7 +24,11 @@ slots, through a slot index held in a static device buffer.  A MoE config
 admits each request by its own exact-length prefill instead (pad tokens
 would change the experts' routing), batch 1 and eager, as the reference
 jits one per prompt length; the round's rows still go through one scatter.
-Greedy decoding.
+A vlm config is accepted, as the reference's server accepts it, and admits
+by the same exact-length prefill of tokens alone; so admitting a vlm request
+raises ``KeyError`` naming the missing patch embeddings, at the call where
+the reference raises it (its admission hands the vlm prefill no
+``patch_embeds`` either).  Greedy decoding.
 """
 from __future__ import annotations
 

@@ -1,22 +1,26 @@
 """InferenceEngine: the model-serving runtime, on the card.
 
-Wraps the ported families (dense, moe, and ssm: RWKV-6) behind a prefill
+Wraps every language-model family of the port (dense, moe, ssm: RWKV-6,
+hybrid: RecurrentGemma, audio: Whisper, vlm: LLaVA-NeXT) behind a prefill
 and a decode step, each captured once into a CUDA graph and replayed
 (``serving/graphs.py``; on the CPU the same steps run eagerly).  Dense prompt
 lengths are bucketed to powers of two, so the number of distinct prefill
 shapes, and of prefill graphs, grows with the number of buckets, not of
 prompt lengths; MoE prompts keep their exact length, since pad tokens would
-change the experts' routing and capacity, and so do recurrent (ssm) ones,
-since pad tokens would advance the state: both take a graph per (batch,
-length), as the reference jits its prefill per exact shape
+change the experts' routing and capacity, and so do the other families'
+(pad tokens would advance a recurrent state, and the reference keeps the
+audio and vlm prompts exact too): they take a graph per (batch, length), as
+the reference jits its prefill per exact shape
 (``compile_stats`` counts the shapes, as the reference counts its jit
 caches, and the graphs).  A prompt
 and its last positions are copied into the prefill graph's static buffers
-outside the graph, then the graph is replayed.  The family's cache (a KV cache of
-``max_cache`` positions, or the recurrent state) is preallocated, reused while
-the batch size holds and updated in place (the counterpart of the
-reference's donated cache).  The decode step is keyed on the batch (so on
-the cache) and the temperature; it carries the positions on the device, as
+outside the graph, then the graph is replayed.  The audio and vlm families'
+stubbed frontends get the reference's zero frame or patch embeddings, held
+in static device buffers beside the cache, which their prefill graphs read.
+The family's cache (a KV cache of ``max_cache`` positions, or the recurrent
+state) is preallocated, reused while the batch size holds and updated in
+place (the counterpart of the reference's donated cache).  The decode step
+is keyed on the batch (so on the cache) and the temperature; it carries the positions on the device, as
 the reference's scan carries them traced.  ``generate`` replays it
 ``n_new - 1`` times and syncs with the host once, at the end;
 ``generate_stream`` replays the same step with a sync per token, for
@@ -67,7 +71,9 @@ class InferenceEngine:
         self.params = params
         synchronize(self.device)
         self.load_s = time.perf_counter() - t0
-        self._cache = None   # the family's cache at batch B, reused while B holds
+        # the family's cache at batch ``_batch``, reused while the batch holds,
+        # and the audio or vlm family's zero frontend embeddings at that batch
+        self._cache, self._batch, self._modal = None, 0, {}
         # decode steps over that cache, by (batch, temperature)
         self._graphs: dict[tuple, DecodeGraph] = {}
         self._captures = 0
@@ -85,16 +91,29 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def _cache_for(self, batch: int) -> dict:
-        """The preallocated cache (every family keeps the batch on axis 1)."""
-        if self._cache is None or next(iter(self._cache.values())).shape[1] != batch:
+        """The preallocated cache at ``batch`` rows, and the modal buffers."""
+        if self._cache is None or self._batch != batch:
             self._cache = None   # free the old one, and the graphs captured on it
             self._graphs.clear()
             self._prefills.clear()
             self._cache = api.init_cache(self.cfg, batch, self.max_cache,
                                          device=self.device)
+            self._batch, self._modal = batch, self._add_modal(batch)
             if self.device.type == "cuda":
                 self._pool = torch.cuda.graph_pool_handle()
         return self._cache
+
+    def _add_modal(self, batch: int) -> dict:
+        """The stubbed frontend's inputs, zeros as the reference's
+        ``_add_modal`` makes them: frame embeddings for audio, patch
+        embeddings for vlm, none for the other families."""
+        cfg = self.cfg
+        stubs = {"audio": ("frame_embeds", cfg.encoder_seq),
+                 "vlm": ("patch_embeds", cfg.num_image_tokens)}
+        if cfg.family not in stubs:
+            return {}
+        key, n = stubs[cfg.family]
+        return {key: torch.zeros((batch, n, cfg.d_model), dtype=cfg.cdt, device=self.device)}
 
     def _decoder(self, batch: int, temperature: float) -> DecodeGraph:
         """The decode step at ``batch`` rows and ``temperature`` over the
@@ -124,18 +143,18 @@ class InferenceEngine:
         """The prefill of a (batch, length) prompt into the cache, captured
         at its first use and replayed while the cache lives: ``length`` is
         a dense prompt's bucket, whose last real positions the replay
-        reads, or a moe or ssm prompt's exact length, whose last position
-        it reads.  Its capture writes the cache, which its replay then
+        reads, or another family's exact length, whose last position it
+        reads.  Its capture writes the cache, which its replay then
         writes again: so callers take the decode step first
         (``_decoder``)."""
         cache = self._cache_for(batch)
         key = (batch, length)
         if key not in self._prefills:
             params, cfg, cache_len = self.params, self.cfg, self.max_cache
-            dense = cfg.family == "dense"
+            dense, modal = cfg.family == "dense", self._modal
 
             def prefill(tokens, last):
-                logits, _ = api.prefill(params, {"tokens": tokens}, cfg, cache_len,
+                logits, _ = api.prefill(params, {"tokens": tokens, **modal}, cfg, cache_len,
                                         last_pos=last if dense else None, cache=cache)
                 return logits
 
@@ -192,9 +211,11 @@ class InferenceEngine:
         ``max_cache``, so shapes vary per bucket, not per (s, n_new).
         moe: the exact prompt (pad tokens would shift the experts' routing)
         and the fixed cache.
-        ssm: exact prompt lengths (pad tokens would advance the recurrent
-        state) and the reference's cache length, which the O(1) state
-        ignores but the reference's prefill jit is keyed on."""
+        The rest (ssm, hybrid, audio, vlm): exact prompt lengths (pad tokens
+        would advance a recurrent state) and the reference's cache length,
+        which its prefill jit is keyed on; the port's cache keeps
+        ``max_cache`` positions (a recurrent state ignores it), and a decode
+        step masks the positions past its own."""
         if self.cfg.family == "dense":
             return min(bucket_len(s), self.max_cache), self.max_cache
         if self.cfg.family == "moe":

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import deepseek_7b, rwkv6_1p6b
+from repro_torch.configs import (deepseek_7b, llava_next_mistral_7b, recurrentgemma_9b,
+                                 rwkv6_1p6b, whisper_tiny)
 from repro_torch.kernels.attention import flash
 from repro_torch.kernels.decode import flash_decode as fd
 from repro_torch.kernels.rwkv import wkv
@@ -324,3 +325,28 @@ def test_replayed_server_tokens_equal_the_uncaptured_step(cuda):
     n, steps = fd.launches, srv.steps
     assert serve(srv) == want             # the same graph, a second drain
     assert fd.launches - n == CFGS["dense"].num_layers * (srv.steps - steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [recurrentgemma_9b.SMOKE.replace(num_layers=5), whisper_tiny.SMOKE,
+                                 llava_next_mistral_7b.SMOKE], ids=lambda c: c.family)
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_replayed_hybrid_audio_and_vlm_tokens_equal_the_uncaptured_path(cuda, cfg,
+                                                                        temperature):
+    """The last three families: the prefill (over the zero frame or patch
+    embeddings for audio and vlm) and the step replayed, against the
+    uncaptured path; llava's prefill is K1 and its step K2."""
+    eng = InferenceEngine(cfg, seed=0, max_cache=64, device=cuda)
+    prompt = np.random.default_rng(3).integers(0, 512, size=(3, 11))
+    with mock.patch.object(graphs.CapturedStep, "capture", lambda self: None):
+        plain = InferenceEngine(cfg, max_cache=64, params=eng.params, device=cuda)
+        want = plain.generate(prompt, 40, temperature=temperature, seed=4).tokens
+    n1, n2 = flash.launches, fd.launches
+    got = eng.generate(prompt, 40, temperature=temperature, seed=4).tokens
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert eng.compile_stats()["graphs"] == 1 and eng.compile_stats()["prefill_graphs"] == 1
+    # the prefill's capture warm-up and replay; the step's warm-up and 39 replays
+    vlm = cfg.family == "vlm"
+    assert flash.launches - n1 == 2 * cfg.num_layers * vlm
+    assert fd.launches - n2 == 40 * cfg.num_layers * vlm

@@ -9,14 +9,19 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs import deepseek_7b, granite_moe_3b, registry, rwkv6_1p6b
+from repro_torch.configs import (deepseek_7b, granite_moe_3b, llava_next_mistral_7b,
+                                 recurrentgemma_9b, registry, rwkv6_1p6b, whisper_tiny)
 from repro_torch.core import calibration
 from repro_torch.models import api, cnn
+from repro_torch.models.common import tensor_leaves
+from repro_torch.serving import kvcache
 from repro_torch.serving.continuous import ContinuousServer
 from repro_torch.serving.engine import InferenceEngine
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_SRC = ROOT / "src" / "repro_torch"
+PORT_FILES = (sorted(PORT_SRC.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+              + [ROOT / "chip_smoke.py"])
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -36,13 +41,16 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
 
 
 def test_scan_sees_the_whole_port():
-    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
+    names = {p.relative_to(PORT_SRC).as_posix() for p in PORT_FILES if PORT_SRC in p.parents}
     for module in ("models/transformer.py", "kernels/dispatch.py", "serving/continuous.py",
                    "launch/serve.py", "configs/registry.py", "models/ssm.py",
                    "kernels/rwkv/wkv.py", "models/cnn.py", "core/calibration.py",
                    "core/function.py", "serving/handler.py", "models/moe.py",
-                   "configs/granite_moe_3b.py", "configs/mistral_nemo_12b.py"):
+                   "configs/granite_moe_3b.py", "configs/mistral_nemo_12b.py",
+                   "models/hybrid.py", "models/encdec.py", "models/vlm.py",
+                   "serving/kvcache.py", "serving/quantize.py"):
         assert module in names
+    assert ROOT / "tools" / "replay_determinism.py" in PORT_FILES
     assert "torch" in _imported_roots(ROOT / "src" / "repro_torch" / "__init__.py")
 
 
@@ -73,15 +81,29 @@ def test_rwkv_engine_defaults_to_the_card():
     assert InferenceEngine(cfg, max_cache=16, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("cfg", [deepseek_7b.SMOKE, rwkv6_1p6b.SMOKE, granite_moe_3b.SMOKE],
-                         ids=lambda c: c.family)
+@pytest.mark.parametrize("cfg", [deepseek_7b.SMOKE, rwkv6_1p6b.SMOKE, granite_moe_3b.SMOKE,
+                                 recurrentgemma_9b.SMOKE, whisper_tiny.SMOKE,
+                                 llava_next_mistral_7b.SMOKE], ids=lambda c: c.family)
 def test_init_cache_defaults_to_the_card(cfg):
     if torch.cuda.is_available():
-        assert all(t.is_cuda for t in api.init_cache(cfg, 2, 16).values())
+        assert all(t.is_cuda for t in tensor_leaves(api.init_cache(cfg, 2, 16)))
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         api.init_cache(cfg, 2, 16)
-    assert all(t.device.type == "cpu" for t in api.init_cache(cfg, 2, 16, device="cpu").values())
+    assert all(t.device.type == "cpu"
+               for t in tensor_leaves(api.init_cache(cfg, 2, 16, device="cpu")))
+
+
+def test_paged_pool_defaults_to_the_card():
+    cfg = deepseek_7b.SMOKE
+    if torch.cuda.is_available():
+        assert kvcache.PagedPool(cfg, 4).k.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kvcache.PagedPool(cfg, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kvcache.valid_mask(8, 3)
+    assert kvcache.PagedPool(cfg, 4, device="cpu").k.device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", sorted(registry.PAPER_MODELS))
