@@ -12,9 +12,10 @@ request's 2944 positions and K2 over a 3072 cache, GQA 32/8),
 rwkv6-1.6b (the RWKV-6 path, kernel K3 WKV-6), recurrentgemma-9b (the
 hybrid path: RG-LRU and ring-buffer local attention, no kernel) and
 whisper-tiny (the encoder-decoder, no kernel); the paper's three CNN
-payloads at 224 px; and the calibration that turns eight of them into the
-serverless simulator's numbers.  Phases, in order; any failure exits
-non-zero:
+payloads at 224 px; the calibration that turns eight of them into the
+serverless simulator's numbers; and training (deepseek-7b at 20 of its
+layers and rwkv6-1.6b, at full width, through K1 with its backward K1-bwd
+and K3 with K3-bwd).  Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), and the seconds of
      ``import torch`` and of the first CUDA context in a fresh process;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each, all
@@ -32,7 +33,10 @@ non-zero:
      in the middle and at the end, a row with no valid position (the mean of
      V), and a band slice of a longer cache; for K3 one head alone, a T that
      is not a multiple of its chunk, decays near 0 and near 1, and the state
-     updated in place at T=1 and T=100;
+     updated in place at T=1 and T=100; the backward kernels K1-bwd and
+     K3-bwd at the training shapes and around them (``bwd_kernel_checks``),
+     the bf16 cases of K1-bwd row by row, with a dropped query or key tile
+     that must read above the bar;
   4. each path in bf16 with seeded random weights: logits (and for rwkv the
      recurrent state) on the kernel path against the plain path; the
      uncaptured prefill's logits and the tokens of the uncaptured path (the
@@ -68,8 +72,9 @@ non-zero:
      device time of the same calls from a torch.profiler trace (every kernel
      a call launches, summed), its bound, the plain version's time and one
      PyTorch library call's time where there is one; the K1, K2 and K3
-     wrappers' host time per call; and K3 under narrower split plans than
-     its own and at one head alone;
+     wrappers' host time per call; K3 under narrower split plans than
+     its own and at one head alone; and K1-bwd and K3-bwd at the training
+     shapes, K1-bwd beside the backward of the library's attention;
   7. where a full-width prefill's and decode step's time goes, per path: host
      wall, device time by kernel (torch.profiler), the host's launch calls
      and each one's bound; the prefill and the decode step each replayed
@@ -100,6 +105,15 @@ non-zero:
      follows 6 and 7 because it frees the engines they use); llava is not
      calibrated (the reference's vlm calibration fails, and the port's
      follows it);
+  10. (after 8, every engine freed) training (``train_phase``): 8 AdamW
+     steps of deepseek-7b at full width and 20 of its 30 layers and of
+     rwkv6-1.6b at full width and depth (``tmix.wo`` redrawn), batch 4, seq
+     512, through ``make_train_step``: per step the loss, grad norm, lr,
+     host wall and K1/K1-bwd or K3/K3-bwd launches (layers x 2 and layers),
+     one step traced, the peak memory, the losses finite and falling; then
+     the gate: deepseek-7b, granite-moe-3b-a800m and rwkv6-1.6b at 2 layers
+     in float32, every gradient leaf and one AdamW step on the kernel path
+     against the plain path;
   9. one JSON line with the kernels (launches summed over every path), then
      the last line ``{"ok": true, ...}``.
 """
@@ -148,6 +162,8 @@ RWKV_REL_TOL = {torch.bfloat16: 1e-1, torch.float32: 1e-3}
 # K3 against its plain version: float32 on both sides, sums in another order;
 # the error of the recurrence grows with the state, so it is held relative
 # to the largest magnitude of each output (o, and the final state)
+# (and K3-bwd's, whose outputs, sums over the rebuilt state and its
+# gradient, came within 5.7e-7 of that measure on an H100)
 WKV_REL_TOL = 1e-5
 # a CNN forward on the card against the same forward on the CPU, float32 on
 # both sides with TF32 off: cuDNN and the CPU's convolutions sum in other
@@ -187,6 +203,18 @@ HYBRID_LONG = 3072
 ENGINE_CACHE = {"vlm": LLAVA_CACHE, "hybrid": HYBRID_LONG + 16}
 CALIBRATED = ["squeezenet", "resnet18", "resnext50", "deepseek-7b", "granite-moe-3b-a800m",
               "rwkv6-1.6b", "recurrentgemma-9b", "whisper-tiny"]
+# phase 10: deepseek-7b trains at 20 of its 30 layers (at 30 its bf16
+# weights and gradients and float32 moments alone are 82.9 GB), rwkv6-1.6b
+# at all 24; TRAIN_STEPS AdamW steps at batch 4, seq 512, step 3 traced
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 4, 512, 3e-4
+TRAIN_PROFILED = 2
+# the gate: float32 gradients, kernel path against plain path, per leaf
+# relative L2: the kernels sum in another order (about 1e-6 a layer)
+GATE_REL_TOL = 1e-4
+# an element of a gradient below this share of its leaf's rms is at the
+# rounding noise of the comparison, where AdamW's first step (the sign of
+# the gradient) may go either way
+GATE_NOISE = 1e-2
 CNN_ENTRY = {"kind", "warm_exec_s", "first_call_s"}
 LLM_ENTRY = {"kind", "warm_exec_s", "init_s", "compile_s", "package_mb", "tokens_per_s",
              "batch_curve"}
@@ -319,6 +347,25 @@ def check_rows(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     if not ok:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     return worst
+
+
+def check_grad_rows(name: str, got: torch.Tensor, want: torch.Tensor, zero=None) -> float:
+    """``check_rows`` for a gradient.  ``zero`` marks the rows whose
+    gradient is 0 in exact arithmetic (query 0's dq: a softmax over one key
+    has none), where both sides hold rounding noise and a relative error
+    means nothing: they are held to ``ROW_REL_TOL`` of the largest row's
+    norm instead, and the rest row by row."""
+    if zero is None:
+        return check_rows(name, got, want)
+    top = want.norm(dim=-1).max().item()
+    worst_zero = got.float().norm(dim=-1)[zero].max().item()
+    ok = worst_zero <= ROW_REL_TOL * top
+    log(f"[check] {name}: {int(zero.sum())} rows whose gradient is 0, largest norm there "
+        f"{worst_zero:.3e} against {ROW_REL_TOL:g} x the largest row {top:.3e}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return check_rows(name, got[~zero], want[~zero])
 
 
 def fault_reads(name: str, want: torch.Tensor, plain: torch.Tensor,
@@ -683,28 +730,124 @@ def same_tokens(what: str, got, want) -> None:
                          "uncaptured step's")
 
 
+class StepRecorder:
+    """Records what two greedy runs of an engine computed, so that runs
+    that part can say where.  While ``recording()`` is open the engine's
+    decode step, captured then, copies each step's logits into a static
+    buffer at a row that the step advances on the device (modulo the
+    buffer's rows, so replays after the check stay in bounds: two small
+    copies a step, which live as long as the step, kept on it).  ``take()``
+    returns the run's step logits, its replayed prefill's logits and its
+    cache, cloned."""
+
+    def __init__(self, eng, batch: int, n_new: int):
+        dev = eng.device
+        self.rows = max(n_new - 1, 1)
+        self.logits = torch.zeros((self.rows, batch, eng.cfg.vocab_size), dtype=eng.cfg.cdt,
+                                  device=dev)
+        self.row = torch.zeros((1,), dtype=torch.long, device=dev)
+
+    def recording(self):
+        from repro_torch.models import api
+
+        decode_step = api.decode_step
+
+        def recorded(*args, **kw):
+            logits, cache = decode_step(*args, **kw)
+            self.logits.index_copy_(0, torch.remainder(self.row, self.rows),
+                                    logits[None].to(self.logits.dtype))
+            self.row.add_(1)
+            return logits, cache
+        return mock.patch.object(api, "decode_step", recorded)
+
+    def take(self, eng, shape) -> dict:
+        from repro_torch.models.common import tensor_leaves
+
+        out = {"steps": self.logits.clone(), "prefill": eng._prefills[shape].logits.clone(),
+               "cache": [t.clone() for t in tensor_leaves(eng._cache)]}
+        self.row.zero_()
+        return out
+
+
+def explain_split(cfg, first, second, runs: list, s: int) -> str:
+    """Where two greedy runs on the same prompts part: the first token that
+    differs (0: the prefill's), both runs' top-5 logits there for the rows
+    that differ, the largest difference of those logits (every row), and of
+    the KV cache at the positions written up to that step (the whole
+    recurrent state for a family without a KV cache)."""
+    rows, steps = (first != second).nonzero(as_tuple=True)
+    step = int(steps.min())
+    if step == 0:
+        a, b = runs[0]["prefill"].float(), runs[1]["prefill"].float()
+        where = "the replayed prefill's logits"
+    else:
+        a, b = runs[0]["steps"][step - 1].float(), runs[1]["steps"][step - 1].float()
+        where = f"decode step {step - 1}'s logits"
+    lines = [f"[split] {cfg.name}: the two greedy runs first differ at token {step} "
+             f"(rows {sorted(set(rows[steps == step].tolist()))}; {len(rows)} tokens in "
+             f"all); {where}: max |difference| {(a - b).abs().max().item():.6e} over "
+             f"every row" + (" (not recorded: the decode graph existed before the check)"
+                             if step and not runs[0]["steps"].any() else "")]
+    for r in sorted(set(rows[steps == step].tolist())):
+        for n, x in (("first", a), ("second", b)):
+            top = torch.topk(x[r], 5)
+            lines.append(f"[split]   row {r} {n} run top-5: " + ", ".join(
+                f"{int(i)}:{float(v):.6f}" for v, i in zip(top.values, top.indices)))
+    kv = cfg.family in ("dense", "moe", "vlm")
+    diff = 0.0
+    for x, y in zip(runs[0]["cache"], runs[1]["cache"]):
+        if kv:   # (L,B,S,K,hd): the positions up to the differing step
+            x, y = x[:, :, :s + step], y[:, :, :s + step]
+        diff = max(diff, (x.float() - y.float()).abs().max().item())
+    lines.append(f"[split]   max |difference| of the cache "
+                 f"{f'at positions < {s + step}' if kv else '(the whole state)'} after "
+                 f"each run: {diff:.6e}")
+    return "\n".join(lines)
+
+
 def engine_path(eng, cfg, want: dict, prompts, n_new: int = 32) -> dict:
     """Phase 4b, the engine: one prefill, then greedy twice and sampled once
     (``n_new`` tokens), each prefill and decode step a replay of its
     captured graph, held against the uncaptured prefill's logits and the
-    uncaptured path's tokens.  Returns the rates, the prefills and the
-    decode steps that ran on the card (replays and each capture's warm-up
-    step)."""
+    uncaptured path's tokens.  Where the two greedy runs differ, it prints
+    where they part (``explain_split``) and fails.  Returns the rates, the
+    prefills and the decode steps that ran on the card (replays and each
+    capture's warm-up step)."""
     b, s = prompts.shape
     graphs = eng.compile_stats()["graphs"]
     prefill_err = prefill_check(eng, prompts, want["prefill"], n_new)
+    shape = tuple(eng._prompt(prompts, n_new)[0].shape)
+    rec = StepRecorder(eng, b, n_new)
+    with rec.recording():
+        step = eng._decoder(b, 0.0)   # captured now, the recorder in it
+    # the captured step writes into the recorder's buffers at every replay:
+    # they must live as long as the step does (phase 7 replays it again)
+    step.recorder = rec
+    rec.row.zero_()                   # the capture's warm-up step wrote row 0
     first = eng.generate(prompts, n_new)
+    runs = [rec.take(eng, shape)]
     res = eng.generate(prompts, n_new)
+    runs.append(rec.take(eng, shape))
     toks = res.tokens
     if toks.shape != (b, n_new) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise SystemExit(f"{cfg.name} generate: bad tokens {toks.shape}")
     if not torch.equal(first.tokens, toks):
+        last_pos = eng._prompt(prompts, n_new)[1]
+        log(explain_split(cfg, first.tokens, toks, runs,
+                          s if last_pos is None else last_pos + 1))
         rows, steps = (first.tokens != toks).nonzero(as_tuple=True)
         raise SystemExit(f"{cfg.name} generate: two greedy runs on the same prompts differ, "
                          f"first at row {int(rows[0])}, token {int(steps[0])} "
                          f"({len(rows)} tokens in all); the first run equals the uncaptured "
                          f"path's: {torch.equal(first.tokens, want['greedy'])}, the second: "
                          f"{torch.equal(toks, want['greedy'])}")
+    recorded = int((runs[0]["steps"] != 0).flatten(1).any(1).sum())
+    log(f"[graph] {cfg.name} two replayed greedy runs: tokens equal; of their {recorded} "
+        f"recorded steps the logits equal bit for bit: "
+        f"{torch.equal(runs[0]['steps'], runs[1]['steps'])}, the prefill logits: "
+        f"{torch.equal(runs[0]['prefill'], runs[1]['prefill'])}, the caches: "
+        f"{all(torch.equal(x, y) for x, y in zip(runs[0]['cache'], runs[1]['cache']))}")
+    del runs
     same_tokens(f"{cfg.name} engine greedy, batch {b}, {n_new} new", toks, want["greedy"])
     sampled = eng.generate(prompts, n_new, temperature=SAMPLE_T, seed=SAMPLE_SEED)
     same_tokens(f"{cfg.name} engine sampled (temperature {SAMPLE_T}, seed {SAMPLE_SEED})",
@@ -768,6 +911,16 @@ def main_path(eng, cfg, want: dict, prompts, reqs) -> dict:
     return out
 
 
+def redraw_wo(params, cfg, dev) -> None:
+    """Each rwkv layer's ``tmix.wo`` drawn anew from N(0, 1/d) (seed 6), in
+    the param dtype: the init's 0 cuts the WKV branch, K3 included, out of
+    the logits and the gradient."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for lp in params["layers"]:
+        lp["tmix"]["wo"]["w"] = (rand((cfg.d_model, cfg.d_model), torch.float32, gen, dev)
+                                 * cfg.d_model ** -0.5).to(cfg.pdt)
+
+
 def rwkv_engine(cfg, dev):
     """The rwkv engine on seeded weights, with each layer's time-mix output
     projection ``wo`` drawn anew from N(0, 1/d).  The model's own init
@@ -778,10 +931,7 @@ def rwkv_engine(cfg, dev):
 
     t0 = time.perf_counter()
     eng = InferenceEngine(cfg, seed=0, max_cache=256)
-    gen = torch.Generator(device=dev).manual_seed(6)
-    for lp in eng.params["layers"]:
-        lp["tmix"]["wo"]["w"] = (rand((cfg.d_model, cfg.d_model), torch.float32, gen, dev)
-                                 * cfg.d_model ** -0.5).to(cfg.pdt)
+    redraw_wo(eng.params, cfg, dev)
     torch.cuda.synchronize()
     log(f"[model] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
         f"{eng.stats()['params'] / 1e9:.3f} B params {cfg.param_dtype}, seeded init "
@@ -1628,6 +1778,426 @@ def whisper_phase(cfg, dev) -> tuple:
     return out, prefill, steps
 
 
+# ----------------------------------------------------------------------
+# the backward kernels (K1-bwd, K3-bwd) and training
+# ----------------------------------------------------------------------
+
+def bwd_kernel_checks(dev) -> dict:
+    """Phase 3 for the backward kernels against their plain versions on the
+    same inputs.  K1-bwd at deepseek-7b's training shape, granite's GQA
+    24/8 at head dim 64, llava's GQA 32/8 at 2944 positions, windowed,
+    ragged and head-dim-32 cases, float32 and bf16, from K1's own output
+    and row log-sum-exp (itself held to the plain one), each gradient
+    relative to its largest magnitude; every bf16 case also row by row
+    against the plain version in float32 (``check_rows``), and at llava's
+    shapes a dK/dV pass that skips one query tile (its rows of dO dropped)
+    and a dQ pass that skips one key tile must read above that bar.  K3-bwd
+    at rwkv6-1.6b's training shape, with and without a gradient on the
+    final state, at a T that is not a multiple of its chunk, decays near 0
+    and near 1 and every head dim.  -> the largest error at the training
+    shapes, per kernel."""
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.attention.ref import (attention_bwd_ref,
+                                                   flash_attention_bwd_ref,
+                                                   flash_attention_fwd_ref)
+    from repro_torch.kernels.rwkv import wkv_bwd
+    from repro_torch.kernels.rwkv.ref import wkv6_bwd_ref
+    from repro_torch.models.layers import causal_window_mask
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf, f32 = torch.bfloat16, torch.float32
+    main_err = {"flash_attention_bwd": 0.0, "wkv6_bwd": 0.0}
+    for (b, s, h, kh, hd, win, dt, main) in [
+            (4, 512, 32, 32, 128, 0, bf, True),     # deepseek-7b's train step
+            (2, 256, 32, 32, 128, 0, f32, True),    # its float32 gate
+            (2, 512, 24, 8, 64, 0, bf, False),      # granite's GQA 24/8, head dim 64
+            (2, 256, 24, 8, 64, 0, f32, True),      # its float32 gate
+            (2, LLAVA_PROMPT, 32, 8, 128, 0, bf, False),   # llava's GQA 32/8
+            (1, 256, 4, 4, 128, 64, bf, False),     # window 64
+            (2, 192, 8, 2, 64, 64, f32, False),     # GQA window, float32
+            (1, 300, 4, 1, 128, 0, f32, False),     # ragged, MQA, float32
+            (1, 300, 8, 2, 64, 0, bf, False),       # ragged, head dim 64
+            (1, 70, 4, 4, 32, 0, f32, False),       # head dim 32
+            (2, 333, 4, 2, 32, 100, bf, False)]:    # head dim 32, ragged, window
+        q, do = rand((b, s, h, hd), dt, gen, dev), rand((b, s, h, hd), dt, gen, dev)
+        k, v = rand((b, s, kh, hd), dt, gen, dev), rand((b, s, kh, hd), dt, gen, dev)
+        name = f"K1-bwd flash_attention_bwd q{(b, s, h, hd)} kv{kh} window={win} {dt}"
+        o, lse = flash.flash_attention(q, k, v, window=win, with_lse=True)
+        check_rel(f"{name}: K1's lse", lse, flash_attention_fwd_ref(q, k, v, window=win)[1],
+                  TOL[f32])
+        got = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, window=win)
+        plain = flash_attention_bwd_ref(q, k, v, o, do, lse, window=win)
+        for what, g, p in zip(("dq", "dk", "dv"), got, plain):
+            err = check_rel(f"{name} {what}", g.float(), p.float(), TOL[dt])
+            if main:
+                main_err["flash_attention_bwd"] = max(main_err["flash_attention_bwd"], err)
+        del plain
+        if dt == bf:
+            # the plain version in float32 on the kernel's own inputs, K1's
+            # output and lse included: what is held is the backward's work
+            q32, k32, v32, do32, o32 = q.float(), k.float(), v.float(), do.float(), o.float()
+            lse32 = lse
+            want = flash_attention_bwd_ref(q32, k32, v32, o32, do32, lse32, window=win)
+            first = torch.zeros(q.shape[:3], dtype=torch.bool, device=dev)
+            first[:, 0] = True    # position 0 sees one key: its dq is 0
+            for what, g, w, zero in zip(("dq", "dk", "dv"), got, want, (first, None, None)):
+                check_grad_rows(f"{name} {what}", g, w, zero)
+            if s == LLAVA_PROMPT:
+                pos = torch.arange(s, device=dev)
+                mask = causal_window_mask(pos, pos, win)
+                drop = ((pos[:, None] >= FAULT_ROWS) & (pos[None, :] >= FAULT_TILE[0])
+                        & (pos[None, :] < FAULT_TILE[1]))
+                fdq = attention_bwd_ref(q32, k32, v32, o32, do32, lse32, mask & ~drop)[0]
+                do32[:, FAULT_TILE[0]:FAULT_TILE[1]] = 0
+                _, fdk, fdv = attention_bwd_ref(q32, k32, v32, o32, do32, lse32, mask)
+                for what, faulty, w in (("dq, keys", fdq, want[0]), ("dk, dO rows", fdk, want[1]),
+                                        ("dv, dO rows", fdv, want[2])):
+                    live = ~first if what.startswith("dq") else slice(None)
+                    worst = row_rel(faulty[live], w[live]).max().item()
+                    log(f"[check] {name} {what} {FAULT_TILE[0]}-{FAULT_TILE[1] - 1} dropped in "
+                        f"the plain version: worst row rel_l2={worst:.3e} against the bar "
+                        f"{ROW_REL_TOL:g}: {'seen' if worst > ROW_REL_TOL else 'NOT SEEN'}")
+                    if not worst > ROW_REL_TOL:
+                        raise SystemExit(f"{name}: the row bar cannot see a dropped tile")
+                del fdq, fdk, fdv
+            del q32, k32, v32, do32, o32, want
+    for (b, t, h, hd, log_decay, final, main) in [
+            (4, 512, 32, 64, -2.0, False, True),    # rwkv6-1.6b's train step: dS_T = 0
+            (4, 512, 32, 64, -2.0, True, False),    # a gradient on the final state
+            (4, 37, 32, 64, -2.0, True, False),     # T not a multiple of the chunk
+            (4, 100, 32, 64, 2.0, True, False),     # decays near 0
+            (4, 100, 32, 64, -6.0, True, False),    # decays near 1
+            (2, 100, 8, 128, -2.0, True, False),
+            (2, 64, 4, 32, -2.0, True, False),
+            (1, 33, 2, 16, -2.0, True, False)]:
+        ins = wkv_inputs(b, t, h, hd, gen, dev, log_decay)
+        do = rand((b, t, h, hd), f32, gen, dev)
+        ds_t = (rand((b, h, hd, hd), f32, gen, dev) if final
+                else torch.zeros((b, h, hd, hd), device=dev))
+        got = wkv_bwd.wkv6_bwd(*ins, do, ds_t)
+        again = wkv_bwd.wkv6_bwd(*ins, do, ds_t)
+        plain = wkv6_bwd_ref(*ins, do, ds_t)
+        name = f"K3-bwd wkv6_bwd {(b, t, h, hd)} log decay {log_decay:g} dS_T {'random' if final else 0}"
+        for what, g, p, a in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, plain, again):
+            err = check_rel(f"{name} {what}", g, p, WKV_REL_TOL)
+            if not torch.equal(g, a):
+                raise SystemExit(f"{name} {what}: two runs differ")
+            if main:
+                main_err["wkv6_bwd"] = max(main_err["wkv6_bwd"], err)
+    log("[check] K3-bwd: every case's two runs bit for bit equal")
+    return main_err
+
+
+def bwd_timings(dev) -> dict:
+    """Phase 6 for the backward kernels at the training shapes: K1-bwd at
+    deepseek-7b's (4, 512, 32, 128) bf16 causal and K3-bwd at rwkv6-1.6b's
+    (4, 512, 32, 64) float32, by CUDA events and profiler device time,
+    beside the bound, the plain version's time and, for K1-bwd, the library
+    call's: the backward of ``F.scaled_dot_product_attention`` (its forward
+    run once per input set, outside the timing; timed only, never used by
+    the port)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.attention.ref import flash_attention_bwd_ref
+    from repro_torch.kernels.rwkv import wkv_bwd
+    from repro_torch.kernels.rwkv.ref import wkv6_bwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {}
+
+    def timed(shape, kernel, plain, library, sets, bound_):
+        return dict(shape=shape, ms=time_ms(kernel, sets), device_ms=device_ms(kernel, sets),
+                    plain_ms=time_ms(plain, sets[:2], iters=6, warm=1),
+                    plain_device_ms=device_ms(plain, sets[:2], iters=4, tries=1),
+                    library_ms=None if library is None else time_ms(library, sets),
+                    library_device_ms=None if library is None else device_ms(library, sets),
+                    bound=bound_)
+
+    b, s, h, hd, dt = 4, 512, 32, 128, torch.bfloat16
+
+    def k1_set():
+        q, k, v, do = (rand((b, s, h, hd), dt, gen, dev) for _ in range(4))
+        o, lse = flash.flash_attention(q, k, v, with_lse=True)
+        lib = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        lib_o = F.scaled_dot_product_attention(*lib, is_causal=True)
+        return q, k, v, o, do, lse, (lib_o, lib, do.transpose(1, 2))
+
+    # q, k, v, o, dO read and dq, dk, dv written (bf16), the lse read; five
+    # products over the causal pairs: QK^T, dO V^T, P^T dO, dS K, dS^T Q
+    nbytes = 8 * b * s * h * hd * 2 + b * h * s * 4
+    flops = 5 * 2 * b * h * (s * (s + 1) // 2) * hd
+    out["flash_attention_bwd"] = timed(
+        f"q/k/v/o/dO {(b, s, h, hd)} bf16 causal",
+        lambda q, k, v, o, do, lse, _: flash_bwd.flash_attention_bwd(q, k, v, o, do, lse),
+        lambda q, k, v, o, do, lse, _: flash_attention_bwd_ref(q, k, v, o, do, lse),
+        lambda *a: torch.autograd.grad(a[-1][0], a[-1][1], a[-1][2], retain_graph=True),
+        cold_copies(k1_set, nbytes), bound(nbytes, flops, dt))
+
+    b, t, h, hd = 4, 512, 32, 64
+    f32 = torch.float32
+
+    def k3_set():
+        r, k, v, w, u, s0 = wkv_inputs(b, t, h, hd, gen, dev)
+        return r, k, v, w, u, s0, rand((b, t, h, hd), f32, gen, dev), torch.zeros_like(s0)
+
+    # r, k, v, w, dO read and dr, dk, dv, dw written; u, s0 and dS_T read,
+    # du and ds0 written; per (i, j) and step, the state rebuilt (k v, w S
+    # + kv: 3 operations) and the backward's four sums and dS update (11)
+    seq, state = b * t * h * hd * 4, b * h * hd * hd * 4
+    nbytes = 9 * seq + 3 * state + 2 * h * hd * 4
+    flops = 14 * b * t * h * hd * hd
+    out["wkv6_bwd"] = timed(
+        f"r/k/v/w/dO {(b, t, h, hd)} float32, dS_T 0",
+        lambda *a: wkv_bwd.wkv6_bwd(*a), lambda *a: wkv6_bwd_ref(*a), None,
+        cold_copies(k3_set, nbytes), bound(nbytes, flops, f32))
+    return out
+
+
+def train_run(cfg, dev, *, layers_note: str) -> dict:
+    """Phase 10's run: ``TRAIN_STEPS`` AdamW steps of ``cfg`` (seeded
+    weights; rwkv's ``tmix.wo`` redrawn, or its init of 0 would cut K3 out
+    of the gradient) through ``make_train_step`` at batch ``TRAIN_BATCH``,
+    seq ``TRAIN_SEQ``, lr ``TRAIN_LR`` (cosine, as ``train()`` sets it), on
+    ``LMBatches`` seed 0, remat on.  Per step the loss, grad norm, lr, host
+    wall and the kernels' launches, each held to its count; one step traced
+    (device time, busy share); the losses finite and falling; the peak
+    memory.  -> the run's numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.rwkv import wkv, wkv_bwd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params
+    from repro_torch.train.data import LMBatches
+    from repro_torch.train.loop import batch_on
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if cfg.family == "ssm":
+        redraw_wo(params, cfg, dev)
+    opt = AdamW(learning_rate=cosine_schedule(TRAIN_LR, warmup=max(TRAIN_STEPS // 10, 1),
+                                              total=TRAIN_STEPS))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    data = LMBatches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers {layers_note}, d={cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params {cfg.param_dtype}, float32 AdamW moments; seeded "
+        f"init {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, lr "
+        f"{TRAIN_LR:g}, remat on; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        "before the first step")
+    kernels = ({"K1": flash, "K1-bwd": flash_bwd} if cfg.family != "ssm"
+               else {"K3": wkv, "K3-bwd": wkv_bwd})
+    want = {name: cfg.num_layers * (1 if "bwd" in name else 2) for name in kernels}
+    for mod in (flash, flash_bwd, wkv, wkv_bwd):
+        mod.launches = 0
+    losses, walls, device = [], [], None
+    for i in range(TRAIN_STEPS):
+        batch = batch_on(data(i), cfg, dev)
+        before = {name: mod.launches for name, mod in kernels.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == TRAIN_PROFILED:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                params, state, m = step_fn(params, state, batch)
+                torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t1
+            kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                          key=lambda e: -e.self_device_time_total)
+            device = sum(e.self_device_time_total for e in kern) / 1e6
+        else:
+            params, state, m = step_fn(params, state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        if i != TRAIN_PROFILED:
+            walls.append(wall)
+        losses.append(loss)
+        counts = {name: mod.launches - before[name] for name, mod in kernels.items()}
+        log(f"[train] {cfg.name} step {i + 1}: loss {loss:.4f} grad_norm "
+            f"{float(m['grad_norm']):.4f} lr {m['lr']:.3e} host wall {wall * 1e3:.1f} ms"
+            f"{' (traced)' if i == TRAIN_PROFILED else ''}; launches {counts} (want {want})")
+        if counts != want:
+            raise SystemExit(f"{cfg.name} step {i + 1}: kernel launches {counts}, not {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall_ms = float(np.median(walls)) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the step's bound: the layers' products 8 times (forward, the remat's
+    # forward, backward twice) and the unembedding's 6 times a token at the
+    # bf16 peak, then AdamW's 22 bytes a bf16 param (the param read and
+    # written, its gradient read, both float32 moments read and written)
+    head = params["embed"].get("unembed", params["embed"])
+    layer_params = n_params - count_params(params["embed"])
+    flops = 8 * layer_params * tokens + 6 * count_params(head) * tokens
+    bound_s = flops / PEAK_FLOPS[torch.bfloat16] + 22 * n_params / HBM_BYTES_PER_S
+    log(f"[train] {cfg.name} step bound {bound_s * 1e3:.1f} ms: {flops / 1e12:.1f} TFLOP at "
+        f"the bf16 peak {flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.1f} ms, then AdamW's "
+        f"{22 * n_params / 1e9:.1f} GB {22 * n_params / HBM_BYTES_PER_S * 1e3:.1f} ms")
+    if device:
+        log(f"[train] {cfg.name} step {TRAIN_PROFILED + 1} by kernel (device ms, launches):")
+        for e in kern[:12]:
+            log(f"[train]   {e.self_device_time_total / 1e3:9.3f}  {e.count:6d}  {e.key[:90]}")
+        for label, keys in (("K1", ("flash_fwd",)), ("K1-bwd", ("bwd_dot", "bwd_dkdv", "bwd_dq")),
+                            ("K3", ("wkv6_kernel",)), ("K3-bwd", ("wkv6_bwd_kernel", "du_sum")),
+                            ("products (nvjet, gemm)", ("nvjet", "gemm", "Gemm"))):
+            ms = sum(e.self_device_time_total for e in kern if any(k in e.key for k in keys))
+            if ms:
+                log(f"[train]   {label}: {ms / 1e3:.3f} ms, {ms / 1e3 / (device * 1e3):.3f} of "
+                    "the step's device time")
+    busy = "not measured" if not device else (
+        f"{device * 1e3:.1f} ms, busy share {device * 1e3 / wall_ms:.3f} of the median step "
+        f"wall ({device / prof_wall:.3f} of the traced step's own wall)")
+    log(f"[train] {cfg.name}: median step wall {wall_ms:.1f} ms ({tokens / wall_ms * 1e3:.0f} "
+        f"tokens/s); device time of step {TRAIN_PROFILED + 1} from its trace: {busy}; peak "
+        f"allocated {peak:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"{cfg.name} training: losses {losses} are not finite and falling")
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    del params, state, step_fn, m
+    torch.cuda.empty_cache()
+    return {"losses": losses, "wall_ms": wall_ms, "device_ms": None if not device
+            else device * 1e3, "peak_gib": peak, "tokens_per_s": tokens / wall_ms * 1e3,
+            "launches": launches, "params": n_params, "bound_ms": bound_s * 1e3}
+
+
+def grad_gate(cfg, dev) -> dict:
+    """Phase 10's gate: ``cfg`` at 2 layers, full width, float32, seeded
+    weights (rwkv's ``tmix.wo`` redrawn): every parameter's gradient of one
+    train step's loss (batch 2, seq 256) on the kernel path (K1 with K1-bwd,
+    K3 with K3-bwd) against the same on the plain path, autograd through
+    the plain forwards on the card, each held to ``GATE_REL_TOL`` relative
+    L2; then one AdamW step from each side's gradients, the new params held
+    to the same bar.  A MoE's plain side takes the kernel side's expert
+    routes, as ``moe_logits_check``.  -> the kernels' launches on the
+    kernel path."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.rwkv import wkv, wkv_bwd
+    from repro_torch.kernels.rwkv.ref import wkv6_ref
+    from repro_torch.models import api
+    from repro_torch.models.common import tensor_leaves
+    from repro_torch.train.data import LMBatches
+    from repro_torch.train.loop import batch_on
+    from repro_torch.train.optimizer import AdamW
+
+    torch.cuda.empty_cache()
+    cfg = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    if cfg.family == "ssm":
+        redraw_wo(params, cfg, dev)
+    leaves = [p.requires_grad_() for p in tensor_leaves(params)]
+    batch = batch_on(LMBatches(cfg.vocab_size, 2, 256, seed=3)(0), cfg, dev)
+    topk, routes, replayed = torch.topk, [], [0]
+
+    def recording(probs, k, dim=-1):
+        out = topk(probs, k, dim=dim)
+        routes.append(out.indices)
+        return out
+
+    def replaying(probs, k, dim=-1):
+        idx = routes[replayed[0]]
+        replayed[0] += 1
+        return torch.gather(probs, dim, idx), idx
+
+    def grads():
+        loss, _ = api.train_loss(params, batch, cfg)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    for mod in (flash, flash_bwd, wkv, wkv_bwd):
+        mod.launches = 0
+    with mock.patch.object(torch, "topk", recording):
+        k_loss, k_grads = grads()
+    launches = {"flash_attention": flash.launches, "flash_attention_bwd": flash_bwd.launches,
+                "wkv6": wkv.launches, "wkv6_bwd": wkv_bwd.launches}
+    with mock.patch.object(dispatch, "flash_attention", flash_attention_ref), \
+            mock.patch.object(dispatch, "rwkv_scan",
+                              lambda r, k, v, w, u, s, out_state=None: wkv6_ref(r, k, v, w, u, s)), \
+            mock.patch.object(torch, "topk", replaying):
+        p_loss, p_grads = grads()
+    if replayed[0] != len(routes):
+        raise SystemExit(f"{cfg.name} gate: {len(routes)} routings recorded, {replayed[0]} "
+                         "replayed")
+    if cfg.family == "ssm" and not launches["wkv6_bwd"] or \
+            cfg.family != "ssm" and not launches["flash_attention_bwd"]:
+        raise SystemExit(f"{cfg.name} gate: the kernel path launched {launches}")
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(k_grads, p_grads)]
+    worst = max(rel)
+    log(f"[gate] {cfg.name} 2 layers float32, batch 2, seq 256: loss kernel {k_loss:.6f} plain "
+        f"{p_loss:.6f}; {len(rel)} gradient leaves, worst rel_l2 {worst:.3e} (leaf "
+        f"{rel.index(worst)}), median {float(np.median(rel)):.3e}, tol {GATE_REL_TOL:g}; "
+        f"kernel launches {launches}")
+    if not worst <= GATE_REL_TOL or not all(torch.isfinite(g).all() for g in k_grads):
+        raise SystemExit(f"{cfg.name} gate: a gradient on the kernel path differs from the "
+                         "plain path's")
+    with torch.no_grad():
+        for p in leaves:
+            p.requires_grad_(False)
+        twin = [p.clone() for p in leaves]
+        opt = AdamW(learning_rate=3e-4)
+        k_state, p_state = opt.init(leaves), opt.init(twin)
+        opt.update(leaves, list(k_grads), k_state)
+        opt.update(twin, list(p_grads), p_state)
+        moments = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                      for key in ("mu", "nu") for a, b in zip(k_state[key], p_state[key]))
+        # AdamW's first step moves each element by lr * g / (|g| + eps): the
+        # sign of g.  An element whose gradient lies at the rounding noise
+        # (below GATE_NOISE of its leaf's rms) may move either way on either
+        # path, by at most 2 lr apart; the rest must agree.
+        worst, flips, floor = 0.0, 0, 0
+        for a, b, g in zip(leaves, twin, p_grads):
+            sure = g.abs() >= GATE_NOISE * g.square().mean().sqrt()
+            worst = max(worst, ((a - b)[sure].norm() / b[sure].norm().clamp_min(1e-30)).item())
+            floor += int((~sure).sum())
+            flips += int(((a - b).abs() > 1e-3 * opt.learning_rate)[~sure].sum())
+            if ((a - b).abs()[~sure] > 2.0001 * opt.learning_rate).any():
+                raise SystemExit(f"{cfg.name} gate: an AdamW step moved further than 2 lr")
+    log(f"[gate] {cfg.name}: one AdamW step from each side's gradients: mu and nu worst rel_l2 "
+        f"{moments:.3e}; params over the elements whose gradient is at least {GATE_NOISE:g} "
+        f"of its leaf's rms worst rel_l2 {worst:.3e}, tol {GATE_REL_TOL:g}; {floor} elements "
+        f"below, {flips} of them moved apart (each by at most 2 lr)")
+    if not (moments <= GATE_REL_TOL and worst <= GATE_REL_TOL):
+        raise SystemExit(f"{cfg.name} gate: the AdamW step differs between the paths")
+    del params, leaves, twin, k_grads, p_grads
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_phase(dev) -> tuple:
+    """Phase 10, with every engine freed: deepseek-7b at full width and
+    ``TRAIN_LAYERS`` of its 30 layers (the cut one card forces: at 30 layers
+    the bf16 weights and gradients and the two float32 moments alone take
+    6.91 B x 12 bytes = 82.9 GB), and rwkv6-1.6b at full width and depth,
+    each through ``train_run``; then the float32 gate (``grad_gate``) for
+    deepseek-7b, granite-moe-3b-a800m and rwkv6-1.6b.  -> ({name: run},
+    the kernels' launches summed over the runs and the gate's kernel
+    paths)."""
+    from repro_torch.configs.registry import get
+
+    runs, launches = {}, {"flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
+                          "wkv6_bwd": 0}
+    names = {"K1": "flash_attention", "K1-bwd": "flash_attention_bwd", "K3": "wkv6",
+             "K3-bwd": "wkv6_bwd"}
+    full = get("deepseek-7b").config
+    for cfg, note in ((full.replace(num_layers=TRAIN_LAYERS),
+                       f"of its {full.num_layers} (the cut one card forces)"),
+                      (get("rwkv6-1.6b").config, "(full depth)")):
+        runs[cfg.name] = run = train_run(cfg, dev, layers_note=note)
+        for name, n in run["launches"].items():
+            launches[names[name]] += n
+    for arch in ("deepseek-7b", "granite-moe-3b-a800m", "rwkv6-1.6b"):
+        for name, n in grad_gate(get(arch).config, dev).items():
+            launches[name] += n
+    return runs, launches
+
+
 def bootstrap_line() -> None:
     """The seconds of ``import torch`` and of the first CUDA context in a
     fresh process: the torch counterparts of the cold BOOTSTRAP that the
@@ -1858,6 +2428,7 @@ def main() -> int:
                 log(f"[ptxas] {name}: {line.strip()}")
 
     main_err = kernel_checks(dev)
+    main_err.update(bwd_kernel_checks(dev))
 
     cfg = get("deepseek-7b").config
     t0 = time.perf_counter()
@@ -1909,6 +2480,7 @@ def main() -> int:
 
     cnns = cnn_phase(dev)
     times = timings(dev)
+    times.update(bwd_timings(dev))
     plans = times.pop("wkv6 plans")
     log("[time] wkv6 device / event ms by split plan (CTAs per head, columns, lanes), the "
         "first split_plan's: " + "; ".join(f"{k} {fmt_ms(d)} / {e:.4f}"
@@ -1943,12 +2515,21 @@ def main() -> int:
     wcfg = get("whisper-tiny").config
     e2e[wcfg.name], prefills[wcfg.name], steps[wcfg.name] = whisper_phase(wcfg, dev)
     calibration_phase(dev)
+    train_runs, tlaunches = train_phase(dev)
+    for name, n in tlaunches.items():
+        launches[name] = launches.get(name, 0) + n
 
     meta = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/attention/flash.py:69"),
             "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                              "src/repro/kernels/decode/flash_decode.py:62"),
-            "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv/wkv.py:57")}
+            "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv/wkv.py:57"),
+            # no TPU kernel: the reference differentiates its plain attention and
+            # wkv_ref through XLA; the forward kernels they are the backward of
+            "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                    "src/repro/kernels/attention/flash.py:69"),
+            "wkv6_bwd": ("src/repro_torch/csrc/wkv6_bwd.cu",
+                         "src/repro/kernels/rwkv/wkv.py:57")}
     rows = []
     for name, (source, replaces) in meta.items():
         t = times[name]
@@ -1961,7 +2542,13 @@ def main() -> int:
                      "library_ms": t["library_ms"],
                      "library_device_ms": t["library_device_ms"]})
     log(f"[kernels] launches summed over the deepseek-7b, rwkv6-1.6b, granite-moe-3b-a800m, "
-        f"mistral-nemo-12b and llava-next-mistral-7b paths: {launches}")
+        f"mistral-nemo-12b and llava-next-mistral-7b paths, the training runs and the "
+        f"gate's kernel paths: {launches}")
+    for name, r in train_runs.items():
+        log(f"[train] {name} full width: losses {' '.join(f'{x:.4f}' for x in r['losses'])}; "
+            f"median step wall {r['wall_ms']:.1f} ms (bound {r['bound_ms']:.1f}), "
+            f"{r['tokens_per_s']:.0f} tokens/s, device {fmt_ms(r['device_ms'])} a traced step, "
+            f"peak {r['peak_gib']:.2f} GiB ({card})")
     for name, r in e2e.items():
         log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms (replayed; "
             f"logits within {r['prefill_err']:.3e} of the uncaptured prefill's), "

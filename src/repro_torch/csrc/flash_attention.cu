@@ -74,6 +74,7 @@ constexpr int BQ = 64;        // query rows per CTA
 constexpr int BK = 64;        // keys per KV tile
 constexpr int NT = 128;       // threads per CTA
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -88,7 +89,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int S, int H, int KH, int window, float scale) {
+          T* __restrict__ o, float* __restrict__ lse, int S, int H, int KH, int window,
+          float scale) {
   constexpr int LD = HD + 1;
   constexpr int CW = HD / 8;  // output columns per thread
   extern __shared__ float smem[];
@@ -232,6 +234,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
       for (int j = 0; j < CW; ++j) store(&ob[p * q_stride + cg + 8 * j], acc[i][j] / l);
+      if (lse != nullptr && cg == 0) lse[((long long)b * H + h) * S + p] = m_s[r] + logf(l);
     }
   }
 }
@@ -280,8 +283,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int HD>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int KH,
-              int window, float scale_log2) {
+              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+              int S, int H, int KH, int window, float scale_log2) {
   constexpr int LD = HD + PAD;
   constexpr int CH = HD / 8;    // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -445,6 +448,9 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / fmaxf(l, 1e-30f);
+    const int p = qp0 + r * 8;
+    if (lse != nullptr && tg == 0 && p < S)   // natural-log units, for the backward
+      lse[((long long)b * H + h) * S + p] = (m_r[r] + log2f(fmaxf(l, 1e-30f))) * LN2;
   }
   bf16* Os = Qs + warp * 16 * LD;
 #pragma unroll
@@ -468,8 +474,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
-                       int H, int KH, int window, float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int S, int H, int KH, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd<float, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -478,13 +484,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd<float, HD><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KH, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KH, window, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int H, int KH, int window, float scale, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int S, int H, int KH, int window, float scale, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -493,23 +499,23 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_mma<HD><<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, H, KH, window, scale * LOG2E);
+      static_cast<bf16*>(o), lse, S, H, KH, window, scale * LOG2E);
   return cudaGetLastError();
 }
 
-cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v, void* o, int B,
-                      int S, int H, int KH, int hd, int window, float scale,
+cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int S, int H, int KH, int hd, int window, float scale,
                       cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return bf16 ? launch_bf16<32>(q, k, v, o, B, S, H, KH, window, scale, stream)
-                  : launch_f32<32>(q, k, v, o, B, S, H, KH, window, scale, stream);
+      return bf16 ? launch_bf16<32>(q, k, v, o, lse, B, S, H, KH, window, scale, stream)
+                  : launch_f32<32>(q, k, v, o, lse, B, S, H, KH, window, scale, stream);
     case 64:
-      return bf16 ? launch_bf16<64>(q, k, v, o, B, S, H, KH, window, scale, stream)
-                  : launch_f32<64>(q, k, v, o, B, S, H, KH, window, scale, stream);
+      return bf16 ? launch_bf16<64>(q, k, v, o, lse, B, S, H, KH, window, scale, stream)
+                  : launch_f32<64>(q, k, v, o, lse, B, S, H, KH, window, scale, stream);
     case 128:
-      return bf16 ? launch_bf16<128>(q, k, v, o, B, S, H, KH, window, scale, stream)
-                  : launch_f32<128>(q, k, v, o, B, S, H, KH, window, scale, stream);
+      return bf16 ? launch_bf16<128>(q, k, v, o, lse, B, S, H, KH, window, scale, stream)
+                  : launch_f32<128>(q, k, v, o, lse, B, S, H, KH, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -518,12 +524,15 @@ cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v, vo
 
 // q, o: (B,S,H,hd) contiguous; k, v: (B,S,KH,hd) contiguous; H % KH == 0.
 // dtype 0 = float32, 1 = bfloat16 (pointers 16-byte aligned); hd in
-// {32, 64, 128}.  Launches on `stream` and returns the launch's cudaError_t
-// (0 on success).
+// {32, 64, 128}.  lse, when not null, receives each row's float32
+// log-sum-exp of its scaled, masked logits, (B,H,S): what the backward
+// (flash_attention_bwd.cu) rebuilds the probabilities from.  Every serving
+// call passes null.  Launches on `stream` and returns the launch's
+// cudaError_t (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int B, int S, int H, int KH, int hd, int window,
-                                     float scale, int dtype, void* stream) {
+                                     float* lse, int B, int S, int H, int KH, int hd,
+                                     int window, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  return (int)launch_hd(dtype == 1, q, k, v, o, B, S, H, KH, hd, window, scale, st);
+  return (int)launch_hd(dtype == 1, q, k, v, o, lse, B, S, H, KH, hd, window, scale, st);
 }

@@ -28,18 +28,21 @@ def _kernel():
     if _fn is None:
         fn = build.library(SOURCE).repro_flash_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, with_lse: bool = False):
     """q: (B,S,H,hd); k,v: (B,S,K,hd), H % K == 0, all contiguous on one CUDA
     device, float32 or bfloat16 (bfloat16 16-byte aligned), hd in (32, 64,
-    128).  Causal (+window)."""
+    128).  Causal (+window).  -> o, or with ``with_lse`` (o, the float32
+    log-sum-exp of each row's scaled, masked logits (B,H,S)), which the
+    backward (``flash_bwd.py``) takes."""
     global launches
+    build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -60,14 +63,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: bfloat16 q, k, v must be 16-byte aligned")
     o = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse
+           else None)
     if q.numel() == 0:
-        return o
+        return (o, lse) if with_lse else o
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        None if lse is None else lse.data_ptr(),
                         b, s, h, kh, hd, int(window), hd ** -0.5, DTYPES[q.dtype],
                         stream)
     if err:
         raise RuntimeError(f"flash_attention: launch failed with CUDA error {err}")
     launches += 1
-    return o
+    return (o, lse) if with_lse else o

@@ -6,7 +6,7 @@ root.  The digest covers the source, every shared header ``csrc/*.cuh`` and
 the flags, so an edited source or header is rebuilt and a stale library is
 never loaded.  A library is built at its first use; ``build_all`` starts one
 ``nvcc`` per source at once and waits for all.  Nothing is built when a
-module is imported.
+module is imported.  ``refuse_grad`` is the check every wrapper runs first.
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -98,3 +100,14 @@ def library(name: str) -> ctypes.CDLL:
                 _finish(job)
             _loaded[name] = ctypes.CDLL(str(target(name)))
         return _loaded[name]
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad: a kernel
+    called outside its ``torch.autograd.Function`` (``kernels/dispatch.py``)
+    writes its output through ctypes, so the graph would end there and the
+    gradients before it would be silently lost."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, and the kernel called "
+                           "outside an autograd Function (repro_torch.kernels.dispatch) "
+                           "would drop its gradient")

@@ -60,6 +60,7 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     a whole number of 16-byte vectors; q, the caches and the cache strides
     16-byte aligned."""
     global launches
+    build.refuse_grad("flash_decode", q, cache_k, cache_v)   # K2 has no backward
     dev = q.device
     if not (q.is_cuda and cache_k.device == dev and cache_v.device == dev
             and valid.device == dev):

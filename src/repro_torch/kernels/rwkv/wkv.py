@@ -70,6 +70,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     ``out_state`` when given, which may be ``s0`` itself (the state is then
     updated in place); else to a new tensor."""
     global launches
+    build.refuse_grad("wkv6", r, k, v, w, u, s0)
     ins = (r, k, v, w, u, s0) if out_state is None else (r, k, v, w, u, s0, out_state)
     dev = r.device
     for t in ins:

@@ -2,6 +2,7 @@
 
 Every family module exposes:
     init_params(cfg, generator, device) -> params
+    train_loss(params, batch, cfg, remat=...) -> (loss, metrics)   [not cnn]
     prefill(params, inputs, cfg, cache_len, last_pos=, cache=) -> (last_logits, cache)
     decode_step(params, cache, token, pos, cfg) -> (logits, cache)
     init_cache(cfg, batch, seq, dtype, device)
@@ -47,6 +48,12 @@ def _lm_module(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator, device):
     return module_for(cfg).init_params(cfg, generator, device)
+
+
+def train_loss(params, batch, cfg: ModelConfig, **kw):
+    """-> (loss, {"xent", "aux"}) of ``batch`` (``tokens``, ``labels``, and
+    the audio and vlm families' ``frame_embeds`` or ``patch_embeds``)."""
+    return _lm_module(cfg).train_loss(params, batch, cfg, **kw)
 
 
 def prefill(params, inputs, cfg: ModelConfig, cache_len: int | None = None,

@@ -14,6 +14,7 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Any  # nested dict / list of torch.Tensor
 
@@ -228,6 +229,16 @@ def row_positions(pos, batch: int, device) -> torch.Tensor:
     if isinstance(pos, torch.Tensor):
         return pos.reshape(-1).expand(batch)
     return torch.full((batch,), int(pos), dtype=torch.long, device=device)
+
+
+def remat(fn: Callable, on: bool) -> Callable:
+    """``fn`` under activation checkpointing when ``on``: its activations
+    are dropped after the forward and recomputed in the backward, the
+    counterpart of the reference's ``jax.checkpoint`` with the
+    ``nothing_saveable`` policy around each layer of its training scan."""
+    if not on:
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def tensor_leaves(params: Params):

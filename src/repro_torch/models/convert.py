@@ -1,4 +1,4 @@
-"""Weights bridge: the reference's parameter tree -> the port's.
+"""Weights bridge: the reference's parameter tree -> the port's, and back.
 
 The reference trees are nested dicts of arrays whose layer params are
 stacked on a leading axis (built by ``vmap``).  The caller hands one over as
@@ -31,6 +31,13 @@ The cnn trees (``repro.models.cnn.init_params``) keep their lists
 from HWIO to OIHW, PyTorch's layout; everything else (``fc.w`` as
 ``(d_in, d_out)``, the folded BatchNorm's ``scale`` and ``bias``) is copied
 as it is.
+
+``to_reference`` is the inverse: the port's tree (or a tree of its
+gradients) in the reference's layout, each stack stacked again on axis 0,
+as torch tensors on the tree's device (bfloat16 stays bfloat16: numpy has
+no such type without the reference's ``ml_dtypes``).  ``from_reference``
+also takes such a tree of tensors, as ``train/checkpoint.py::restore``
+gives it.
 """
 from __future__ import annotations
 
@@ -42,6 +49,8 @@ from .common import ModelConfig
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, copy=True).contiguous()
     a = np.array(a, order="C")   # a writable copy: torch shares numpy's memory
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
@@ -114,4 +123,39 @@ def from_reference(np_params: dict, cfg: ModelConfig, device="cuda") -> dict:
         if n != getattr(cfg, count):
             raise ValueError(f"the tree has {n} {key}, {cfg.name} has {getattr(cfg, count)}")
         out[key] = _unstack(np_params[key], n, dev)
+    return out
+
+
+def _stack(layers: list):
+    """A list of per-layer trees -> one tree, each leaf stacked on axis 0."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in layers]) for k in first}
+    return torch.stack(layers)
+
+
+def _to_cnn(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cnn(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cnn(v) for v in tree]
+    return tree.permute(2, 3, 1, 0).contiguous() if tree.dim() == 4 else tree
+
+
+def to_reference(params: dict, cfg: ModelConfig) -> dict:
+    """The port's tree of ``cfg``'s family -> the reference's layout (the
+    inverse of ``from_reference``), with torch tensors as leaves."""
+    if cfg.family not in (*_STACKS, "hybrid", "cnn"):
+        raise NotImplementedError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.family == "cnn":
+        return _to_cnn(params)
+    if cfg.family == "hybrid":
+        out = {k: v for k, v in params.items() if k not in ("units", "extra")}
+        out["units"] = _stack(params["units"])
+        out["extra"] = list(params["extra"])
+        return out
+    stacks = _STACKS[cfg.family]
+    out = {k: v for k, v in params.items() if k not in stacks}
+    for key in stacks:
+        out[key] = _stack(params[key])
     return out

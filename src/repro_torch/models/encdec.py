@@ -25,6 +25,7 @@ from repro_torch import resolve_device
 from .common import ModelConfig, apply_norm, dense, dense_init, norm_init, row_positions
 from .layers import (CHUNK_THRESHOLD, Q_CHUNK, _split_heads, attention_chunked, attn_init,
                      embed, embed_init, sdpa, unembed)
+from .transformer import softmax_xent
 
 MAX_DEC_POS = 32768
 
@@ -172,6 +173,16 @@ def forward(params, inputs: dict, cfg: ModelConfig):
     x = decode_full(params, inputs["tokens"], enc_out, cfg)
     x = apply_norm(params["final_norm"], x, "layernorm")
     return unembed(params["embed"], x, cfg), torch.zeros((), device=x.device)
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """The decoder's cross-entropy against ``batch["labels"]``; ``batch``
+    holds ``frame_embeds`` and ``tokens``.  ``remat`` is taken and unused,
+    as in the reference, whose encoder-decoder forward has no remat.  ->
+    (loss, {"xent", "aux": 0})."""
+    logits, aux = forward(params, batch, cfg)
+    loss = softmax_xent(logits, batch["labels"])
+    return loss, {"xent": loss, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None, device="cuda") -> dict:

@@ -21,6 +21,9 @@ list of per-layer dicts (the batch on axis 0).  A state handed to
 
 No Pallas kernel is on this path in the reference: the attention is
 ``sdpa`` or ``attention_chunked``, and so it is here, on every device.
+``train_loss`` runs functional copies of the blocks (``_train_block``),
+from the zero state and writing none, so that autograd sees no in-place
+write.
 """
 from __future__ import annotations
 
@@ -29,10 +32,11 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from .common import (ModelConfig, apply_norm, apply_rope, dense, dense_init,
-                     norm_init, row_positions, tensor_leaves)
+                     norm_init, remat as checkpointed, row_positions, tensor_leaves)
 from .layers import (CHUNK_THRESHOLD, Q_CHUNK, _split_heads, attention_chunked,
                      attn_init, causal_window_mask, embed, embed_init, mlp_apply,
                      mlp_init, sdpa, unembed)
+from .transformer import softmax_xent
 
 LRU_C = 8.0
 
@@ -123,15 +127,23 @@ def _rglru_step(p, x, h):
     return h.to(x.dtype)[:, None], h
 
 
+def _rec(p, x, conv, lru, *, step: bool):
+    """The recurrent block on x (B,T,d) from the states ``conv`` (B,W-1,dr)
+    and ``lru`` (B,dr) float32.  -> (y, the new conv state, the new lru
+    state)."""
+    xb, gate = dense(p["w_in"], x).chunk(2, dim=-1)
+    xc, conv = _causal_conv(p["conv_w"], p["conv_b"], xb, conv)
+    y, lru = (_rglru_step if step else _rglru)(p, xc, lru)
+    return dense(p["w_out"], y * F.gelu(gate, approximate="tanh")), conv, lru
+
+
 def rec_block_apply(p, x, state, cfg: ModelConfig, *, step: bool):
     """x: (B,T,d); state {"conv": (B,W-1,dr), "lru": (B,dr) float32},
     updated in place."""
-    xb, gate = dense(p["w_in"], x).chunk(2, dim=-1)
-    xc, conv = _causal_conv(p["conv_w"], p["conv_b"], xb, state["conv"])
-    y, lru = (_rglru_step if step else _rglru)(p, xc, state["lru"])
+    y, conv, lru = _rec(p, x, state["conv"], state["lru"], step=step)
     state["conv"].copy_(conv)
     state["lru"].copy_(lru)
-    return dense(p["w_out"], y * F.gelu(gate, approximate="tanh"))
+    return y
 
 
 def rec_state_init(cfg: ModelConfig, batch: int, dtype, device) -> dict:
@@ -159,17 +171,24 @@ def _qkv(p, x, positions, cfg: ModelConfig):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def local_attn_full(p, x, positions, state, cfg: ModelConfig):
-    """Attention over the whole prompt; its ring buffer is written into
-    ``state`` in place: slot ``p % window`` holds position ``p`` when the
-    prompt fills the window, else the prompt's positions lead and the rest
-    is zero."""
+def _local_attn(p, x, positions, cfg: ModelConfig):
+    """Windowed attention over the whole prompt.  -> (y, k, v)."""
     s, win = x.shape[1], cfg.attention_window
     q, k, v = _qkv(p, x, positions[None], cfg)
     if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
         out = attention_chunked(q, k, v, positions, positions, win)
     else:
         out = sdpa(q, k, v, causal_window_mask(positions, positions, win))
+    return dense(p["wo"], out.reshape(*x.shape[:2], -1)), k, v
+
+
+def local_attn_full(p, x, positions, state, cfg: ModelConfig):
+    """Attention over the whole prompt; its ring buffer is written into
+    ``state`` in place: slot ``p % window`` holds position ``p`` when the
+    prompt fills the window, else the prompt's positions lead and the rest
+    is zero."""
+    s, win = x.shape[1], cfg.attention_window
+    y, k, v = _local_attn(p, x, positions, cfg)
     for name, t in (("k", k), ("v", v)):
         ring = state[name]
         if s >= win:
@@ -178,7 +197,7 @@ def local_attn_full(p, x, positions, state, cfg: ModelConfig):
         else:
             ring[:, :s] = t.to(ring.dtype)
             ring[:, s:] = 0
-    return dense(p["wo"], out.reshape(*x.shape[:2], -1))
+    return y
 
 
 def local_attn_step(p, x, pos, state, cfg: ModelConfig):
@@ -228,6 +247,28 @@ def block_apply(p, kind: str, x, positions, state, cfg: ModelConfig, *, step: bo
     x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm)
     return x + mlp_apply(p["mlp"], h, cfg)
+
+
+def _train_block(p, kind: str, x, positions, cfg: ModelConfig):
+    """One layer for training, from the zero state and writing none."""
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    if kind == "rglru":
+        b, d = x.shape[0], cfg.d_model
+        conv = torch.zeros((b, cfg.rglru_conv_width - 1, d), dtype=cfg.cdt, device=x.device)
+        lru = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        a = _rec(p["rec"], h, conv, lru, step=False)[0]
+    else:
+        a = _local_attn(p["attn"], h, positions, cfg)[0]
+    x = x + a
+    h = apply_norm(p["ln2"], x, cfg.norm)
+    return x + mlp_apply(p["mlp"], h, cfg)
+
+
+def _train_unit(x, unit, positions, cfg: ModelConfig):
+    """One pattern unit (``b0``..) of ``_train_block``s."""
+    for i, kind in enumerate(cfg.pattern or ("attn",)):
+        x = _train_block(unit[f"b{i}"], kind, x, positions, cfg)
+    return x
 
 
 def block_state_init(kind: str, cfg: ModelConfig, batch: int, dtype, device) -> dict:
@@ -317,6 +358,25 @@ def forward(params, tokens, cfg: ModelConfig, *, cache=None, return_state: bool 
     if return_state:
         return logits, cache
     return logits, torch.zeros((), device=x.device)
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """The cross-entropy of the logits over ``batch["tokens"]`` against
+    ``batch["labels"]``, from the zero state, writing none; with ``remat``
+    each pattern unit runs under activation checkpointing (the remainder
+    layers do not, as in the reference).  -> (loss, {"xent", "aux": 0})."""
+    tokens = batch["tokens"]
+    _, _, rem = _split_layers(cfg)
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    unit = checkpointed(_train_unit, remat)
+    for up in params["units"]:
+        x = unit(x, up, positions, cfg)
+    for j, kind in enumerate(rem):
+        x = _train_block(params["extra"][j], kind, x, positions, cfg)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    loss = softmax_xent(unembed(params["embed"], x, cfg), batch["labels"])
+    return loss, {"xent": loss, "aux": torch.zeros((), device=x.device)}
 
 
 def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None, *,

@@ -16,7 +16,10 @@ The reference scans the stacked layers; here the layer stack is a list of
 per-layer param dicts walked by a Python loop.  The state keeps the reference
 layout, a dict of (L,B,...) tensors, and a state handed to ``forward`` or
 ``decode_step`` is updated in place (the counterpart of the reference's
-donated cache).  Training waits for the training slice (ROADMAP.md Queue 1).
+donated cache).  ``train_loss`` runs a functional copy of the layer
+(``_train_layer``): each layer starts from the zero state and writes no
+state, so autograd differentiates K3 through K3-bwd
+(``kernels/dispatch.WKV6``) and nothing is overwritten in place.
 """
 from __future__ import annotations
 
@@ -25,8 +28,9 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels import dispatch
-from .common import ModelConfig, apply_norm, dense, dense_init, norm_init
+from .common import ModelConfig, apply_norm, dense, dense_init, norm_init, remat as checkpointed
 from .layers import embed, embed_init, unembed
+from .transformer import softmax_xent
 
 MIX_KEYS = ("r", "k", "v", "w", "g")
 PREFILL_CHUNK = 8192
@@ -160,6 +164,35 @@ def _layer(x, lp, state, cfg: ModelConfig):
     state["shift_t"].copy_(sh_t)
     state["shift_c"].copy_(sh_c)
     return x + c
+
+
+def _train_layer(x, lp, cfg: ModelConfig):
+    """One layer for training, from the zero state (the reference's
+    ``forward`` with no state given) and writing none.  -> x."""
+    b, _, d = x.shape
+    hd = d // cfg.num_heads
+    shift = torch.zeros((b, d), dtype=cfg.cdt, device=x.device)
+    wkv0 = torch.zeros((b, cfg.num_heads, hd, hd), dtype=torch.float32, device=x.device)
+    h = apply_norm(lp["ln1"], x, "layernorm")
+    a, _, _ = time_mix(lp["tmix"], h, wkv0, shift, cfg)
+    x = x + a
+    h = apply_norm(lp["ln2"], x, "layernorm")
+    c, _ = channel_mix(lp["cmix"], h, shift, cfg)
+    return x + c
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """The cross-entropy of the logits over ``batch["tokens"]`` against
+    ``batch["labels"]``, each layer under activation checkpointing with
+    ``remat``.  -> (loss, {"xent", "aux": 0})."""
+    x = embed(params["embed"], batch["tokens"], cfg).to(cfg.cdt)
+    x = apply_norm(params["ln_in"], x, "layernorm")
+    layer = checkpointed(_train_layer, remat)
+    for lp in params["layers"]:
+        x = layer(x, lp, cfg)
+    x = apply_norm(params["final_norm"], x, "layernorm")
+    loss = softmax_xent(unembed(params["embed"], x, cfg), batch["labels"])
+    return loss, {"xent": loss, "aux": torch.zeros((), device=x.device)}
 
 
 # ----------------------------------------------------------------------

@@ -15,7 +15,7 @@ import torch
 from repro_torch import resolve_device
 
 from . import moe
-from .common import ModelConfig, apply_norm, norm_init
+from .common import ModelConfig, apply_norm, norm_init, remat as checkpointed
 from .layers import (attn_init, attention_decode, attention_full, embed,
                      embed_init, mlp_apply, mlp_init, unembed)
 
@@ -72,30 +72,65 @@ def _block(x, lp, positions, cfg: ModelConfig, aux: list | None = None):
     return x + _ffn(lp, h, cfg, aux), kv
 
 
-def _hidden(params, tokens, cfg: ModelConfig, on_kv=None, aux: list | None = None,
-            input_embeds=None):
+def _hidden(params, tokens, cfg: ModelConfig, on_kv=None, input_embeds=None):
     """The layer stack over the tokens' embeddings, or over ``input_embeds``
     (B,S,d) when given; calls ``on_kv(layer, k, v)`` with each layer's
-    (B,S,K,hd) keys and values, and appends each MoE layer's loss to
-    ``aux`` when one is given.  -> final hidden states before the norm."""
+    (B,S,K,hd) keys and values.  -> final hidden states before the norm."""
     x = (embed(params["embed"], tokens, cfg) if input_embeds is None
          else input_embeds).to(cfg.cdt)
     positions = torch.arange(x.shape[1], device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x, (k, v) = _block(x, lp, positions, cfg, aux)
+        x, (k, v) = _block(x, lp, positions, cfg)
         if on_kv is not None:
             on_kv(i, k, v)
     return x
 
 
-def forward(params, tokens, cfg: ModelConfig, *, input_embeds=None):
-    """tokens: (B,S) int (or input_embeds (B,S,d)).  -> (logits (B,S,V),
-    aux): the MoE layers' load-balance losses summed (0 for dense)."""
+def _layer(x, lp, positions, cfg: ModelConfig):
+    """One layer of ``forward``.  -> (x, the MoE layer's load-balance loss,
+    or None for dense)."""
     aux = []
-    x = _hidden(params, tokens, cfg, aux=aux, input_embeds=input_embeds)
+    x, _ = _block(x, lp, positions, cfg, aux)
+    return x, (aux[0] if aux else None)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, input_embeds=None, remat: bool = False):
+    """tokens: (B,S) int (or input_embeds (B,S,d)).  -> (logits (B,S,V),
+    aux): the MoE layers' load-balance losses summed (0 for dense).  With
+    ``remat`` each layer runs under activation checkpointing."""
+    x = (embed(params["embed"], tokens, cfg) if input_embeds is None
+         else input_embeds).to(cfg.cdt)
+    positions = torch.arange(x.shape[1], device=x.device)
+    layer, aux = checkpointed(_layer, remat), []
+    for lp in params["layers"]:
+        x, loss = layer(x, lp, positions, cfg)
+        if loss is not None:
+            aux.append(loss)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     total = torch.stack(aux).sum() if aux else torch.zeros((), device=x.device)
     return unembed(params["embed"], x, cfg), total
+
+
+# ----------------------------------------------------------------------
+# loss
+# ----------------------------------------------------------------------
+
+def softmax_xent(logits, labels):
+    """Mean cross-entropy of (B,S,V) logits against (B,S) labels, in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - ll).mean()
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """batch: ``tokens`` and ``labels`` (B,S), and ``input_embeds`` (B,S,d)
+    where given.  -> (loss, {"xent", "aux"}): the cross-entropy plus the MoE
+    load-balance loss (0 for dense)."""
+    logits, aux = forward(params, batch["tokens"], cfg, remat=remat,
+                          input_embeds=batch.get("input_embeds"))
+    loss = softmax_xent(logits, batch["labels"])
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 # ----------------------------------------------------------------------

@@ -8,7 +8,8 @@ stub: the inputs carry precomputed, already projected patch embeddings
 embeddings with the leading positions replaced by the patch embeddings, then
 the transformer (``models/transformer.py``), whose prefill attention is K1
 and whose decode attention is K2 on the card.  The cache is the
-transformer's.
+transformer's.  ``train_loss`` is the transformer's cross-entropy over the
+text positions only.
 """
 from __future__ import annotations
 
@@ -40,11 +41,26 @@ def _patches(inputs: dict, cfg: ModelConfig) -> torch.Tensor:
     return inputs["patch_embeds"]
 
 
-def forward(params, inputs: dict, cfg: ModelConfig):
+def forward(params, inputs: dict, cfg: ModelConfig, *, remat: bool = False):
     """inputs: ``tokens`` (B,S) and ``patch_embeds`` (B,P,d).  -> (logits
     (B,S,V), aux 0)."""
     x = merge_embeddings(params, inputs["tokens"], _patches(inputs, cfg), cfg)
-    return transformer.forward(params, inputs["tokens"], cfg, input_embeds=x)
+    return transformer.forward(params, inputs["tokens"], cfg, input_embeds=x, remat=remat)
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """The cross-entropy over the text positions (those from
+    ``num_image_tokens`` on), averaged over them and the batch; the image
+    positions add nothing.  -> (loss, {"xent", "aux"})."""
+    logits, aux = forward(params, batch, cfg, remat=remat)
+    s = batch["tokens"].shape[1]
+    text = (torch.arange(s, device=logits.device) >= cfg.num_image_tokens).float()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    loss = torch.sum((logz - ll) * text) / torch.clamp(text.sum() * logits.shape[0], min=1.0)
+    loss = loss + aux
+    return loss, {"xent": loss, "aux": aux}
 
 
 def prefill(params, inputs: dict, cfg: ModelConfig, cache_len: int | None = None, *,

@@ -12,11 +12,17 @@ import torch
 from repro_torch.configs import (deepseek_7b, granite_moe_3b, llava_next_mistral_7b,
                                  recurrentgemma_9b, registry, rwkv6_1p6b, whisper_tiny)
 from repro_torch.core import calibration
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.attention import flash, flash_bwd
+from repro_torch.kernels.decode import flash_decode as fd
+from repro_torch.kernels.rwkv import wkv, wkv_bwd
+from repro_torch.launch import train as train_cli
 from repro_torch.models import api, cnn
 from repro_torch.models.common import tensor_leaves
 from repro_torch.serving import kvcache
 from repro_torch.serving.continuous import ContinuousServer
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.train.loop import train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SRC = ROOT / "src" / "repro_torch"
@@ -48,7 +54,10 @@ def test_scan_sees_the_whole_port():
                    "core/function.py", "serving/handler.py", "models/moe.py",
                    "configs/granite_moe_3b.py", "configs/mistral_nemo_12b.py",
                    "models/hybrid.py", "models/encdec.py", "models/vlm.py",
-                   "serving/kvcache.py", "serving/quantize.py"):
+                   "serving/kvcache.py", "serving/quantize.py", "train/optimizer.py",
+                   "train/data.py", "train/loop.py", "train/checkpoint.py", "launch/steps.py",
+                   "launch/train.py", "kernels/attention/flash_bwd.py",
+                   "kernels/rwkv/wkv_bwd.py"):
         assert module in names
     assert ROOT / "tools" / "replay_determinism.py" in PORT_FILES
     assert "torch" in _imported_roots(ROOT / "src" / "repro_torch" / "__init__.py")
@@ -92,6 +101,49 @@ def test_init_cache_defaults_to_the_card(cfg):
         api.init_cache(cfg, 2, 16)
     assert all(t.device.type == "cpu"
                for t in tensor_leaves(api.init_cache(cfg, 2, 16, device="cpu")))
+
+
+def test_train_defaults_to_the_card():
+    cfg = deepseek_7b.SMOKE
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; train() would run on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(cfg, steps=1, batch=2, seq=8, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--arch", "deepseek-7b", "--smoke", "--steps", "1"])
+    assert train(cfg, steps=1, batch=2, seq=8, verbose=False, device="cpu").steps == 1
+
+
+def _grad_inputs():
+    t = torch.zeros((1, 8, 2, 32), requires_grad=True)
+    u, s0 = torch.zeros((2, 32)), torch.zeros((1, 2, 32, 32))
+    valid = torch.ones(8, dtype=torch.bool)
+    lse = torch.zeros((1, 2, 8))
+    return {"K1 flash_attention": lambda: flash.flash_attention(t, t, t),
+            "K2 flash_decode": lambda: fd.flash_decode(t[:, :1], t, t, valid),
+            "K3 wkv6": lambda: wkv.wkv6(t, t, t, t, u, s0),
+            "K1-bwd": lambda: flash_bwd.flash_attention_bwd(t, t, t, t, t, lse),
+            "K3-bwd": lambda: wkv_bwd.wkv6_bwd(t, t, t, t, u, s0, t, s0)}
+
+
+@pytest.mark.parametrize("name", sorted(_grad_inputs()))
+def test_kernel_wrappers_refuse_an_input_that_requires_grad(name):
+    """A wrapper called outside its autograd Function would end the graph
+    at its ctypes launch and drop the gradient silently: it raises first,
+    on any device.  Without grad mode it goes on to its other checks (here:
+    the CPU tensors are refused)."""
+    call = _grad_inputs()[name]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        call()
+
+
+def test_rwkv_scan_refuses_an_in_place_state_under_autograd():
+    r = torch.zeros((1, 4, 2, 16), requires_grad=True)
+    state = torch.zeros((1, 2, 16, 16))
+    with pytest.raises(ValueError, match="out_state"):
+        dispatch.rwkv_scan(r, r, r, r, torch.zeros((2, 16)), state, out_state=state)
 
 
 def test_paged_pool_defaults_to_the_card():

@@ -281,7 +281,8 @@ def test_wkv6_split_plan_covers_every_column_once(hd):
 
 
 def test_build_targets_hopper_from_repo_sources():
-    assert build.sources() == ["flash_attention", "flash_decode", "wkv6"]
+    assert build.sources() == ["flash_attention", "flash_attention_bwd", "flash_decode", "wkv6",
+                               "wkv6_bwd"]
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
     for name in build.sources():
         path = build.target(name)
@@ -493,3 +494,100 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
     shifted = torch.empty(r.numel() + 1, device=cuda)[1:].view(r.shape).copy_(r)
     with pytest.raises(ValueError, match="aligned"):
         wkv.wkv6(shifted, k, v, w, u, s0)
+
+
+# ----------------------------------------------------------------------
+# on the card: the backward kernels (K1-bwd, K3-bwd) against their plain
+# versions, and the autograd Functions through them
+# ----------------------------------------------------------------------
+
+def _rel_max(got, want):
+    """Max abs error relative to the largest magnitude of ``want``."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kh,hd,window", [
+    (2, 512, 8, 8, 128, 0),     # deepseek's training shape, fewer heads
+    (2, 256, 6, 2, 64, 0),      # GQA 3:1 at head dim 64 (granite's ratio)
+    (1, 300, 4, 1, 128, 0),     # MQA, ragged S
+    (1, 256, 4, 4, 128, 64),    # window
+    (2, 70, 4, 4, 32, 0),       # head dim 32, ragged
+    (2, 333, 4, 2, 32, 100),    # ragged, window across tiles
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, s, h, kh, hd, window, dtype, tol):
+    from repro_torch.kernels.attention import flash_bwd
+    from repro_torch.kernels.attention.ref import (flash_attention_bwd_ref,
+                                                   flash_attention_fwd_ref)
+    q = _dev(_rand((b, s, h, hd), 1), dtype, cuda)
+    k = _dev(_rand((b, s, kh, hd), 2), dtype, cuda)
+    v = _dev(_rand((b, s, kh, hd), 3), dtype, cuda)
+    do = _dev(_rand((b, s, h, hd), 4), dtype, cuda)
+    o, lse = flash.flash_attention(q, k, v, window=window, with_lse=True)
+    _, want_lse = flash_attention_fwd_ref(q, k, v, window=window)
+    assert _rel_max(lse, want_lse) < GPU_F32_TOL
+    n = flash_bwd.launches
+    got = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    again = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    torch.cuda.synchronize()
+    assert flash_bwd.launches == n + 2
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, window=window)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)          # two passes, no atomics: bit-equal runs
+        assert _rel_max(g, w) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,hd,log_decay", [
+    (2, 512, 8, 64, -2.0),     # rwkv6's training shape, fewer heads
+    (2, 37, 4, 64, -2.0),      # T not a multiple of the chunk
+    (2, 100, 4, 64, 2.0),      # decays near 0
+    (2, 100, 4, 64, -6.0),     # decays near 1
+    (1, 50, 2, 128, -2.0),
+    (2, 40, 2, 32, -2.0),
+    (1, 33, 1, 16, -2.0),
+])
+def test_wkv6_bwd_kernel_matches_plain(cuda, b, t, h, hd, log_decay):
+    from repro_torch.kernels.rwkv import wkv_bwd
+    from repro_torch.kernels.rwkv.ref import wkv6_bwd_ref
+    ins = [torch.from_numpy(a).to(cuda) for a in _wkv_inputs(b, t, h, hd, log_decay=log_decay)]
+    do = torch.from_numpy(_rand((b, t, h, hd), 9)).to(cuda)
+    ds_t = torch.from_numpy(_rand((b, h, hd, hd), 10)).to(cuda)
+    n = wkv_bwd.launches
+    got = wkv_bwd.wkv6_bwd(*ins, do, ds_t)
+    again = wkv_bwd.wkv6_bwd(*ins, do, ds_t)
+    torch.cuda.synchronize()
+    assert wkv_bwd.launches == n + 2
+    want = wkv6_bwd_ref(*ins, do, ds_t)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _rel_max(g, w) < GPU_F32_TOL
+
+
+@pytest.mark.gpu
+def test_autograd_functions_launch_the_backward_kernels(cuda):
+    from repro_torch.kernels.attention import flash_bwd
+    from repro_torch.kernels.rwkv import wkv_bwd
+    q = _dev(_rand((2, 128, 4, 64), 1), torch.float32, cuda).requires_grad_()
+    k = _dev(_rand((2, 128, 2, 64), 2), torch.float32, cuda).requires_grad_()
+    v = _dev(_rand((2, 128, 2, 64), 3), torch.float32, cuda).requires_grad_()
+    do = _dev(_rand((2, 128, 4, 64), 4), torch.float32, cuda)
+    n = (flash.launches, flash_bwd.launches)
+    got = torch.autograd.grad(dispatch.flash_attention(q, k, v), (q, k, v), do)
+    assert (flash.launches, flash_bwd.launches) == (n[0] + 1, n[1] + 1)
+    want = torch.autograd.grad(flash_attention_ref(q, k, v), (q, k, v), do)
+    for g, w in zip(got, want):
+        assert _rel_max(g, w) < GPU_F32_TOL
+    ins = [torch.from_numpy(a).to(cuda).requires_grad_() for a in _wkv_inputs(2, 40, 2, 64)]
+    do = torch.from_numpy(_rand((2, 40, 2, 64), 9)).to(cuda)
+    n = (wkv.launches, wkv_bwd.launches)
+    o, _ = dispatch.rwkv_scan(*ins)
+    got = torch.autograd.grad(o, ins, do)
+    assert (wkv.launches, wkv_bwd.launches) == (n[0] + 1, n[1] + 1)
+    want = torch.autograd.grad(wkv6_ref(*ins)[0], ins, do)
+    for g, w in zip(got, want):
+        assert _rel_max(g, w) < GPU_F32_TOL
+    with pytest.raises(RuntimeError, match="requires grad"):
+        flash.flash_attention(q, k, v)
