@@ -74,7 +74,8 @@ and K3 with K3-bwd).  Phases, in order; any failure exits non-zero:
      PyTorch library call's time where there is one; the K1, K2 and K3
      wrappers' host time per call; K3 under narrower split plans than
      its own and at one head alone; and K1-bwd and K3-bwd at the training
-     shapes, K1-bwd beside the backward of the library's attention;
+     shapes (K1-bwd also at granite's GQA 24/8, head dim 64), K1-bwd beside
+     the backward of the library's attention;
   7. where a full-width prefill's and decode step's time goes, per path: host
      wall, device time by kernel (torch.profiler), the host's launch calls
      and each one's bound; the prefill and the decode step each replayed
@@ -1890,8 +1891,9 @@ def bwd_kernel_checks(dev) -> dict:
 
 def bwd_timings(dev) -> dict:
     """Phase 6 for the backward kernels at the training shapes: K1-bwd at
-    deepseek-7b's (4, 512, 32, 128) bf16 causal and K3-bwd at rwkv6-1.6b's
-    (4, 512, 32, 64) float32, by CUDA events and profiler device time,
+    deepseek-7b's (4, 512, 32, 128) bf16 causal and at granite's GQA 24/8,
+    head dim 64, (2, 512), and K3-bwd at rwkv6-1.6b's (4, 512, 32, 64)
+    float32, by CUDA events and profiler device time,
     beside the bound, the plain version's time and, for K1-bwd, the library
     call's: the backward of ``F.scaled_dot_product_attention`` (its forward
     run once per input set, outside the timing; timed only, never used by
@@ -1914,25 +1916,28 @@ def bwd_timings(dev) -> dict:
                     library_device_ms=None if library is None else device_ms(library, sets),
                     bound=bound_)
 
-    b, s, h, hd, dt = 4, 512, 32, 128, torch.bfloat16
+    dt = torch.bfloat16
+    for key, (b, s, h, kh, hd) in (("flash_attention_bwd", (4, 512, 32, 32, 128)),
+                                   ("flash_attention_bwd granite", (2, 512, 24, 8, 64))):
+        def k1_set(b=b, s=s, h=h, kh=kh, hd=hd):
+            q, do = (rand((b, s, h, hd), dt, gen, dev) for _ in range(2))
+            k, v = (rand((b, s, kh, hd), dt, gen, dev) for _ in range(2))
+            o, lse = flash.flash_attention(q, k, v, with_lse=True)
+            lib = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+            lib_o = F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=h != kh)
+            return q, k, v, o, do, lse, (lib_o, lib, do.transpose(1, 2))
 
-    def k1_set():
-        q, k, v, do = (rand((b, s, h, hd), dt, gen, dev) for _ in range(4))
-        o, lse = flash.flash_attention(q, k, v, with_lse=True)
-        lib = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
-        lib_o = F.scaled_dot_product_attention(*lib, is_causal=True)
-        return q, k, v, o, do, lse, (lib_o, lib, do.transpose(1, 2))
-
-    # q, k, v, o, dO read and dq, dk, dv written (bf16), the lse read; five
-    # products over the causal pairs: QK^T, dO V^T, P^T dO, dS K, dS^T Q
-    nbytes = 8 * b * s * h * hd * 2 + b * h * s * 4
-    flops = 5 * 2 * b * h * (s * (s + 1) // 2) * hd
-    out["flash_attention_bwd"] = timed(
-        f"q/k/v/o/dO {(b, s, h, hd)} bf16 causal",
-        lambda q, k, v, o, do, lse, _: flash_bwd.flash_attention_bwd(q, k, v, o, do, lse),
-        lambda q, k, v, o, do, lse, _: flash_attention_bwd_ref(q, k, v, o, do, lse),
-        lambda *a: torch.autograd.grad(a[-1][0], a[-1][1], a[-1][2], retain_graph=True),
-        cold_copies(k1_set, nbytes), bound(nbytes, flops, dt))
+        # q, o, dO read and dq written, k, v read and dk, dv written (bf16),
+        # the lse read; five products over the causal pairs of every query
+        # head: QK^T, dO V^T, P^T dO, dS K, dS^T Q
+        nbytes = (4 * h + 4 * kh) * b * s * hd * 2 + b * h * s * 4
+        flops = 5 * 2 * b * h * (s * (s + 1) // 2) * hd
+        out[key] = timed(
+            f"q/o/dO {(b, s, h, hd)}, k/v {kh} heads, bf16 causal",
+            lambda q, k, v, o, do, lse, _: flash_bwd.flash_attention_bwd(q, k, v, o, do, lse),
+            lambda q, k, v, o, do, lse, _: flash_attention_bwd_ref(q, k, v, o, do, lse),
+            lambda *a: torch.autograd.grad(a[-1][0], a[-1][1], a[-1][2], retain_graph=True),
+            cold_copies(k1_set, nbytes), bound(nbytes, flops, dt))
 
     b, t, h, hd = 4, 512, 32, 64
     f32 = torch.float32

@@ -1,7 +1,8 @@
 // Helpers shared by the kernels of the port: the reference's finite mask
 // value and float32 <-> storage type conversions (K1 flash_attention.cu, K2
-// flash_decode.cu), and 16-byte asynchronous copies to shared memory (K1,
-// K3 wkv6.cu).
+// flash_decode.cu), asynchronous copies to shared memory (K1, K1-bwd, K3
+// wkv6.cu, K3-bwd), and the bf16 tensor-core fragments of K1 and K1-bwd
+// (ldmatrix and mma.sync m16n8k16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,10 +33,47 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// 4-byte asynchronous copy to shared memory, for rows of any alignment;
+// src_bytes 0 writes a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
 // wait until at most N of this thread's committed groups are still in flight
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// four 8x8 bf16 matrices; lane l addresses row l%8 of matrix l/8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+}
+
+// d += a b on one 16x8x16 tile: bf16 operands, float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// mma fragments (m16n8k16): lane l holds, of a 16x8 accumulator tile, rows
+// l/4 and l/4+8 at columns 2(l%4) and 2(l%4)+1, as c[0..1] and c[2..3]; of
+// the 16x16 A tile the same rows at columns 2(l%4)+{0,1} and +8.  So the
+// accumulators of two neighbouring 16x8 tiles, rounded to bf16 and packed,
+// are the A operand of a product over their 16 columns.
 
 }  // namespace repro

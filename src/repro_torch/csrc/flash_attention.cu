@@ -64,8 +64,11 @@ namespace {
 using repro::cp_async16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
+using repro::ldsm_x4;
+using repro::ldsm_x4_trans;
+using repro::mma_bf16;
 using repro::NEG;
-using repro::smem_u32;
+using repro::pack_bf16;
 using repro::store;
 using repro::to_f32;
 using bf16 = __nv_bfloat16;
@@ -252,34 +255,6 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * (BQ + 4 * BK) * (HD + PAD);
 }
 
-// four 8x8 bf16 matrices; lane l addresses row l%8 of matrix l/8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
-
-// d += a b on one 16x8x16 tile: bf16 operands, float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// mma fragments (m16n8k16): lane l holds, of a 16x8 accumulator tile, rows
-// l/4 and l/4+8 at columns 2(l%4) and 2(l%4)+1, as c[0..1] and c[2..3]; of
-// the 16x16 A tile the same rows at columns 2(l%4)+{0,1} and +8.
 template <int HD>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -38,9 +38,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         do: torch.Tensor, lse: torch.Tensor, *, window: int = 0):
     """q, o, do: (B,S,H,hd); k, v: (B,S,K,hd); lse: (B,H,S) float32, from
     K1's forward (``flash.flash_attention(..., with_lse=True)``).  All
-    contiguous on one CUDA device; q, k, v, o, do float32 or all bfloat16;
-    hd in (32, 64, 128).  Causal (+window).  -> (dq, dk, dv), dk and dv
-    summed over each kv head's query heads."""
+    contiguous on one CUDA device; q, k, v, o, do float32 or all bfloat16,
+    16-byte aligned; hd in (32, 64, 128).  Causal (+window).  -> (dq, dk,
+    dv), dk and dv summed over each kv head's query heads."""
     global launches
     build.refuse_grad("flash_attention_bwd", q, k, v, o, do)
     ins = (q, k, v, o, do, lse)
@@ -63,6 +63,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                          f"float32 {(b, h, s)}")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("flash_attention_bwd: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in ins[:5]):
+        raise ValueError("flash_attention_bwd: q, k, v, o, do must be 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv

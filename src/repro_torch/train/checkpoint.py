@@ -20,11 +20,13 @@ import torch
 
 
 def _flatten(tree) -> list:
+    """The leaves in ``jax.tree_util.tree_flatten``'s order; a ``None`` node
+    is no leaf there, so it is dropped here too."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
     if isinstance(tree, list):
         return [leaf for v in tree for leaf in _flatten(v)]
-    return [tree]
+    return [] if tree is None else [tree]
 
 
 def treedef(tree) -> str:
@@ -44,21 +46,20 @@ def _unflatten(like, leaves):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
     if isinstance(like, list):
         return [_unflatten(v, leaves) for v in like]
-    return next(leaves)
+    return None if like is None else next(leaves)
 
 
 def save(path: str, tree, *, step: int = 0, extra: dict | None = None) -> None:
-    """``tree``: dicts and lists of torch tensors or numpy arrays (None
-    leaves are kept as the reference keeps them)."""
+    """``tree``: dicts and lists of torch tensors or numpy arrays.  A
+    ``None`` node holds no array: it is named in ``treedef`` only, and ``n``,
+    ``dtypes`` and the ``a{i}`` names count the arrays, as the reference's
+    ``jax.tree_util.tree_flatten`` does."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     leaves = _flatten(tree)
     arrays = {}
     meta = {"step": step, "treedef": treedef(tree), "n": len(leaves), "dtypes": [],
             "extra": extra or {}}
     for i, leaf in enumerate(leaves):
-        if leaf is None:
-            meta["dtypes"].append(None)
-            continue
         if isinstance(leaf, torch.Tensor):
             t = leaf.detach().cpu().contiguous()
             if t.dtype == torch.bfloat16:
@@ -77,7 +78,8 @@ def save(path: str, tree, *, step: int = 0, extra: dict | None = None) -> None:
 
 def restore(path: str, like_tree, *, device="cpu"):
     """Restore into the structure of ``like_tree`` (its leaves are only
-    counted) as torch tensors on ``device``.  -> (tree, step, extra)."""
+    counted; its ``None`` nodes stay ``None``) as torch tensors on
+    ``device``.  -> (tree, step, extra)."""
     with open(path + ".json") as f:
         meta = json.load(f)
     data = np.load(path + ".npz")
@@ -86,9 +88,6 @@ def restore(path: str, like_tree, *, device="cpu"):
         raise ValueError(f"{path}: {meta['n']} leaves, the tree to restore into has {n}")
     out = []
     for i, dt in enumerate(meta["dtypes"]):
-        if dt is None:
-            out.append(None)
-            continue
         arr = data[f"a{i}"]
         t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) if dt == "bfloat16"
              else torch.from_numpy(arr))

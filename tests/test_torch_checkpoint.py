@@ -95,3 +95,56 @@ def test_train_checkpoints_in_the_reference_format(tmp_path):
     port, _, _ = checkpoint.restore(path, like)
     for g, w in zip(jax.tree_util.tree_leaves(restored), checkpoint._flatten(port)):
         np.testing.assert_array_equal(np.asarray(g), w.numpy())
+
+
+def _none_trees():
+    """Trees with ``None`` nodes, as numpy leaves: one at the top and one
+    nested, with ``None`` inside a list and a dict."""
+    return [{"a": None, "b": np.ones(2, np.float32), "c": np.zeros(3, np.float32)},
+            {"v": np.arange(4, dtype=np.int32),
+             "w": None,
+             "x": [np.full((2, 2), 2.5, np.float32), None,
+                   {"y": np.arange(3, dtype=np.float32), "z": None}]}]
+
+
+def _names(path) -> list:
+    return sorted(np.load(path + ".npz").files)
+
+
+@pytest.mark.parametrize("case", [0, 1])
+def test_a_reference_checkpoint_with_none_nodes_restores_in_the_port(tmp_path, case):
+    tree = _none_trees()[case]
+    path = str(tmp_path / "ref")
+    ref_ckpt.save(path, jax.tree_util.tree_map(jnp.asarray, tree), step=2)
+    arrays = jax.tree_util.tree_leaves(tree)
+    meta = json.loads((tmp_path / "ref.json").read_text())
+    assert meta["n"] == len(arrays) and _names(path) == sorted(f"a{i}" for i in range(len(arrays)))
+    got, step, _ = checkpoint.restore(path, tree)
+    assert step == 2
+    assert checkpoint.treedef(got) == checkpoint.treedef(tree)
+    flat = checkpoint._flatten(got)
+    assert len(flat) == len(arrays)
+    for g, w in zip(flat, arrays):
+        assert isinstance(g, torch.Tensor)
+        np.testing.assert_array_equal(g.numpy(), w)
+        assert g.numpy().dtype == w.dtype
+
+
+@pytest.mark.parametrize("case", [0, 1])
+def test_a_port_checkpoint_with_none_nodes_restores_in_the_reference(tmp_path, case):
+    tree = _none_trees()[case]
+    path = str(tmp_path / "port")
+    checkpoint.save(path, jax.tree_util.tree_map(torch.from_numpy, tree), step=3)
+    ref_ckpt.save(str(tmp_path / "ref"), jax.tree_util.tree_map(jnp.asarray, tree), step=3)
+    port, ref = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("port", "ref"))
+    assert port == ref
+    arrays = jax.tree_util.tree_leaves(tree)
+    assert port["n"] == len(arrays) and _names(path) == _names(str(tmp_path / "ref"))
+    restored, step, _ = ref_ckpt.restore(path, tree)
+    assert step == 3
+    assert jax.tree_util.tree_structure(restored) == jax.tree_util.tree_structure(tree)
+    got = jax.tree_util.tree_leaves(restored)
+    assert len(got) == len(arrays)
+    for g, w in zip(got, arrays):
+        assert np.asarray(g).dtype == w.dtype
+        np.testing.assert_array_equal(np.asarray(g), w)

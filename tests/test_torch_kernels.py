@@ -280,6 +280,46 @@ def test_wkv6_split_plan_covers_every_column_once(hd):
         assert (p, cols, lanes) == (2, 32, 16)
 
 
+@pytest.mark.parametrize("hd", wkv.HEAD_DIMS)
+def test_wkv6_bwd_split_plan_covers_every_column_once(hd):
+    """For every B*H from 1 to 128, K3-bwd's plan puts each column of each
+    (b, h) in exactly one CTA (CTA id = bh * P + p, columns p*cols ..
+    p*cols + cols - 1), a head's CTAs in one cluster of at most 8, with
+    CTAs the kernel takes: 32 columns, or the whole narrower head, in whole
+    warps (or the whole head's 16 threads)."""
+    from repro_torch.kernels.rwkv import wkv_bwd
+    p, cols = wkv_bwd.split_plan(hd)
+    assert p * cols == hd and 1 <= p <= 8 and cols == min(hd, wkv_bwd.CTA_COLS)
+    n = wkv_bwd.threads(hd)
+    assert n == cols // wkv.COLS * hd // wkv.ROWS and (n % 32 == 0 or n == 16)
+    for heads in range(1, 129):
+        seen = np.zeros((heads, hd), np.int64)
+        for cta in range(heads * p):
+            seen[cta // p, cta % p * cols:(cta % p + 1) * cols] += 1
+        assert (seen == 1).all()
+    if hd == 64:   # rwkv6-1.6b's train step: B*H = 128 heads, 256 CTAs
+        assert (p, cols, n) == (2, 32, 128)
+
+
+@pytest.mark.parametrize("b,t,h,hd", [(4, 512, 32, 64), (2, 37, 4, 64), (1, 33, 1, 16),
+                                      (2, 100, 8, 128), (3, 16, 5, 32), (1, 1, 1, 64)])
+def test_wkv6_bwd_scratch_follows_from_the_plan(b, t, h, hd):
+    """The wrapper's scratch: a checkpoint slot of hd*hd floats per (b, h)
+    and chunk of 16 steps (the CTAs' threads hold hd*hd/16 blocks of 16),
+    and one du share per CTA thread, the thread summing row (p * threads +
+    tid) % hd, so that du_sum's hd/16 shares a row of each (b, h) cover its
+    threads once."""
+    from repro_torch.kernels.rwkv import wkv_bwd
+    p, cols = wkv_bwd.split_plan(hd)
+    n = wkv_bwd.threads(hd)
+    sizes = wkv_bwd.scratch_numel(b, t, h, hd)
+    assert sizes["ckpt"] == b * h * -(-t // wkv_bwd.CHUNK) * hd * hd
+    assert sizes["du_part"] == b * h * p * n == b * h * hd * hd // 16
+    rows = np.array([(q * n + tid) % hd for q in range(p) for tid in range(n)])
+    assert (np.bincount(rows, minlength=hd) == hd // 16).all()
+    assert all(rows[i + m * hd] == i for i in range(hd) for m in range(hd // 16))
+
+
 def test_build_targets_hopper_from_repo_sources():
     assert build.sources() == ["flash_attention", "flash_attention_bwd", "flash_decode", "wkv6",
                                "wkv6_bwd"]
@@ -514,6 +554,7 @@ def _rel_max(got, want):
     (1, 256, 4, 4, 128, 64),    # window
     (2, 70, 4, 4, 32, 0),       # head dim 32, ragged
     (2, 333, 4, 2, 32, 100),    # ragged, window across tiles
+    (1, 300, 8, 2, 128, 100),   # head dim 128, ragged, a window of no whole tiles
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
@@ -548,6 +589,9 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, s, h, kh, hd, window,
     (1, 50, 2, 128, -2.0),
     (2, 40, 2, 32, -2.0),
     (1, 33, 1, 16, -2.0),
+    (4, 40, 32, 64, -2.0),     # 128 heads, as in the train step
+    (1, 16, 2, 32, -2.0),      # one whole chunk
+    (2, 1, 2, 64, -2.0),       # one step
 ])
 def test_wkv6_bwd_kernel_matches_plain(cuda, b, t, h, hd, log_decay):
     from repro_torch.kernels.rwkv import wkv_bwd
