@@ -15,7 +15,9 @@ whisper-tiny (the encoder-decoder, no kernel); the paper's three CNN
 payloads at 224 px; the calibration that turns eight of them into the
 serverless simulator's numbers; and training (deepseek-7b at 20 of its
 layers and rwkv6-1.6b, at full width, through K1 with its backward K1-bwd
-and K3 with K3-bwd).  Phases, in order; any failure exits non-zero:
+and K3 with K3-bwd, and AdamW through K4 grad_sumsq and K5 adamw_update,
+each step a replay of its captured CUDA graph).  Phases, in order; any
+failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), and the seconds of
      ``import torch`` and of the first CUDA context in a fresh process;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each, all
@@ -36,7 +38,9 @@ and K3 with K3-bwd).  Phases, in order; any failure exits non-zero:
      updated in place at T=1 and T=100; the backward kernels K1-bwd and
      K3-bwd at the training shapes and around them (``bwd_kernel_checks``),
      the bf16 cases of K1-bwd row by row, with a dropped query or key tile
-     that must read above the bar;
+     that must read above the bar; K4 and K5 on bf16 and float32 leaves of
+     ragged sizes, one element and more than a kernel table holds
+     (``optim_kernel_checks``), each run twice bit for bit;
   4. each path in bf16 with seeded random weights: logits (and for rwkv the
      recurrent state) on the kernel path against the plain path; the
      uncaptured prefill's logits and the tokens of the uncaptured path (the
@@ -46,14 +50,15 @@ and K3 with K3-bwd).  Phases, in order; any failure exits non-zero:
      engine's ``generate`` and the ``ContinuousServer``, rwkv through
      ``generate`` and ``generate_stream``, granite-moe-3b-a800m through
      ``generate`` at the exact prompt length and the ``ContinuousServer``
-     (each admission an eager batch-1 prefill at the exact length) — with
+     (each admission a replay of the batch-1 graph of its exact length) — with
      every kernel's launch count set to 0 just before and read just after:
      the replayed prefill's logits must equal the uncaptured one's within
      the bf16 tolerance and the replayed tokens the uncaptured path's; K1's
      count, replays included, layers x prefills (replays, capture warm-ups
      and eager admissions), K2's layers x steps and K3's layers x (prefills
-     + steps); the server's drain split between admission and decode, and
-     the memory of its admission graphs.  granite's logits check runs a
+     + steps); the completion order the uncaptured server's; the server's
+     drain split between admission and decode (both drains: the first
+     pays the captures), and the memory of its admission graphs.  granite's logits check runs a
      float32 copy of its weights (the gate) and the bf16 weights (reported,
      with the share of expert routes the plain path would pick otherwise),
      the plain path taking the kernel path's routes, so that a routing flip
@@ -75,7 +80,10 @@ and K3 with K3-bwd).  Phases, in order; any failure exits non-zero:
      wrappers' host time per call; K3 under narrower split plans than
      its own and at one head alone; and K1-bwd and K3-bwd at the training
      shapes (K1-bwd also at granite's GQA 24/8, head dim 64), K1-bwd beside
-     the backward of the library's attention;
+     the backward of the library's attention; K4 and K5 at deepseek-7b's
+     20-layer leaves (``optim_timings``, run at the start of phase 10, when
+     the engines are freed) beside ``torch._foreach_norm`` and
+     ``torch.optim.AdamW(fused=True)``;
   7. where a full-width prefill's and decode step's time goes, per path: host
      wall, device time by kernel (torch.profiler), the host's launch calls
      and each one's bound; the prefill and the decode step each replayed
@@ -106,15 +114,23 @@ and K3 with K3-bwd).  Phases, in order; any failure exits non-zero:
      follows 6 and 7 because it frees the engines they use); llava is not
      calibrated (the reference's vlm calibration fails, and the port's
      follows it);
-  10. (after 8, every engine freed) training (``train_phase``): 8 AdamW
-     steps of deepseek-7b at full width and 20 of its 30 layers and of
-     rwkv6-1.6b at full width and depth (``tmix.wo`` redrawn), batch 4, seq
-     512, through ``make_train_step``: per step the loss, grad norm, lr,
-     host wall and K1/K1-bwd or K3/K3-bwd launches (layers x 2 and layers),
-     one step traced, the peak memory, the losses finite and falling; then
-     the gate: deepseek-7b, granite-moe-3b-a800m and rwkv6-1.6b at 2 layers
-     in float32, every gradient leaf and one AdamW step on the kernel path
-     against the plain path;
+  10. (after 8, every engine freed) phase 6's K4/K5 timings, then training
+     (``train_phase``): deepseek-7b at full width and 20 of its 30 layers
+     and rwkv6-1.6b at full width and depth (``tmix.wo`` redrawn), batch 4,
+     seq 512, each three times from one seed: ``make_train_step`` called
+     directly for 3 steps and for 8, then 8 steps through a ``TrainGraph``
+     (the warm-up step, the capture, 7 replays), as ``train()`` steps; per
+     step the loss, grad norm, lr, host wall and K1/K1-bwd or K3/K3-bwd
+     launches (layers x 2 and layers) and K4/K5 (once), step 3 traced
+     (device time, busy share, K4's and K5's time), the peak memory
+     allocated and reserved, the losses finite and falling; the two
+     uncaptured runs compared bit for bit, and the replayed run held bit
+     for bit to the uncaptured one (losses, and params after 3 steps in
+     host memory); then the gate: deepseek-7b, granite-moe-3b-a800m and
+     rwkv6-1.6b at 2 layers in float32, every gradient leaf and one AdamW
+     step on the kernel path against the plain path, one K4/K5 step against
+     the plain update, and the microbatched step (``num_micro=2``)
+     replayed against uncaptured;
   9. one JSON line with the kernels (launches summed over every path), then
      the last line ``{"ok": true, ...}``.
 """
@@ -216,6 +232,17 @@ GATE_REL_TOL = 1e-4
 # rounding noise of the comparison, where AdamW's first step (the sign of
 # the gradient) may go either way
 GATE_NOISE = 1e-2
+# phase 10: the params are copied to host memory after this many steps of
+# each run, and the replayed run held to the uncaptured one there
+TRAIN_SNAP = 3
+# K4 and K5 against their plain versions: float32 on both sides, sums (K4)
+# in another order and elementwise rounding (K5, fused multiply-adds): the
+# sum of squares and the moments within this relative error, float32 params
+# too; bf16 params within one unit in the last place (the float32 results
+# may straddle a rounding boundary)
+OPT_REL_TOL = 1e-6
+OPT_BF16_ULPS = 1
+OPT_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 CNN_ENTRY = {"kind", "warm_exec_s", "first_call_s"}
 LLM_ENTRY = {"kind", "warm_exec_s", "init_s", "compile_s", "package_mb", "tokens_per_s",
              "batch_curve"}
@@ -248,13 +275,15 @@ def time_ms(fn, arg_sets: list, iters: int = 60, warm: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, arg_sets: list, iters: int = 30, tries: int = 3) -> float | None:
+def device_ms(fn, arg_sets: list, iters: int = 30, tries: int = 3,
+              floor_ms: float = 0.0) -> float | None:
     """Device time per call of ``fn(*args)`` over the same rotation of
     inputs as ``time_ms``: every kernel the calls launch, summed from a
     torch.profiler trace, so host work between launches does not count.
-    A trace that holds no device time (the profiler drops one now and
-    then) is taken again, up to ``tries`` times; then None: not
-    measured."""
+    A trace that holds no device time, or less a call than ``floor_ms``
+    (a bound no run can beat: the profiler dropped some of its kernels,
+    as it does now and then), is taken again, up to ``tries`` times; then
+    None: not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -268,7 +297,7 @@ def device_ms(fn, arg_sets: list, iters: int = 30, tries: int = 3) -> float | No
             torch.cuda.synchronize()
         total_us = sum(e.self_device_time_total for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA)
-        if total_us > 0:
+        if total_us > 0 and total_us / 1e3 / iters >= floor_ms:
             return total_us / 1e3 / iters
     return None
 
@@ -525,6 +554,100 @@ def kernel_checks(dev) -> dict:
     return main_err
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two finite bf16 tensors in units of the
+    last place: the bit patterns mapped to integers in the order of the
+    values (a negative value to minus its magnitude's bits, so that -0 and
+    +0 meet and the step across 0 is one ulp of the smallest subnormal)."""
+    def order(x):
+        i = x.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((order(a) - order(b)).abs().max()) if a.numel() else 0
+
+
+def opt_leaves(sizes, dtype, gen, dev, scale: float = 1.0, square: bool = False) -> list:
+    out = []
+    for n in sizes:
+        t = torch.randn((n,), generator=gen, device=dev) * scale
+        out.append((t.square() if square else t).to(dtype))
+    return out
+
+
+def optim_case(sizes, pdt, gdt, gen, dev):
+    """Leaves of ``sizes``: params ``pdt``, grads ``gdt``, float32 moments
+    (nu >= 0), and the update's scalars (clip scale, lr, b1c, b2c)."""
+    return (opt_leaves(sizes, pdt, gen, dev), opt_leaves(sizes, gdt, gen, dev, 0.3),
+            opt_leaves(sizes, torch.float32, gen, dev, 0.01),
+            opt_leaves(sizes, torch.float32, gen, dev, 0.01, square=True),
+            torch.tensor([0.7, 3e-4, 0.271, 0.142625], device=dev))
+
+
+def check_update(name: str, got: tuple, want: tuple) -> float:
+    """K5's params and moments against the plain update's: moments and
+    float32 params within ``OPT_REL_TOL`` of their leaf's largest
+    magnitude, bf16 params within ``OPT_BF16_ULPS``.  -> the largest
+    absolute difference over params and moments."""
+    torch.cuda.synchronize()
+    worst_rel, ulps, err = 0.0, 0, 0.0
+    for kind, gs, ws in zip(("p", "mu", "nu"), got, want):
+        for g, w in zip(gs, ws):
+            if not g.numel():
+                continue
+            err = max(err, (g.float() - w.float()).abs().max().item())
+            if kind == "p" and g.dtype == torch.bfloat16:
+                ulps = max(ulps, bf16_ulps(g, w))
+            else:
+                scale = w.abs().max().item()
+                worst_rel = max(worst_rel, (g - w).abs().max().item() / max(scale, 1e-30))
+    ok = worst_rel <= OPT_REL_TOL and ulps <= OPT_BF16_ULPS and all(
+        bool(torch.isfinite(t).all()) for ts in got for t in ts)
+    log(f"[check] {name}: max_abs_err={err:.3e}, worst relative {worst_rel:.3e} (tol "
+        f"{OPT_REL_TOL:g}), bf16 params within {ulps} ulp (tol {OPT_BF16_ULPS}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def optim_kernel_checks(dev) -> None:
+    """Phase 3 for K4 and K5 against their plain versions on the same
+    leaves: bf16 and float32 params and gradients, ragged sizes (not
+    multiples of 8), a leaf of 1 element, an empty one, leaves wider than
+    a block's tile, and more leaves than one table of the kernel's
+    parameter holds (150 > 128 for K4, > 64 for K5); every case run twice,
+    bit for bit the same.  (Phase 6 checks them again at deepseek-7b's
+    20-layer leaves, the training step's.)"""
+    from repro_torch.kernels.optim import adamw
+    from repro_torch.kernels.optim.ref import adamw_update_ref, grad_sumsq_ref
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    base = [4096 * 11, 1, 7, 0, 300001, 64 * 129, 16385, 3]
+    many = [int(n) for n in torch.randint(1, 20000, (150,), generator=torch.Generator()
+                                          .manual_seed(22))]
+    for tag, sizes in (("ragged", base), ("150 leaves", many)):
+        for dt in (torch.bfloat16, torch.float32):
+            grads = opt_leaves(sizes, dt, gen, dev, 0.3)
+            got, again = adamw.grad_sumsq(grads), adamw.grad_sumsq(grads)
+            want = grad_sumsq_ref(grads)
+            check_rel(f"K4 grad_sumsq {tag} {len(sizes)} leaves {dt}", got, want, OPT_REL_TOL)
+            if not torch.equal(got, again):
+                raise SystemExit(f"K4 {tag} {dt}: two runs differ")
+        for pdt, gdt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                         (torch.bfloat16, torch.float32)):
+            p, g, mu, nu, scalars = optim_case(sizes, pdt, gdt, gen, dev)
+            runs = []
+            for fn in (adamw.adamw_update, adamw.adamw_update, adamw_update_ref):
+                leaves = [[t.clone() for t in ts] for ts in (p, mu, nu)]
+                fn(leaves[0], g, leaves[1], leaves[2], scalars, **OPT_HYPER)
+                runs.append(leaves)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for x, y in zip(runs[0], runs[1]) for a, b in zip(x, y)):
+                raise SystemExit(f"K5 {tag} {pdt}/{gdt}: two runs differ")
+            check_update(f"K5 adamw_update {tag} {len(sizes)} leaves, params {pdt}, grads "
+                         f"{gdt}", runs[0], runs[2])
+    log("[check] K4 and K5: every case's two runs bit for bit equal")
+
+
 def llava_decode_check(gen, dev) -> float:
     """Phase 3 for K2 at the llava engine's decode: a 3072 cache with 2944
     to 2975 valid positions per row (its first and last step), in bf16,
@@ -625,11 +748,10 @@ def uncaptured():
 def serve(srv, reqs) -> tuple[dict, float]:
     """Drain ``reqs`` through ``srv``: ({rid: tokens}, wall seconds).  The
     seconds spent in admission rounds (prefill, scatter and the first
-    tokens' copy to the host, which waits for them), their count and the
-    eager prefills among them (a MoE server's exact-length admissions) are
+    tokens' copy to the host, which waits for them) and their count are
     kept in ``srv.split``."""
-    admit, prefill = srv._admit, srv._prefill
-    split = {"admit_s": 0.0, "rounds": 0, "eager_prefills": 0}
+    admit = srv._admit
+    split = {"admit_s": 0.0, "rounds": 0}
 
     def timed_admit():
         t0 = time.perf_counter()
@@ -638,15 +760,10 @@ def serve(srv, reqs) -> tuple[dict, float]:
         split["admit_s"] += time.perf_counter() - t0
         split["rounds"] += admitted
 
-    def counted_prefill(*args):
-        split["eager_prefills"] += 1
-        return prefill(*args)
-
     for r in reqs:
         srv.submit(r)
     t0 = time.perf_counter()
-    with mock.patch.object(srv, "_admit", timed_admit), \
-            mock.patch.object(srv, "_prefill", counted_prefill):
+    with mock.patch.object(srv, "_admit", timed_admit):
         done = srv.run()
     torch.cuda.synchronize()
     srv.split = split
@@ -867,23 +984,28 @@ def engine_path(eng, cfg, want: dict, prompts, n_new: int = 32) -> dict:
 def main_path(eng, cfg, want: dict, prompts, reqs) -> dict:
     """Phase 4b: the engine (``engine_path``) and the continuous server (the
     8 requests twice) at full width, each prefill, admission and decode
-    step a replay of its captured graph, or, where the server admits by
-    an exact-length prefill (MoE), that prefill eager, held against the
-    uncaptured path's tokens.  Returns the engine's numbers with the
-    server's rate and its prefills (admission replays, capture warm-ups
-    and eager admissions) and decode steps added, and the server's drains
-    split between admission and decode."""
+    step a replay of its captured graph (a MoE server's admissions a
+    batch-1 graph per exact prompt length), held against the uncaptured
+    path's tokens and completion order.  Returns the engine's numbers with
+    the server's rate and its prefills (admission replays and capture
+    warm-ups) and decode steps added, and the server's drains split
+    between admission and decode (the first drain, which captures, too)."""
     from repro_torch.serving.continuous import ContinuousServer
 
     out = engine_path(eng, cfg, want, prompts)
     srv = ContinuousServer(cfg, slots=4, max_seq=512, params=eng.params)
     got, first_wall = serve(srv, reqs)
-    eager = srv.split["eager_prefills"]
+    first_split = dict(srv.split, wall_s=first_wall)
     same_tokens(f"{cfg.name} server, 8 requests on 4 slots", got, want["server"])
+    if list(got) != list(want["server"]):
+        raise SystemExit(f"{cfg.name} server: completion order {list(got)}, uncaptured "
+                         f"{list(want['server'])}")
     got, wall = serve(srv, reqs)
-    eager += srv.split["eager_prefills"]
     same_tokens(f"{cfg.name} server, the same 8 requests again on its graph", got,
                 want["server"])
+    if list(got) != list(want["server"]):
+        raise SystemExit(f"{cfg.name} server: completion order {list(got)} on its graphs, "
+                         f"uncaptured {list(want['server'])}")
     if any(len(got[r.rid]) != r.n_new for r in reqs):
         raise SystemExit(f"continuous server: completions {[len(t) for t in got.values()]}"
                          f" do not match the requests")
@@ -893,22 +1015,24 @@ def main_path(eng, cfg, want: dict, prompts, reqs) -> dict:
     log(f"[server] {cfg.name} 8 requests, prompts {min(len(r.prompt) for r in reqs)}-"
         f"{max(len(r.prompt) for r in reqs)} tokens, 4 slots, max_seq 512: {n_tok} tokens "
         f"in {wall:.3f} s ({n_tok / wall:.1f} tok/s; the first drain, which captures, "
-        f"{first_wall:.3f} s), {srv.steps} decode steps over both, {eager} eager "
-        "admission prefills")
-    admissions = [g for g, _ in srv._admissions.values()]
-    split = {"replayed": dict(srv.split, wall_s=wall), "uncaptured": want["server split"]}
+        f"{first_wall:.3f} s), {srv.steps} decode steps over both")
+    admissions = [g for g, _ in srv._admissions.values()] + list(srv._exact.values())
+    split = {"replayed": dict(srv.split, wall_s=wall), "first drain, capturing": first_split,
+             "uncaptured": want["server split"]}
     for name, sp in split.items():
         log(f"[server] {cfg.name} drain split, {name}: {sp['wall_s']:.3f} s = admission "
             f"{sp['admit_s']:.3f} s in {sp['rounds']} rounds (prefill, scatter and the "
-            f"first tokens) + decode and host bookkeeping {sp['wall_s'] - sp['admit_s']:.3f} s")
+            f"first tokens) + decode and host bookkeeping {sp['wall_s'] - sp['admit_s']:.3f} s"
+            + (" (PR 18, eager exact-length admissions: admission 0.342 of 0.697 s)"
+               if cfg.family == "moe" and name == "replayed" else ""))
     staging = sum(t.numel() * t.element_size() for t in (srv._staging or {}).values())
     log(f"[memory] {cfg.name} server admission graphs: buckets {sorted(srv._admissions)}, "
-        f"their shared pool {pool_mb(srv._pool):.1f} MB, the staging cache "
-        f"{staging / 1e6:.1f} MB; the engine's prefill graphs {sorted(eng._prefills)}, pool "
-        f"{pool_mb(eng._pool):.1f} MB")
+        f"exact lengths {sorted(srv._exact)}, their shared pool {pool_mb(srv._pool):.1f} MB, "
+        f"the staging cache {staging / 1e6:.1f} MB; the engine's prefill graphs "
+        f"{sorted(eng._prefills)}, pool {pool_mb(eng._pool):.1f} MB")
     out.update(server_tok_s=n_tok / wall, split=split,
                steps=out["steps"] + srv.steps + srv.compile_stats()["graphs"],
-               prefills=out["prefills"] + graph_runs(admissions) + eager)
+               prefills=out["prefills"] + graph_runs(admissions))
     return out
 
 
@@ -1959,27 +2083,162 @@ def bwd_timings(dev) -> dict:
     return out
 
 
-def train_run(cfg, dev, *, layers_note: str) -> dict:
-    """Phase 10's run: ``TRAIN_STEPS`` AdamW steps of ``cfg`` (seeded
-    weights; rwkv's ``tmix.wo`` redrawn, or its init of 0 would cut K3 out
-    of the gradient) through ``make_train_step`` at batch ``TRAIN_BATCH``,
-    seq ``TRAIN_SEQ``, lr ``TRAIN_LR`` (cosine, as ``train()`` sets it), on
-    ``LMBatches`` seed 0, remat on.  Per step the loss, grad norm, lr, host
-    wall and the kernels' launches, each held to its count; one step traced
-    (device time, busy share); the losses finite and falling; the peak
-    memory.  -> the run's numbers."""
+def optim_timings(dev) -> tuple[dict, dict]:
+    """Phase 6 for K4 and K5, run with phase 10 (every engine freed first:
+    the leaves take 58.6 GB): at deepseek-7b's 20-layer leaves, the
+    training step's (4.886 B bf16 params, bf16 gradients, float32 moments),
+    seeded.  First each leaf through K5 and through the plain update from
+    copies of its params and moments, held to the phase 3 bars, and K4
+    over every leaf against the plain sum; then each by CUDA events and
+    profiler device time over every leaf at once, beside its bound, its
+    plain version's time and, timed only and never used by the port, the
+    library calls that compute the same function: ``torch._foreach_norm``
+    and a sum of the squared norms for K4, ``torch.optim.AdamW(fused=True)
+    .step()`` over the same bf16 params and gradients for K5 (its moments
+    in the params' dtype: it takes no float32 moments beside bf16 params,
+    so it moves 14 bytes a param where K5 moves 22).  -> (the timing rows,
+    the largest error against the plain versions)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels.optim import adamw
+    from repro_torch.kernels.optim.ref import adamw_update_ref, grad_sumsq_ref
+    from repro_torch.models import api
+    from repro_torch.models.common import tensor_leaves
+
+    torch.cuda.empty_cache()
+    cfg = get("deepseek-7b").config.replace(num_layers=TRAIN_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    params = list(tensor_leaves(api.init_params(cfg, gen, dev)))
+    grads = [torch.randn(p.shape, generator=gen, device=dev, dtype=p.dtype) * 1e-3
+             for p in params]
+    mu = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3 for p in params]
+    nu = [torch.randn(p.shape, generator=gen, device=dev).square_().mul_(1e-6) for p in params]
+    scalars = torch.tensor([0.7, 3e-4, 0.271, 0.142625], device=dev)
+    n = sum(p.numel() for p in params)
+    log(f"[time] K4/K5 at {cfg.name}'s {TRAIN_LAYERS}-layer leaves: {len(params)} leaves, "
+        f"{n / 1e9:.3f} B params {params[0].dtype}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    errs = {}
+    got = adamw.grad_sumsq(grads)
+    errs["grad_sumsq"] = check_rel(f"K4 grad_sumsq, {len(grads)} leaves of {cfg.name}", got,
+                                   grad_sumsq_ref(grads), OPT_REL_TOL)
+    worst = 0.0
+    for i, (p, g, m, v) in enumerate(zip(params, grads, mu, nu)):
+        runs = []
+        for fn in (adamw.adamw_update, adamw_update_ref):
+            leaf = [p.clone()], [m.clone()], [v.clone()]
+            fn(leaf[0], [g], leaf[1], leaf[2], scalars, **OPT_HYPER)
+            runs.append(leaf)
+        worst = max(worst, check_update(f"K5 adamw_update, leaf {i} {tuple(p.shape)}",
+                                        *runs) if i < 3 or p.numel() > 4e8 else
+                    quiet_update_err(*runs))
+        del runs
+    errs["adamw_update"] = worst
+    log(f"[check] K5 adamw_update over every leaf of {cfg.name}: max_abs_err {worst:.3e} "
+        "(each leaf within the phase 3 bars)")
+
+    sumsq_bytes = sum(g.numel() * g.element_size() for g in grads)
+    update_bytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 16)
+                       for p, g in zip(params, grads))
+    out = {}
+
+    def sumsq_lib():
+        return torch.stack(torch._foreach_norm(grads)).float().square().sum()
+
+    # every device time held to the bound: below it the trace lost kernels
+    k4 = (lambda: adamw.grad_sumsq(grads), lambda: grad_sumsq_ref(grads))
+    k4_bound = bound(sumsq_bytes, 2 * n, torch.float32)
+    out["grad_sumsq"] = dict(
+        shape=f"{len(grads)} bf16 gradient leaves, {n / 1e9:.3f} B elements",
+        ms=time_ms(k4[0], [()], iters=20, warm=2),
+        device_ms=device_ms(k4[0], [()], iters=10, floor_ms=k4_bound[0]),
+        plain_ms=time_ms(k4[1], [()], iters=3, warm=1),
+        plain_device_ms=device_ms(k4[1], [()], iters=2, tries=1, floor_ms=k4_bound[0]),
+        library_ms=time_ms(sumsq_lib, [()], iters=10, warm=2),
+        library_device_ms=device_ms(sumsq_lib, [()], iters=5, floor_ms=k4_bound[0]),
+        bound=k4_bound)
+
+    def k5():
+        adamw.adamw_update(params, grads, mu, nu, scalars, **OPT_HYPER)
+
+    def k5_plain():
+        adamw_update_ref(params, grads, mu, nu, scalars, **OPT_HYPER)
+
+    # per element: the clip scale 1, mu 3, nu 4, the corrections, sqrt, eps
+    # and the quotient 5, the decay 2, the step 2
+    k5_bound = bound(update_bytes, 17 * n, torch.float32)
+    row = dict(shape=f"{len(params)} leaves, {n / 1e9:.3f} B bf16 params, bf16 gradients, "
+               "float32 moments", ms=time_ms(k5, [()], iters=20, warm=2),
+               device_ms=device_ms(k5, [()], iters=10, floor_ms=k5_bound[0]),
+               plain_ms=time_ms(k5_plain, [()], iters=3, warm=1),
+               plain_device_ms=device_ms(k5_plain, [()], iters=2, tries=1,
+                                         floor_ms=k5_bound[0]),
+               bound=k5_bound)
+    del mu, nu
+    torch.cuda.empty_cache()
+    for p, g in zip(params, grads):
+        p.requires_grad_(True)
+        p.grad = g
+    lib = torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                            fused=True)
+    # (the library's moments are bf16: its own bound is 14 bytes a param)
+    row.update(library_ms=time_ms(lib.step, [()], iters=10, warm=2),
+               library_device_ms=device_ms(lib.step, [()], iters=5,
+                                           floor_ms=14 * n / HBM_BYTES_PER_S * 1e3))
+    out["adamw_update"] = row
+    log(f"[memory] K4/K5 timings: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    del lib, params, grads
+    torch.cuda.empty_cache()
+    return out, errs
+
+
+def quiet_update_err(got: tuple, want: tuple) -> float:
+    """``check_update`` without its line, for the many leaves of one model."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for kind, gs, ws in zip(("p", "mu", "nu"), got, want):
+        for g, w in zip(gs, ws):
+            err = max(err, (g.float() - w.float()).abs().max().item())
+            if kind == "p" and g.dtype == torch.bfloat16:
+                bad = bf16_ulps(g, w) > OPT_BF16_ULPS
+            else:
+                bad = (g - w).abs().max().item() > OPT_REL_TOL * max(w.abs().max().item(), 1e-30)
+            if bad or not torch.isfinite(g).all():
+                raise SystemExit(f"K5: a leaf of {g.numel()} elements disagrees with the plain "
+                                 "update")
+    return err
+
+
+def train_run(cfg, dev, *, layers_note: str, captured: bool, steps: int = TRAIN_STEPS,
+              traced: bool = True) -> dict:
+    """Phase 10's run: ``steps`` AdamW steps of ``cfg`` (seeded weights;
+    rwkv's ``tmix.wo`` redrawn, or its init of 0 would cut K3 out of the
+    gradient) at batch ``TRAIN_BATCH``, seq ``TRAIN_SEQ``, lr ``TRAIN_LR``
+    (cosine, as ``train()`` sets it), on ``LMBatches`` seed 0, remat on:
+    ``captured``, through a ``TrainGraph`` as ``train()`` steps (step 1 the
+    capture's warm-up, then the capture; every later step a replay), else
+    ``make_train_step`` called directly.  Per step the loss, grad norm, lr,
+    host wall and the kernels' launches (K1 layers x 2, K1-bwd layers, or
+    K3 and K3-bwd; K4 and K5 once), each held to its count; step
+    ``TRAIN_PROFILED + 1`` traced (device time, busy share, K4's and K5's
+    share); the losses finite and falling; the peak memory allocated and
+    reserved; the params copied to host memory after ``TRAIN_SNAP`` steps.
+    -> the run's numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.optim import adamw
     from repro_torch.kernels.rwkv import wkv, wkv_bwd
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import api
-    from repro_torch.models.common import count_params
+    from repro_torch.models.common import count_params, tensor_leaves
+    from repro_torch.serving.graphs import TrainGraph
     from repro_torch.train.data import LMBatches
     from repro_torch.train.loop import batch_on
     from repro_torch.train.optimizer import AdamW, cosine_schedule
 
+    mode = "replayed" if captured else "uncaptured"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1993,7 +2252,7 @@ def train_run(cfg, dev, *, layers_note: str) -> dict:
     data = LMBatches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
     torch.cuda.synchronize()
     n_params = count_params(params)
-    log(f"[train] {cfg.name}: {cfg.num_layers} layers {layers_note}, d={cfg.d_model}, "
+    log(f"[train] {cfg.name} {mode}: {cfg.num_layers} layers {layers_note}, d={cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params {cfg.param_dtype}, float32 AdamW moments; seeded "
         f"init {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, lr "
         f"{TRAIN_LR:g}, remat on; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
@@ -2001,38 +2260,55 @@ def train_run(cfg, dev, *, layers_note: str) -> dict:
     kernels = ({"K1": flash, "K1-bwd": flash_bwd} if cfg.family != "ssm"
                else {"K3": wkv, "K3-bwd": wkv_bwd})
     want = {name: cfg.num_layers * (1 if "bwd" in name else 2) for name in kernels}
-    for mod in (flash, flash_bwd, wkv, wkv_bwd):
+    kernels.update({"K4": adamw.SUMSQ, "K5": adamw.UPDATE})
+    want.update({"K4": 1, "K5": 1})
+    for mod in (flash, flash_bwd, wkv, wkv_bwd, adamw.SUMSQ, adamw.UPDATE):
         mod.launches = 0
-    losses, walls, device = [], [], None
-    for i in range(TRAIN_STEPS):
+    graph, losses, walls, device, snap = None, [], [], None, None
+    for i in range(steps):
         batch = batch_on(data(i), cfg, dev)
         before = {name: mod.launches for name, mod in kernels.items()}
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        if i == TRAIN_PROFILED:
+
+        def one_step():
+            nonlocal graph
+            if not captured:
+                return step_fn(params, state, batch)[2]
+            if graph is None:
+                graph = TrainGraph(step_fn, params, state, batch, dev)
+            return graph.run(batch)
+
+        if traced and i == TRAIN_PROFILED:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                params, state, m = step_fn(params, state, batch)
+                m = one_step()
                 torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t1
             kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                           key=lambda e: -e.self_device_time_total)
             device = sum(e.self_device_time_total for e in kern) / 1e6
         else:
-            params, state, m = step_fn(params, state, batch)
+            m = one_step()
         loss = float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        if i != TRAIN_PROFILED:
+        if i and not (traced and i == TRAIN_PROFILED):
             walls.append(wall)
         losses.append(loss)
         counts = {name: mod.launches - before[name] for name, mod in kernels.items()}
-        log(f"[train] {cfg.name} step {i + 1}: loss {loss:.4f} grad_norm "
-            f"{float(m['grad_norm']):.4f} lr {m['lr']:.3e} host wall {wall * 1e3:.1f} ms"
-            f"{' (traced)' if i == TRAIN_PROFILED else ''}; launches {counts} (want {want})")
+        log(f"[train] {cfg.name} {mode} step {i + 1}: loss {loss:.4f} grad_norm "
+            f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3e} host wall {wall * 1e3:.1f} "
+            f"ms{' (traced)' if traced and i == TRAIN_PROFILED else ''}"
+            f"{' (warm-up and capture)' if captured and i == 0 else ''}; launches {counts} "
+            f"(want {want})")
         if counts != want:
-            raise SystemExit(f"{cfg.name} step {i + 1}: kernel launches {counts}, not {want}")
+            raise SystemExit(f"{cfg.name} {mode} step {i + 1}: kernel launches {counts}, not "
+                             f"{want}")
+        if i + 1 == TRAIN_SNAP:
+            snap = [p.detach().to("cpu") for p in tensor_leaves(params)]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    wall_ms = float(np.median(walls)) * 1e3
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    wall_ms = float(np.median(walls)) * 1e3 if walls else float("nan")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     # the step's bound: the layers' products 8 times (forward, the remat's
     # forward, backward twice) and the unembedding's 6 times a token at the
@@ -2042,34 +2318,91 @@ def train_run(cfg, dev, *, layers_note: str) -> dict:
     layer_params = n_params - count_params(params["embed"])
     flops = 8 * layer_params * tokens + 6 * count_params(head) * tokens
     bound_s = flops / PEAK_FLOPS[torch.bfloat16] + 22 * n_params / HBM_BYTES_PER_S
-    log(f"[train] {cfg.name} step bound {bound_s * 1e3:.1f} ms: {flops / 1e12:.1f} TFLOP at "
-        f"the bf16 peak {flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.1f} ms, then AdamW's "
-        f"{22 * n_params / 1e9:.1f} GB {22 * n_params / HBM_BYTES_PER_S * 1e3:.1f} ms")
     if device:
-        log(f"[train] {cfg.name} step {TRAIN_PROFILED + 1} by kernel (device ms, launches):")
+        log(f"[train] {cfg.name} {mode} step bound {bound_s * 1e3:.1f} ms: {flops / 1e12:.1f} "
+            f"TFLOP at the bf16 peak {flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.1f} ms, then "
+            f"AdamW's {22 * n_params / 1e9:.1f} GB {22 * n_params / HBM_BYTES_PER_S * 1e3:.1f} "
+            "ms")
+        log(f"[train] {cfg.name} {mode} step {TRAIN_PROFILED + 1} by kernel (device ms, "
+            "launches):")
         for e in kern[:12]:
             log(f"[train]   {e.self_device_time_total / 1e3:9.3f}  {e.count:6d}  {e.key[:90]}")
-        for label, keys in (("K1", ("flash_fwd",)), ("K1-bwd", ("bwd_dot", "bwd_dkdv", "bwd_dq")),
-                            ("K3", ("wkv6_kernel",)), ("K3-bwd", ("wkv6_bwd_kernel", "du_sum")),
-                            ("products (nvjet, gemm)", ("nvjet", "gemm", "Gemm"))):
-            ms = sum(e.self_device_time_total for e in kern if any(k in e.key for k in keys))
-            if ms:
-                log(f"[train]   {label}: {ms / 1e3:.3f} ms, {ms / 1e3 / (device * 1e3):.3f} of "
-                    "the step's device time")
+    by_kernel = {}
+    for label, keys in (("K1", ("flash_fwd",)), ("K1-bwd", ("bwd_dot", "bwd_dkdv", "bwd_dq")),
+                        ("K3", ("wkv6_kernel",)), ("K3-bwd", ("wkv6_bwd_kernel", "du_sum")),
+                        ("K4", ("sumsq_tiles", "sumsq_final")), ("K5", ("adamw_update",)),
+                        ("products (nvjet, gemm)", ("nvjet", "gemm", "Gemm"))):
+        ms = sum(e.self_device_time_total for e in kern if any(k in e.key for k in keys)) \
+            if device else 0
+        if ms:
+            by_kernel[label] = ms / 1e3
+            log(f"[train]   {label}: {ms / 1e3:.3f} ms, {ms / 1e3 / (device * 1e3):.3f} of "
+                "the step's device time")
     busy = "not measured" if not device else (
         f"{device * 1e3:.1f} ms, busy share {device * 1e3 / wall_ms:.3f} of the median step "
         f"wall ({device / prof_wall:.3f} of the traced step's own wall)")
-    log(f"[train] {cfg.name}: median step wall {wall_ms:.1f} ms ({tokens / wall_ms * 1e3:.0f} "
-        f"tokens/s); device time of step {TRAIN_PROFILED + 1} from its trace: {busy}; peak "
-        f"allocated {peak:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+    log(f"[train] {cfg.name} {mode}: median wall of steps 2-{steps} untraced {wall_ms:.1f} ms "
+        f"({tokens / wall_ms * 1e3:.0f} tokens/s); device time of step {TRAIN_PROFILED + 1} "
+        f"from its trace: {busy}; peak allocated {peak:.2f} GiB, reserved {reserved:.2f} GiB; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    # (a short run ends inside the first steps' rise of the loss: only finite)
+    if not all(math.isfinite(x) for x in losses) or \
+            steps == TRAIN_STEPS and not losses[-1] < losses[0]:
         raise SystemExit(f"{cfg.name} training: losses {losses} are not finite and falling")
     launches = {name: mod.launches for name, mod in kernels.items()}
-    del params, state, step_fn, m
+    del params, state, step_fn, m, graph
     torch.cuda.empty_cache()
     return {"losses": losses, "wall_ms": wall_ms, "device_ms": None if not device
-            else device * 1e3, "peak_gib": peak, "tokens_per_s": tokens / wall_ms * 1e3,
-            "launches": launches, "params": n_params, "bound_ms": bound_s * 1e3}
+            else device * 1e3, "busy": None if not device else device * 1e3 / wall_ms,
+            "peak_gib": peak, "reserved_gib": reserved, "tokens_per_s": tokens / wall_ms * 1e3,
+            "launches": launches, "params": n_params, "bound_ms": bound_s * 1e3,
+            "by_kernel": by_kernel, "snap": snap}
+
+
+def same_params(a: list, b: list) -> tuple[bool, float]:
+    """Whether two host copies of the params are bit for bit equal, and the
+    worst relative L2 of a leaf between them."""
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    worst = max(((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)).item()
+                for x, y in zip(a, b))
+    return equal, worst
+
+
+def train_model(cfg, dev, note: str) -> dict:
+    """Phase 10 for one model: the uncaptured step twice from the same seed
+    (``TRAIN_SNAP`` steps, then ``TRAIN_STEPS``), which shows whether it is
+    bit-reproducible, then the replayed step (``TRAIN_STEPS``), held bit for
+    bit to the uncaptured run (losses of every step, params after
+    ``TRAIN_SNAP`` steps), or, where the uncaptured step is itself not
+    reproducible, by the gate's ``GATE_REL_TOL``.  -> {"uncaptured": run,
+    "replayed": run}."""
+    first = train_run(cfg, dev, layers_note=note, captured=False, steps=TRAIN_SNAP,
+                      traced=False)
+    plain = train_run(cfg, dev, layers_note=note, captured=False)
+    replay = train_run(cfg, dev, layers_note=note, captured=True)
+    repro, worst = same_params(first["snap"], plain["snap"])
+    repro = repro and first["losses"] == plain["losses"][:TRAIN_SNAP]
+    log(f"[train] {cfg.name}: two uncaptured runs from one seed, {TRAIN_SNAP} steps: losses and "
+        f"params bit for bit equal: {repro} (worst leaf rel_l2 {worst:.3e})")
+    equal, worst = same_params(replay["snap"], plain["snap"])
+    losses_equal = replay["losses"] == plain["losses"]
+    log(f"[train] {cfg.name}: replayed against uncaptured: the {TRAIN_STEPS} losses bit for "
+        f"bit equal: {losses_equal}; params after {TRAIN_SNAP} steps bit for bit equal: "
+        f"{equal} (worst leaf rel_l2 {worst:.3e})")
+    if repro and not (equal and losses_equal):
+        raise SystemExit(f"{cfg.name}: the replayed train step differs from the uncaptured "
+                         "step, which is bit-reproducible")
+    if not repro:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(replay["losses"], plain["losses"]))
+        log(f"[train] {cfg.name}: the uncaptured step is not bit-reproducible, so the replay "
+            f"is held to the gate's bar {GATE_REL_TOL:g}: params worst rel_l2 {worst:.3e}, "
+            f"losses worst relative {rel:.3e}")
+        if not (worst <= GATE_REL_TOL and rel <= GATE_REL_TOL):
+            raise SystemExit(f"{cfg.name}: the replayed train step differs from the "
+                             "uncaptured step past the gate's bar")
+    for run in (first, plain, replay):
+        run.pop("snap")
+    return {"uncaptured": plain, "replayed": replay, "first": first}
 
 
 def grad_gate(cfg, dev) -> dict:
@@ -2090,6 +2423,8 @@ def grad_gate(cfg, dev) -> dict:
     from repro_torch.models import api
     from repro_torch.models.common import tensor_leaves
     from repro_torch.train.data import LMBatches
+    from repro_torch.kernels.optim import adamw
+    from repro_torch.kernels.optim.ref import adamw_update_ref, grad_sumsq_ref
     from repro_torch.train.loop import batch_on
     from repro_torch.train.optimizer import AdamW
 
@@ -2145,11 +2480,24 @@ def grad_gate(cfg, dev) -> dict:
     with torch.no_grad():
         for p in leaves:
             p.requires_grad_(False)
-        twin = [p.clone() for p in leaves]
+        twin, third = [p.clone() for p in leaves], [p.clone() for p in leaves]
         opt = AdamW(learning_rate=3e-4)
-        k_state, p_state = opt.init(leaves), opt.init(twin)
-        opt.update(leaves, list(k_grads), k_state)
+        k_state, p_state, q_state = opt.init(leaves), opt.init(twin), opt.init(third)
+        n4, n5 = adamw.SUMSQ.launches, adamw.UPDATE.launches
+        opt.update(leaves, list(k_grads), k_state)         # K4 and K5
         opt.update(twin, list(p_grads), p_state)
+        launches.update(grad_sumsq=adamw.SUMSQ.launches - n4,
+                        adamw_update=adamw.UPDATE.launches - n5)
+        # the kernel path's gradients once more, through the plain update
+        with mock.patch.object(dispatch, "grad_sumsq", grad_sumsq_ref), \
+                mock.patch.object(dispatch, "adamw_update", adamw_update_ref):
+            opt.update(third, list(k_grads), q_state)
+        if adamw.SUMSQ.launches - n4 != 2 or adamw.UPDATE.launches - n5 != 2:
+            raise SystemExit(f"{cfg.name} gate: K4 and K5 did not launch once an update")
+        check_update(f"{cfg.name} gate: one K4/K5 step against the plain update, the kernel "
+                     "path's gradients", (leaves, k_state["mu"], k_state["nu"]),
+                     (third, q_state["mu"], q_state["nu"]))
+        del third, q_state
         moments = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
                       for key in ("mu", "nu") for a, b in zip(k_state[key], p_state[key]))
         # AdamW's first step moves each element by lr * g / (|g| + eps): the
@@ -2175,32 +2523,97 @@ def grad_gate(cfg, dev) -> dict:
     return launches
 
 
+def micro_gate(cfg, dev) -> dict:
+    """Phase 10's gate for the microbatched step: ``cfg`` at 2 layers in
+    float32, batch 2, seq 256, ``num_micro=2``, three steps through a
+    ``TrainGraph`` (the warm-up, then two replays) against three steps of
+    ``make_train_step`` called directly, from one seed: losses and params
+    bit for bit, the backward kernel once a layer a microbatch and K4 and
+    K5 once a step, replays included.  -> the kernels' launches."""
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.optim import adamw
+    from repro_torch.kernels.rwkv import wkv, wkv_bwd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.models.common import tensor_leaves
+    from repro_torch.serving.graphs import TrainGraph
+    from repro_torch.train.data import LMBatches
+    from repro_torch.train.loop import batch_on
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+    cfg = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
+    data = LMBatches(cfg.vocab_size, 2, 256, seed=5)
+    mods = {"flash_attention": flash, "flash_attention_bwd": flash_bwd, "wkv6": wkv,
+            "wkv6_bwd": wkv_bwd, "grad_sumsq": adamw.SUMSQ, "adamw_update": adamw.UPDATE}
+    runs = []
+    for captured in (False, True):
+        params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(2), dev)
+        if cfg.family == "ssm":
+            redraw_wo(params, cfg, dev)
+        opt = AdamW(learning_rate=cosine_schedule(1e-3, warmup=1, total=3))
+        state = opt.init(params)
+        step_fn = make_train_step(cfg, opt, num_micro=2)
+        before = {k: m.launches for k, m in mods.items()}
+        graph, losses = None, []
+        for i in range(3):
+            batch = batch_on(data(i), cfg, dev)
+            if captured:
+                graph = graph or TrainGraph(step_fn, params, state, batch, dev)
+                m = graph.run(batch)
+            else:
+                m = step_fn(params, state, batch)[2]
+            losses.append(float(m["loss"]))
+        counts = {k: m.launches - before[k] for k, m in mods.items()}
+        runs.append((losses, [p.detach().clone() for p in tensor_leaves(params)], counts))
+        del params, state, step_fn, graph
+    (want_l, want_p, _), (got_l, got_p, counts) = runs
+    bwd = "wkv6_bwd" if cfg.family == "ssm" else "flash_attention_bwd"
+    equal = got_l == want_l and all(torch.equal(a, b) for a, b in zip(got_p, want_p))
+    log(f"[gate] {cfg.name} 2 layers float32, batch 2, seq 256, num_micro 2: three replayed "
+        f"TrainGraph steps against three uncaptured: losses {' '.join(f'{x:.6f}' for x in got_l)}"
+        f"; losses and params bit for bit equal: {equal}; launches {counts}")
+    if not equal or not all(math.isfinite(x) for x in got_l):
+        raise SystemExit(f"{cfg.name}: the replayed microbatched step differs from the "
+                         "uncaptured one")
+    if counts[bwd] != 3 * 2 * cfg.num_layers or counts["grad_sumsq"] != 3 \
+            or counts["adamw_update"] != 3:
+        raise SystemExit(f"{cfg.name} microbatched: kernel launches {counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def train_phase(dev) -> tuple:
-    """Phase 10, with every engine freed: deepseek-7b at full width and
-    ``TRAIN_LAYERS`` of its 30 layers (the cut one card forces: at 30 layers
-    the bf16 weights and gradients and the two float32 moments alone take
-    6.91 B x 12 bytes = 82.9 GB), and rwkv6-1.6b at full width and depth,
-    each through ``train_run``; then the float32 gate (``grad_gate``) for
-    deepseek-7b, granite-moe-3b-a800m and rwkv6-1.6b.  -> ({name: run},
-    the kernels' launches summed over the runs and the gate's kernel
-    paths)."""
+    """Phase 10, with every engine freed: first phase 6's K4/K5 timings
+    (``optim_timings``, which need the card's memory); then deepseek-7b at
+    full width and ``TRAIN_LAYERS`` of its 30 layers (the cut one card
+    forces: at 30 layers the bf16 weights and gradients and the two float32
+    moments alone take 6.91 B x 12 bytes = 82.9 GB), and rwkv6-1.6b at full
+    width and depth, each through ``train_model`` (uncaptured twice,
+    replayed once); then the float32 gate (``grad_gate``, ``micro_gate``)
+    for deepseek-7b, granite-moe-3b-a800m and rwkv6-1.6b.  -> ({name:
+    {mode: run}}, the kernels' launches summed over the runs and the gate's
+    kernel paths, K4's and K5's timing rows, their errors)."""
     from repro_torch.configs.registry import get
 
-    runs, launches = {}, {"flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 0,
-                          "wkv6_bwd": 0}
+    times, errs = optim_timings(dev)
+    runs = {}
+    launches = dict.fromkeys(("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd",
+                              "grad_sumsq", "adamw_update"), 0)
     names = {"K1": "flash_attention", "K1-bwd": "flash_attention_bwd", "K3": "wkv6",
-             "K3-bwd": "wkv6_bwd"}
+             "K3-bwd": "wkv6_bwd", "K4": "grad_sumsq", "K5": "adamw_update"}
     full = get("deepseek-7b").config
     for cfg, note in ((full.replace(num_layers=TRAIN_LAYERS),
                        f"of its {full.num_layers} (the cut one card forces)"),
                       (get("rwkv6-1.6b").config, "(full depth)")):
-        runs[cfg.name] = run = train_run(cfg, dev, layers_note=note)
-        for name, n in run["launches"].items():
-            launches[names[name]] += n
+        runs[cfg.name] = train_model(cfg, dev, note)
+        for run in runs[cfg.name].values():
+            for name, n in run["launches"].items():
+                launches[names[name]] += n
     for arch in ("deepseek-7b", "granite-moe-3b-a800m", "rwkv6-1.6b"):
-        for name, n in grad_gate(get(arch).config, dev).items():
-            launches[name] += n
-    return runs, launches
+        for gate in (grad_gate, micro_gate):
+            for name, n in gate(get(arch).config, dev).items():
+                launches[name] += n
+    return runs, launches, times, errs
 
 
 def bootstrap_line() -> None:
@@ -2434,6 +2847,7 @@ def main() -> int:
 
     main_err = kernel_checks(dev)
     main_err.update(bwd_kernel_checks(dev))
+    optim_kernel_checks(dev)
 
     cfg = get("deepseek-7b").config
     t0 = time.perf_counter()
@@ -2520,9 +2934,17 @@ def main() -> int:
     wcfg = get("whisper-tiny").config
     e2e[wcfg.name], prefills[wcfg.name], steps[wcfg.name] = whisper_phase(wcfg, dev)
     calibration_phase(dev)
-    train_runs, tlaunches = train_phase(dev)
+    train_runs, tlaunches, otimes, oerrs = train_phase(dev)
     for name, n in tlaunches.items():
         launches[name] = launches.get(name, 0) + n
+    times.update(otimes)
+    main_err.update(oerrs)
+    for name, t in otimes.items():
+        bound_ms, bound_by = t["bound"]
+        log(f"[time] {name} at {t['shape']}: {t['ms']:.4f} ms (device {fmt_ms(t['device_ms'])}); "
+            f"bound {bound_ms:.4f} ms ({bound_by}); plain {t['plain_ms']:.4f} ms (device "
+            f"{fmt_ms(t['plain_device_ms'])}); library {t['library_ms']:.4f} ms (device "
+            f"{fmt_ms(t['library_device_ms'])})")
 
     meta = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/attention/flash.py:69"),
@@ -2534,7 +2956,12 @@ def main() -> int:
             "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                                     "src/repro/kernels/attention/flash.py:69"),
             "wkv6_bwd": ("src/repro_torch/csrc/wkv6_bwd.cu",
-                         "src/repro/kernels/rwkv/wkv.py:57")}
+                         "src/repro/kernels/rwkv/wkv.py:57"),
+            # no TPU kernel either: XLA fuses the reference's jitted AdamW,
+            # its global norm and its update
+            "grad_sumsq": ("src/repro_torch/csrc/adamw.cu", "src/repro/train/optimizer.py:30"),
+            "adamw_update": ("src/repro_torch/csrc/adamw.cu",
+                             "src/repro/train/optimizer.py:53")}
     rows = []
     for name, (source, replaces) in meta.items():
         t = times[name]
@@ -2549,11 +2976,21 @@ def main() -> int:
     log(f"[kernels] launches summed over the deepseek-7b, rwkv6-1.6b, granite-moe-3b-a800m, "
         f"mistral-nemo-12b and llava-next-mistral-7b paths, the training runs and the "
         f"gate's kernel paths: {launches}")
-    for name, r in train_runs.items():
-        log(f"[train] {name} full width: losses {' '.join(f'{x:.4f}' for x in r['losses'])}; "
-            f"median step wall {r['wall_ms']:.1f} ms (bound {r['bound_ms']:.1f}), "
-            f"{r['tokens_per_s']:.0f} tokens/s, device {fmt_ms(r['device_ms'])} a traced step, "
-            f"peak {r['peak_gib']:.2f} GiB ({card})")
+    pr21 = {"deepseek-7b": (467.3, 439.5, 0.941, 61.93, 4383),
+            "rwkv6-1.6b": (429.0, 226.6, 0.528, 20.95, 4774)}
+    for name, model in train_runs.items():
+        for mode in ("replayed", "uncaptured"):
+            r = model[mode]
+            k45 = ", ".join(f"{k} {r['by_kernel'][k]:.3f} ms" for k in ("K4", "K5")
+                            if k in r["by_kernel"])
+            log(f"[train] {name} full width, {mode}: losses "
+                f"{' '.join(f'{x:.4f}' for x in r['losses'])}; median step wall "
+                f"{r['wall_ms']:.1f} ms (bound {r['bound_ms']:.1f}), {r['tokens_per_s']:.0f} "
+                f"tokens/s, device {fmt_ms(r['device_ms'])} a traced step (busy "
+                f"{'not measured' if r['busy'] is None else format(r['busy'], '.3f')}; {k45}), "
+                f"peak allocated {r['peak_gib']:.2f} GiB, reserved {r['reserved_gib']:.2f} GiB; "
+                "PR 21's eager step: wall {:.1f} ms, device {:.1f} ms, busy {:.3f}, peak "
+                "{:.2f} GiB, {} tokens/s ({})".format(*pr21[name], card))
     for name, r in e2e.items():
         log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms (replayed; "
             f"logits within {r['prefill_err']:.3e} of the uncaptured prefill's), "

@@ -1,17 +1,23 @@
-"""The handler side of the serverless simulator's unit of deployment, as
-the calibration needs it: the ``Handler`` profile and the batch-efficiency
-curve helpers.
+"""The serverless simulator's unit of deployment, as the calibration and
+``launch/serve.py --serverless`` need it: the ``Handler`` profile, the
+batch-efficiency curve helpers, and the ``FunctionSpec`` with its memory
+tiers.
 
-A copy of ``repro.core.function``'s ``normalize_batch_curve``,
-``batch_rel_cost`` and ``Handler`` (same fields, same arithmetic), so that
-the port imports nothing of the reference.  ``FunctionSpec``, the providers
-and the simulator stay in ``repro.core``; a ``Handler`` built here carries
-the same numbers as one the reference builds from the same calibration.
+A copy of ``repro.core.function``'s ``MEMORY_TIERS``,
+``normalize_batch_curve``, ``batch_rel_cost``, ``Handler`` and
+``FunctionSpec`` (same fields, same arithmetic, same checks), so that the
+port imports nothing of the reference.  Of the providers only the
+``lambda`` profile is copied (``core/simulator.py``), the one the serve
+CLI deploys on; a ``Handler`` built here carries the same numbers as one
+the reference builds from the same calibration.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
+
+# AWS Lambda memory tiers (paper Table 1): 128..1536 MB in 64 MB steps
+MEMORY_TIERS = tuple(range(128, 1537, 64))
 
 
 # ----------------------------------------------------- batch-efficiency curve
@@ -89,3 +95,30 @@ class Handler:
     load_cpu_seconds: float = 0.0
     batch_curve: tuple = ()
     run: Optional[Callable] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FunctionSpec:
+    """A deployed serverless function: handler + declared memory size, on
+    the reference's default provider, ``lambda`` (the only one the port
+    copies), whose memory tiers and package cap it checks."""
+    handler: Handler
+    memory_mb: int = 1024
+
+    def __post_init__(self):
+        if self.memory_mb not in MEMORY_TIERS:
+            raise ValueError(f"memory {self.memory_mb} not a Lambda "
+                             f"tier (128..1536 step 64)")
+        if self.handler.package_mb > 512.0:
+            raise ValueError("deployment package exceeds Lambda's 512 "
+                             "MB ephemeral storage (paper §3.5 "
+                             "limitation)")
+        if self.memory_mb < self.handler.peak_memory_mb:
+            raise ValueError(
+                f"{self.handler.name}: peak working set "
+                f"{self.handler.peak_memory_mb:.0f} MB exceeds declared "
+                f"{self.memory_mb} MB (Lambda would OOM-kill)")
+
+    @property
+    def name(self) -> str:
+        return f"{self.handler.name}@{self.memory_mb}"

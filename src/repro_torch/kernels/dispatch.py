@@ -11,6 +11,10 @@ the WKV-6 scan go through ``torch.autograd.Function``s (``FlashAttention``,
 kernel and its backward kernel (K1 and K1-bwd, K3 and K3-bwd), on the CPU
 both plain versions.  Otherwise (serving, ``torch.inference_mode``, a
 CUDA-graph capture) they launch exactly the forward kernel, as before.
+
+AdamW's two passes dispatch the same way, by the device of the leaves: on
+the card K4 (``grad_sumsq``) and K5 (``adamw_update``), on the CPU the
+eager leaf-by-leaf loop they replace (``kernels/optim/ref.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ from repro_torch.kernels.attention.ref import (flash_attention_bwd_ref,
                                                flash_attention_fwd_ref, flash_attention_ref)
 from repro_torch.kernels.decode import flash_decode as fd
 from repro_torch.kernels.decode.ref import flash_decode_ref
+from repro_torch.kernels.optim import adamw
+from repro_torch.kernels.optim.ref import adamw_update_ref, grad_sumsq_ref
 from repro_torch.kernels.rwkv import wkv, wkv_bwd
 from repro_torch.kernels.rwkv.ref import wkv6_bwd_ref, wkv6_ref
 
@@ -83,6 +89,23 @@ def wkv6_bwd(r, k, v, w, u, s0, do, ds_t):
     if r.is_cuda:
         return wkv_bwd.wkv6_bwd(r, k, v, w, u, s0, do, ds_t)
     return wkv6_bwd_ref(r, k, v, w, u, s0, do, ds_t)
+
+
+def grad_sumsq(grads) -> torch.Tensor:
+    """The float32 sum of squares over every leaf of ``grads`` (a list), a
+    0-d tensor on their device."""
+    grads = list(grads)
+    if grads[0].is_cuda:
+        return adamw.grad_sumsq(grads)
+    return grad_sumsq_ref(grads)
+
+
+def adamw_update(params, grads, mu, nu, scalars, *, b1: float, b2: float, eps: float,
+                 weight_decay: float) -> None:
+    """One AdamW step over the leaf lists, in place on ``params``, ``mu``
+    and ``nu``; ``scalars``: the float32 (4,) clip scale, lr, b1c, b2c."""
+    fn = adamw.adamw_update if scalars.is_cuda else adamw_update_ref
+    fn(params, grads, mu, nu, scalars, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
 
 
 class FlashAttention(torch.autograd.Function):

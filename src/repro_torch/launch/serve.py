@@ -1,7 +1,7 @@
 """Serving launcher: batched generation over a request trace, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
-        --requests 8 [--smoke] [--device cpu]
+        --requests 8 [--smoke] [--device cpu] [--serverless]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --requests 8 [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
@@ -13,8 +13,13 @@ last two get the reference's zero frame or patch embeddings); at full width
 qwen2.5-32b fits one 80 GB card only alone, and qwen3-moe-235b-a22b and
 qwen1.5-110b fit none (their sharded paths are not ported).
 
-The counterpart of ``repro.launch.serve``; its ``--serverless`` run through
-the platform simulator is not ported yet (ROADMAP.md Queue 1).
+The counterpart of ``repro.launch.serve``.  ``--serverless`` then runs the
+paper's question on the measured engine, as the reference's flag does: a
+fresh engine measured (``measure_engine`` at ``--max-batch``, ``--prompt``
+and ``--n-new``), wrapped as a 1536 MB function (``llm_handler``), and a
+zero-jitter single-function simulation of ``warm_burst(n=10)``
+(``core/simulator.py``) prints the cold and the warm response time and
+their ratio.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ def main(argv=None):
     ap.add_argument("--max-wait-ms", type=float, default=20.0)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--serverless", action="store_true",
+                    help="also run the measured engine through the simulated platform")
     args = ap.parse_args(argv)
 
     from repro_torch.serving.batcher import Batcher, PendingRequest
@@ -77,6 +84,20 @@ def main(argv=None):
     print(f"[serve] {len(lat)} requests served ({toks_out} tokens); p50="
           f"{np.percentile(list(lat.values()), 50):.3f}s "
           f"max={max(lat.values()):.3f}s")
+
+    if args.serverless:
+        from repro_torch.core.function import FunctionSpec
+        from repro_torch.core.simulator import Simulator, warm_burst
+        from repro_torch.serving.handler import llm_handler, measure_engine
+        m = measure_engine(cfg, batch=args.max_batch, prompt=args.prompt,
+                           n_new=args.n_new, device=args.device)
+        fspec = FunctionSpec(handler=llm_handler(cfg, measured=m), memory_mb=1536)
+        recs = Simulator(fspec, jitter=0.0).run(warm_burst(n=10))
+        cold = [r for r in recs if r.cold][0]
+        warm = [r for r in recs if not r.cold][0]
+        print(f"[serve] serverless: cold={cold.response_s:.2f}s "
+              f"warm={warm.response_s:.3f}s "
+              f"(bimodality x{cold.response_s/warm.response_s:.1f})")
     return outs
 
 

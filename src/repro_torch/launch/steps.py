@@ -1,7 +1,11 @@
 """Step-function builders: the port's counterparts of the reference's
-``repro/launch/steps.py``.  A step runs eagerly (the reference jits it);
-the mesh arguments of the reference's sharded steps are refused until the
-sharded paths are ported (ROADMAP.md Queue 1, slice F)."""
+``repro/launch/steps.py``.  A step built here is the uncaptured function,
+as the reference's is before its caller jits it: ``train/loop.py::train``
+replays it as a CUDA graph (``serving/graphs.py::TrainGraph``), the
+counterpart of the reference's ``jax.jit``.  The train step syncs nothing
+with the host, so it can be captured.  The mesh arguments of the
+reference's sharded steps are refused until the sharded paths are ported
+(ROADMAP.md Queue 1, slice F)."""
 from __future__ import annotations
 
 import torch
@@ -30,8 +34,9 @@ def choose_microbatch(cfg: ModelConfig, global_batch: int, seq: int,
 def make_train_step(cfg: ModelConfig, opt: AdamW, *, num_micro: int = 1,
                     mesh=None, param_pspecs=None):
     """One optimizer step, ``train_step(params, opt_state, batch) -> (params,
-    opt_state, metrics)``, the params updated in place.  ``batch``: tensors
-    on the params' device.  With ``num_micro`` > 1 the batch is split into
+    opt_state, metrics)``, the params, the moments and the step count
+    updated in place, the metrics device tensors.  ``batch``: tensors on the
+    params' device.  With ``num_micro`` > 1 the batch is split into
     that many microbatches, whose gradients accumulate in float32 and are
     divided by ``num_micro``; the metrics are then ``xent`` the mean loss
     and ``aux`` 0, as in the reference."""

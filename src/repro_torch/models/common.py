@@ -238,7 +238,12 @@ def remat(fn: Callable, on: bool) -> Callable:
     ``nothing_saveable`` policy around each layer of its training scan."""
     if not on:
         return fn
-    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    # No training forward of the port draws random numbers (no dropout; the
+    # only draws are in the inits), so the recomputation needs no stashed
+    # RNG state, and stashing it (``torch.cuda.get_rng_state``) would not
+    # capture into a CUDA graph.
+    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                           preserve_rng_state=False)
 
 
 def tensor_leaves(params: Params):

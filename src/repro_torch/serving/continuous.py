@@ -22,13 +22,17 @@ cache that every bucket shares (a view of one buffer sized for ``max_seq``),
 and one eager scatter copies the admitted rows, and only those, into their
 slots, through a slot index held in a static device buffer.  A MoE config
 admits each request by its own exact-length prefill instead (pad tokens
-would change the experts' routing), batch 1 and eager, as the reference
-jits one per prompt length; the round's rows still go through one scatter.
-A vlm config is accepted, as the reference's server accepts it, and admits
-by the same exact-length prefill of tokens alone; so admitting a vlm request
-raises ``KeyError`` naming the missing patch embeddings, at the call where
-the reference raises it (its admission hands the vlm prefill no
-``patch_embeds`` either).  Greedy decoding.
+would change the experts' routing), as the reference jits one per prompt
+length: a batch-1 prefill graph per exact length, captured at its first use
+into the same pool, which prefills into batch-1 rows of its own and copies
+them into the staging cache's row of the request (a row index in a static
+device buffer), so that the requests of one round keep their rows; the
+round's rows still go through one scatter.  A vlm config is accepted, as
+the reference's server accepts it, and admits by the same exact-length
+prefill of tokens alone; so admitting a vlm request raises ``KeyError``
+naming the missing patch embeddings, at the call where the reference raises
+it (its admission hands the vlm prefill no ``patch_embeds`` either).
+Greedy decoding.
 """
 from __future__ import annotations
 
@@ -113,13 +117,17 @@ class ContinuousServer:
         self._step = DecodeGraph(slots, self.device,
                                  _advance(self.params, self.cache, self._active_dev, cfg))
         self._tok_dev, self._pos_dev = self._step.tok, self._step.pos
-        # admission: a prefill graph per bucket over one staging cache, in one
-        # memory pool (they never replay concurrently), and the slots that
-        # the admitted rows go to
+        # admission: a prefill graph per bucket over one staging cache, or
+        # (MoE, vlm) per exact length at batch 1, in one memory pool (they
+        # never replay concurrently), and the slots that the admitted rows go
+        # to; an exact-length graph writes the staging row held in _row_dev
         self._admissions: dict[int, tuple[PrefillGraph, dict]] = {}
+        self._exact: dict[int, PrefillGraph] = {}
         self._staging = None
+        self._rows = None
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         self._slots_dev = torch.zeros((slots,), dtype=torch.long, device=self.device)
+        self._row_dev = torch.zeros((1,), dtype=torch.long, device=self.device)
         self.out: dict[int, list] = {}
         self.queue: deque[Request] = deque()
         self._done: list[Completion] = []
@@ -127,25 +135,22 @@ class ContinuousServer:
         self._shapes = {"prefill": set(), "fused_step": set(), "scatter": set()}
 
     # ------------------------------------------------------------------
-    def _prefill(self, tokens: np.ndarray, last_pos, cache_len: int):
-        self._shapes["prefill"].add((tokens.shape, last_pos is None, cache_len))
-        toks = torch.as_tensor(tokens, device=self.device).long()
-        if last_pos is not None:
-            last_pos = torch.as_tensor(last_pos, device=self.device).long()
-        return api.prefill(self.params, {"tokens": toks}, self.cfg,
-                           cache_len=cache_len, last_pos=last_pos)
+    def _staged(self, length: int) -> dict:
+        """The staging cache at ``length`` positions: the staging buffer's
+        first (L, slots, length, K, hd) elements, made at the first call."""
+        if self._staging is None:
+            full = api.init_cache(self.cfg, self.slots, self.max_seq, device=self.device)
+            self._staging = {n: t.view(-1) for n, t in full.items()}
+        shape = (self.cfg.num_layers, self.slots, length) + self.cache["k"].shape[3:]
+        n = math.prod(shape)
+        return {name: t[:n].view(shape) for name, t in self._staging.items()}
 
     def _admission(self, bucket: int) -> tuple[PrefillGraph, dict]:
         """The admission prefill at the slot count and ``bucket``, captured
         at its first use, and the cache it writes: the staging buffer's
         first (L, slots, bucket, K, hd) elements."""
         if bucket not in self._admissions:
-            if self._staging is None:
-                full = api.init_cache(self.cfg, self.slots, self.max_seq, device=self.device)
-                self._staging = {n: t.view(-1) for n, t in full.items()}
-            shape = (self.cfg.num_layers, self.slots, bucket) + self.cache["k"].shape[3:]
-            n = math.prod(shape)
-            cache = {name: t[:n].view(shape) for name, t in self._staging.items()}
+            cache = self._staged(bucket)
             params, cfg = self.params, self.cfg
 
             def prefill(tokens, last):
@@ -158,6 +163,33 @@ class ContinuousServer:
             graph.capture()
             self._admissions[bucket] = graph, cache
         return self._admissions[bucket]
+
+    def _exact_admission(self, length: int) -> PrefillGraph:
+        """The batch-1 admission prefill at the exact ``length``, captured
+        at its first use into the server's pool: it prefills into batch-1
+        rows that every length shares, then copies them into the staging
+        cache (at ``max_seq`` positions) at the row that ``_row_dev`` holds
+        when it runs.  Its capture's warm-up writes that row too, so the
+        caller sets the row first."""
+        if length not in self._exact:
+            staging = self._staged(self.max_seq)
+            if self._rows is None:
+                self._rows = api.init_cache(self.cfg, 1, self.max_seq, device=self.device)
+            rows, row = self._rows, self._row_dev
+            params, cfg, max_seq = self.params, self.cfg, self.max_seq
+
+            def prefill(tokens, last):
+                # the exact prompt's last position is its last: no last_pos
+                logits, _ = api.prefill(params, {"tokens": tokens}, cfg, max_seq, cache=rows)
+                for name, t in staging.items():
+                    t.index_copy_(1, row, rows[name])
+                return logits
+
+            graph = PrefillGraph(1, length, cfg.vocab_size, cfg.cdt, self.device, prefill,
+                                 pool=self._pool)
+            graph.capture()
+            self._exact[length] = graph
+        return self._exact[length]
 
     def _scatter(self, rows: dict, idx: list):
         """Write admitted rows (L,m,s,K,hd) into slots ``idx`` in place, and
@@ -221,16 +253,18 @@ class ContinuousServer:
 
     def _prefill_exact(self, reqs):
         """Per-request exact-length prefills, for families whose pad tokens
-        would change real tokens (MoE routing), run eagerly (not captured:
-        a graph per prompt length is a follow-up, ROADMAP.md); the caches
-        still merge into one per-round scatter."""
-        logits, rows = [], []
-        for r in reqs:
-            lg, pc = self._prefill(np.asarray([r.prompt], np.int64), None, self.max_seq)
-            logits.append(lg)
-            rows.append(pc)
-        return (torch.cat(logits, dim=0),
-                {n: torch.cat([pc[n] for pc in rows], dim=1) for n in ("k", "v")})
+        would change real tokens (MoE routing): request j of the round
+        replays the graph of its prompt's length into the staging cache's
+        row j (each logits row cloned before the next replay); the round's
+        rows still merge into one scatter."""
+        logits = []
+        for j, r in enumerate(reqs):
+            self._shapes["prefill"].add(((1, len(r.prompt)), True, self.max_seq))
+            self._row_dev.fill_(j)              # outside the graph, before its capture
+            graph = self._exact_admission(len(r.prompt))
+            logits.append(graph.run(torch.as_tensor([r.prompt])).clone())
+        staging = self._staged(self.max_seq)
+        return torch.cat(logits, dim=0), {n: t[:, :len(reqs)] for n, t in staging.items()}
 
     def _admit(self):
         free = [s for s in range(self.slots) if not self.active[s]]
@@ -308,8 +342,10 @@ class ContinuousServer:
     def compile_stats(self) -> dict:
         """Distinct prefill shapes, chunk lengths and scatter shapes seen —
         the counterparts of the reference's jit-cache sizes — and the decode
-        step (``graphs``) and admission prefills (``prefill_graphs``)
-        captured into CUDA graphs (0 on the CPU)."""
+        step (``graphs``) and admission prefills (``prefill_graphs``, by
+        bucket and by exact length) captured into CUDA graphs (0 on the
+        CPU)."""
         return {**{k: len(v) for k, v in self._shapes.items()},
                 "graphs": int(self._step.captured),
-                "prefill_graphs": sum(g.captured for g, _ in self._admissions.values())}
+                "prefill_graphs": sum(g.captured for g, _ in self._admissions.values())
+                + sum(g.captured for g in self._exact.values())}

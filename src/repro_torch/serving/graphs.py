@@ -2,21 +2,23 @@
 counterpart of the reference's jits.  ``DecodeGraph`` is the jitted decode
 (``jax.jit`` of a scanned step with the cache donated,
 ``repro/serving/engine.py`` and ``continuous.py``), ``PrefillGraph`` the
-prefill jitted per prompt shape (``engine.py:59``, ``continuous.py:92``), and
+prefill jitted per prompt shape (``engine.py:59``, ``continuous.py:92``),
 ``ForwardGraph`` the jitted CNN forward that the calibration times
-(``repro/core/calibration.py:210``).
+(``repro/core/calibration.py:210``), and ``TrainGraph`` the jitted train
+step (``repro/train/loop.py:37``).
 
 Each wraps a step that reads and writes only tensors whose addresses never
-change: its own static buffers, the caller's (the server's ``active`` mask),
-and the cache, which every family updates in place.  On the card the step
-is warmed up once on a side stream (which builds the kernels' libraries and
-runs their one-time set-up calls, and lets cuDNN and cuBLAS pick their
-algorithms, outside the capture), captured into a ``torch.cuda.CUDAGraph``
-and then replayed: one host call a step in place of every launch of every
-layer.  On the CPU no graph exists, as no kernel does, and ``replay`` runs
-the same step eagerly through the same buffers.  A capture that fails
-raises; nothing falls back to the eager path.  A copy into a static buffer
-is made outside the graph, before the replay.
+change: its own static buffers, the caller's (the server's ``active`` mask;
+a train step's params, moments and step count), and the cache, which every
+family updates in place.  On the card the step is warmed up once on a side
+stream (which builds the kernels' libraries and runs their one-time set-up
+calls, and lets cuDNN and cuBLAS pick their algorithms, outside the
+capture), captured into a ``torch.cuda.CUDAGraph`` and then replayed: one
+host call a step in place of every launch of every layer.  On the CPU no
+graph exists, as no kernel does, and ``replay`` runs the same step eagerly
+through the same buffers.  A capture that fails raises; nothing falls back
+to the eager path.  A copy into a static buffer is made outside the graph,
+before the replay.
 
 The kernel wrappers count their launches at the call, which under capture
 reaches no card.  So the capture's increase of each count is taken back and
@@ -27,14 +29,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.attention import flash
+from repro_torch.kernels.attention import flash, flash_bwd
 from repro_torch.kernels.decode import flash_decode
-from repro_torch.kernels.rwkv import wkv
+from repro_torch.kernels.optim import adamw
+from repro_torch.kernels.rwkv import wkv, wkv_bwd
 
 # steps whose tokens the block holds before its row index wraps to 0; the
 # continuous server's chunks are at most this long
 BLOCK = 64
-COUNTED = (flash, flash_decode, wkv)   # the kernel wrappers' launch counts
+# the kernel wrappers' launch counts: K1, K2, K3, K1-bwd, K3-bwd, K4, K5
+COUNTED = (flash, flash_decode, wkv, flash_bwd, wkv_bwd, adamw.SUMSQ, adamw.UPDATE)
 
 
 class CapturedStep:
@@ -51,7 +55,7 @@ class CapturedStep:
         self.generator = generator
         self.pool = pool
         self.graph = None
-        self.added = {}   # kernel wrapper module -> launches one replay adds
+        self.added = {}   # kernel launch count (COUNTED) -> launches one replay adds
         self.replays = 0  # replays since construction (eager steps on the CPU)
 
     def step(self) -> None:
@@ -69,17 +73,22 @@ class CapturedStep:
             return
         keep = self.carry()
         saved = [t.clone() for t in keep]
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.step()
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.warm_up()
         for t, s in zip(keep, saved):
             t.copy_(s)
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         self.record(graph, torch.cuda.graph(graph, pool=self.pool))
+
+    def warm_up(self) -> None:
+        """One step, eagerly, on a side stream that the current stream
+        then waits for."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream(self.device).wait_stream(side)
 
     def record(self, graph, capturing) -> None:
         """Capture ``step`` into ``graph`` under the context ``capturing``;
@@ -218,3 +227,63 @@ class ForwardGraph(CapturedStep):
         self.images.copy_(images)
         self.replay()
         return self.logits
+
+
+class TrainGraph(CapturedStep):
+    """One train step at a fixed batch shape, the port's counterpart of the
+    reference's ``jax.jit(make_train_step(...))``: the static batch (each
+    key's shape and dtype fixed by the first batch) and the step's metrics
+    (0-d tensors).  The params, the optimizer's moments and its step count
+    are the caller's, updated in place by every step, so the graph reads
+    and writes them where they lie.
+
+    The capture's warm-up is a real step whose results stand: the first
+    step, run eagerly on a side stream.  The capture then runs nothing, and
+    every later step is a replay.  So nothing is carried back (a copy of
+    the params and moments would take as much memory again), and ``run``
+    returns the warm-up's metrics at its first call.  Between the warm-up
+    and the capture the allocator's cached blocks are released, so that
+    the graph's private pool can take that memory."""
+
+    def __init__(self, step_fn, params, opt_state, batch: dict, device):
+        """``step_fn(params, opt_state, batch) -> (params, opt_state,
+        metrics)``: ``launch/steps.py::make_train_step``'s step, which
+        updates ``params`` and ``opt_state`` in place and syncs nothing with
+        the host."""
+        super().__init__(device)
+        self.step_fn = step_fn
+        self.params, self.opt_state = params, opt_state
+        self.batch = {k: torch.zeros_like(v, device=self.device) for k, v in batch.items()}
+        self.metrics: dict = {}
+
+    def step(self) -> None:
+        _, _, metrics = self.step_fn(self.params, self.opt_state, self.batch)
+        if not self.metrics:      # the first step runs eagerly: the buffers are made
+            self.metrics = {k: torch.zeros_like(v) for k, v in metrics.items()}
+        for k, v in metrics.items():
+            self.metrics[k].copy_(v)
+
+    def capture(self) -> None:
+        """On the card, once: the warm-up step (which stands), the cached
+        blocks released, then the capture."""
+        if self.graph is not None or self.device.type != "cuda":
+            return
+        self.warm_up()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        self.record(graph, torch.cuda.graph(graph, pool=self.pool))
+
+    def run(self, batch: dict) -> dict:
+        """Copy ``batch`` into the static buffers, then one step: on the card
+        the capture's warm-up at the first call, a replay after it; on the
+        CPU (or uncaptured) the step itself.  -> the static metrics, valid
+        until the next run."""
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        if self.graph is None and self.device.type == "cuda":
+            self.capture()
+            if self.graph is not None:
+                return self.metrics
+        self.replay()
+        return self.metrics

@@ -1,6 +1,9 @@
 """Training driver: data -> train step -> metrics/checkpoints, as the
 reference's ``repro/train/loop.py``, on the card unless the caller passes
-``device="cpu"``."""
+``device="cpu"``.  The reference jits its step; here the step runs as a
+``TrainGraph`` per batch shape (``serving/graphs.py``): captured into a CUDA
+graph on the card and replayed, eager through the same buffers on the
+CPU."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +15,7 @@ from repro_torch import resolve_device, synchronize
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import api, convert
 from repro_torch.models.common import ModelConfig, count_params
+from repro_torch.serving.graphs import TrainGraph
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.data import LMBatches, modal_extras
 from repro_torch.train.optimizer import AdamW, cosine_schedule
@@ -43,7 +47,8 @@ def train(cfg: ModelConfig, *, steps: int = 100, batch: int = 8, seq: int = 64,
     """``steps`` AdamW steps (cosine schedule, warm-up a tenth of them) of
     seeded weights (``api.init_params``, torch's draws) on ``LMBatches``;
     a checkpoint of the params, in the reference's layout and format, every
-    ``steps // 2`` steps when ``ckpt_path`` is given."""
+    ``steps // 2`` steps when ``ckpt_path`` is given.  Each batch is copied
+    into the static buffers of its shape's ``TrainGraph``, which steps."""
     if mesh is not None:
         raise NotImplementedError("train: a mesh needs the sharded paths, which the port "
                                   "has not yet (ROADMAP.md Queue 1, slice F)")
@@ -54,11 +59,15 @@ def train(cfg: ModelConfig, *, steps: int = 100, batch: int = 8, seq: int = 64,
     step_fn = make_train_step(cfg, opt, num_micro=num_micro)
     data = LMBatches(cfg.vocab_size, batch, seq, seed=seed)
 
+    graphs: dict[tuple, TrainGraph] = {}
     losses = []
     t0 = time.perf_counter()
     for i in range(steps):
         b = batch_on({**data(i), **modal_extras(cfg, batch, seed=seed, step=i)}, cfg, dev)
-        params, opt_state, m = step_fn(params, opt_state, b)
+        key = tuple((k, tuple(v.shape)) for k, v in b.items())
+        if key not in graphs:
+            graphs[key] = TrainGraph(step_fn, params, opt_state, b, dev)
+        m = graphs[key].run(b)
         loss = float(m["loss"])
         losses.append(loss)
         if verbose and (i % log_every == 0 or i == steps - 1):

@@ -2,11 +2,19 @@
 reference's ``repro/train/optimizer.py`` defines them, on the port's trees.
 
 The moments are float32 whatever the param dtype, and the update runs in
-place on the port's tensors (the reference builds new trees): one leaf at a
-time, so its float32 temporaries, at most three of the largest leaf's size
-(about 1.7 GB each for deepseek-7b's 102400 x 4096 embedding), are the
-update's peak beyond the moments.  Nothing here waits for the device: the
-clip scale stays a device tensor and the learning rate a host float.
+place on the port's tensors (the reference builds new trees).  On the card
+the gradient norm is one pass of K4 (``grad_sumsq``) and the update one
+pass of K5 (``adamw_update``) over every leaf, the counterpart of XLA's
+fusion of the reference's jitted update; on the CPU both run as the eager
+leaf-by-leaf loop (``kernels/optim/ref.py``).  Dispatch is by device
+(``kernels/dispatch.py``).
+
+Nothing here waits for the host, and nothing that changes from step to step
+is a host number: the step count is a device int32 that the update
+advances, and the learning rate, the bias corrections and the clip scale
+are device tensors computed from it, as the reference computes them inside
+its jit.  So a step captured into a CUDA graph (``serving/graphs.py::
+TrainGraph``) replays with the current step's values.
 """
 from __future__ import annotations
 
@@ -16,25 +24,27 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels import dispatch
 from repro_torch.models.common import tensor_leaves
 
 
-def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable[[int], float]:
+def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
     """Linear warm-up to ``base_lr`` over ``warmup`` steps, then a cosine
-    decay to 0 at ``total``, in float32 as the reference computes it."""
-    def lr(step: int) -> float:
-        f = torch.float32
-        st = torch.tensor(step, dtype=f)
-        if step < warmup:
-            return float(base_lr * st / max(warmup, 1))
-        prog = torch.clamp((st - warmup) / max(total - warmup, 1), 0.0, 1.0)
-        return float(base_lr * 0.5 * (1.0 + torch.cos(torch.tensor(math.pi, dtype=f) * prog)))
+    decay to 0 at ``total``: ``lr(step)`` from a step count (a device int
+    tensor, or an int) to a float32 tensor on its device, computed as the
+    reference computes it."""
+    def lr(step) -> torch.Tensor:
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = base_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * 0.5 * (1.0 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, cos)
     return lr
 
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    return torch.sqrt(sum(g.float().square().sum() for g in tensor_leaves(grads)))
+    return torch.sqrt(dispatch.grad_sumsq(tensor_leaves(grads)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,31 +57,30 @@ class AdamW:
     clip_norm: float = 1.0
 
     def init(self, params) -> dict:
-        """Zero float32 moments beside every leaf, and the step count."""
-        zeros = [torch.zeros_like(p, dtype=torch.float32) for p in tensor_leaves(params)]
-        return {"mu": zeros, "nu": [torch.zeros_like(z) for z in zeros], "step": 0}
+        """Zero float32 moments beside every leaf, and the step count, a
+        device int32 0."""
+        leaves = list(tensor_leaves(params))
+        zeros = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        return {"mu": zeros, "nu": [torch.zeros_like(z) for z in zeros],
+                "step": torch.zeros((), dtype=torch.int32, device=leaves[0].device)}
 
     @torch.no_grad()
     def update(self, params, grads, state: dict):
         """One step over the leaves of ``params`` (updated in place, with the
-        moments of ``state``) from ``grads``, a tree or a list in the same
-        leaf order.  -> (params, state, {"grad_norm": device tensor, "lr"})."""
-        step = state["step"] + 1
+        moments of ``state``, and its step advanced in place) from
+        ``grads``, a tree or a list in the same leaf order.  -> (params,
+        state, {"grad_norm", "lr"}: device tensors)."""
+        step = state["step"].add_(1)
+        flat_p, flat_g = list(tensor_leaves(params)), list(tensor_leaves(grads))
+        dev = step.device
         lr = (self.learning_rate(step) if callable(self.learning_rate)
-              else float(self.learning_rate))
-        flat_g = list(tensor_leaves(grads))
+              else torch.full((), float(self.learning_rate), dtype=torch.float32, device=dev))
         gnorm = global_norm(flat_g)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-        b1c = 1.0 - float(torch.tensor(self.b1) ** step)
-        b2c = 1.0 - float(torch.tensor(self.b2) ** step)
-        for p, g, mu, nu in zip(tensor_leaves(params), flat_g, state["mu"], state["nu"]):
-            g32 = g.float() * scale
-            mu.mul_(self.b1).add_(g32, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).add_(g32.mul_(g32), alpha=1.0 - self.b2)
-            denom = torch.div(nu, b2c).sqrt_().add_(self.eps)
-            delta = torch.div(mu, b1c, out=g32).div_(denom)
-            p32 = denom.copy_(p)
-            delta.add_(p32, alpha=self.weight_decay)
-            p.copy_(p32.sub_(delta, alpha=lr))
-        state["step"] = step
+        stepf = step.to(torch.float32)
+        b1c = 1.0 - self.b1 ** stepf
+        b2c = 1.0 - self.b2 ** stepf
+        scalars = torch.stack([scale, lr, b1c, b2c])
+        dispatch.adamw_update(flat_p, flat_g, state["mu"], state["nu"], scalars, b1=self.b1,
+                              b2=self.b2, eps=self.eps, weight_decay=self.weight_decay)
         return params, state, {"grad_norm": gnorm, "lr": lr}

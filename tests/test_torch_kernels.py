@@ -321,8 +321,8 @@ def test_wkv6_bwd_scratch_follows_from_the_plan(b, t, h, hd):
 
 
 def test_build_targets_hopper_from_repo_sources():
-    assert build.sources() == ["flash_attention", "flash_attention_bwd", "flash_decode", "wkv6",
-                               "wkv6_bwd"]
+    assert build.sources() == ["adamw", "flash_attention", "flash_attention_bwd", "flash_decode",
+                               "wkv6", "wkv6_bwd"]
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
     for name in build.sources():
         path = build.target(name)

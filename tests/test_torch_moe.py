@@ -300,6 +300,45 @@ def test_continuous_server_equals_the_reference(ref, arch, n_req, slots, max_seq
     assert stats["prefill_graphs"] == stats["graphs"] == 0 and not srv._admissions
 
 
+def test_exact_admission_through_the_staging_rows_equals_the_reference(ref):
+    """granite's smoke config on 3 slots, the first round admitting two
+    requests of one length and one of another: each request replays the
+    batch-1 graph of its exact length (eager through its buffers on the
+    CPU) into its own staging row, so the admitted slots hold each prompt's
+    own prefill, and the completions, their order and steps in flight and
+    the shape counts equal the live reference's."""
+    arch = "granite-moe-3b-a800m"
+    cfg = _cfg(arch)
+    rng = np.random.default_rng(11)
+    reqs = [(i, rng.integers(0, 512, size=n).tolist(), k)
+            for i, (n, k) in enumerate([(9, 4), (9, 6), (5, 3), (9, 2), (12, 5), (5, 7)])]
+    r = ref.continuous.ContinuousServer(ref.archs[arch].smoke, slots=3, max_seq=48, seed=0)
+    params = from_reference(ref.jax.tree_util.tree_map(np.asarray, r.params), cfg, "cpu")
+    first = ContinuousServer(cfg, slots=3, max_seq=48, params=params, device="cpu")
+    for rid, prompt, n in reqs[:3]:
+        first.submit(Request(rid=rid, prompt=list(prompt), n_new=n))
+    first.prefill_pending()
+    for slot, (_, prompt, _) in enumerate(reqs[:3]):
+        _, want = api.prefill(params, {"tokens": torch.tensor([prompt])}, cfg, 48)
+        for name in ("k", "v"):
+            assert torch.equal(first.cache[name][:, slot], want[name][:, 0])
+    assert sorted(first._exact) == [5, 9] and first._exact[9].replays == 2
+
+    srv = ContinuousServer(cfg, slots=3, max_seq=48, params=params, device="cpu")
+    done = []
+    for server, cls in ((r, ref.continuous.Request), (srv, Request)):
+        for rid, prompt, n in reqs:
+            server.submit(cls(rid=rid, prompt=list(prompt), n_new=n))
+        done.append([(c.rid, c.tokens, c.steps_in_flight) for c in server.run()])
+    assert done[1] == done[0]
+    assert srv.steps == r.steps
+    stats, want = srv.compile_stats(), r.compile_stats()
+    assert {k: stats[k] for k in want} == want
+    assert sorted(srv._exact) == [5, 9, 12] == sorted({len(p) for _, p, _ in reqs})
+    assert sum(g.replays for g in srv._exact.values()) == len(reqs)
+    assert stats["prefill_graphs"] == 0 and not srv._admissions
+
+
 def test_serve_cli_serves_a_moe_arch_on_the_cpu(capsys):
     from repro_torch.launch import serve
     outs = serve.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--requests", "5",
@@ -361,8 +400,9 @@ def test_replayed_moe_engine_tokens_equal_the_uncaptured_path(cuda, temperature)
 
 @pytest.mark.gpu
 def test_moe_server_on_the_card_equals_the_uncaptured_one(cuda):
-    """Each admission an eager exact-length prefill (K1 once a layer a
-    request), the decode step replayed (K2 once a layer a step)."""
+    """Each admission a replay of the batch-1 graph of its exact length (K1
+    once a layer a request, once all are captured), the decode step
+    replayed (K2 once a layer a step)."""
     cfg = _cfg("granite-moe-3b-a800m")
     rng = np.random.default_rng(5)
     reqs = [(i, rng.integers(0, 512, size=int(rng.integers(4, 40))).tolist(),
@@ -382,5 +422,8 @@ def test_moe_server_on_the_card_equals_the_uncaptured_one(cuda):
     assert serve(srv) == want
     assert flash.launches - n1 == cfg.num_layers * len(reqs)
     assert fd.launches - n2 == cfg.num_layers * (srv.steps - steps)
-    assert srv.compile_stats()["graphs"] == 1 and srv.compile_stats()["prefill_graphs"] == 0
+    lengths = {len(p) for _, p, _ in reqs}
+    assert srv.compile_stats()["graphs"] == 1
+    assert srv.compile_stats()["prefill_graphs"] == len(srv._exact) == len(lengths)
+    assert plain.compile_stats()["prefill_graphs"] == 0
 

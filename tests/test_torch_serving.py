@@ -164,6 +164,8 @@ def test_continuous_exact_admission_matches_bucketed():
     reqs = [Request(rid=i, prompt=p, n_new=2) for i, (_, p, _) in
             enumerate(_cont_requests(3, seed=4))]
     b_logits, b_rows = srv._prefill_bucketed(reqs)
+    # both write the one staging cache, whose rows hold until the next round
+    b_logits, b_rows = b_logits.clone(), {n: t.clone() for n, t in b_rows.items()}
     e_logits, e_rows = srv._prefill_exact(reqs)
     torch.testing.assert_close(e_logits, b_logits, atol=1e-5, rtol=1e-5)
     assert e_rows["k"].shape[:3] == (CFG.num_layers, 3, srv.max_seq)
