@@ -39,8 +39,9 @@ failure exits non-zero:
      K3-bwd at the training shapes and around them (``bwd_kernel_checks``),
      the bf16 cases of K1-bwd row by row, with a dropped query or key tile
      that must read above the bar; K4 and K5 on bf16 and float32 leaves of
-     ragged sizes, one element and more than a kernel table holds
-     (``optim_kernel_checks``), each run twice bit for bit;
+     ragged sizes, one element, more than a kernel table holds, K5's tile
+     edges and zero gradients and moments (``optim_kernel_checks``), each
+     run twice bit for bit, K5 bit for bit the plain update;
   4. each path in bf16 with seeded random weights: logits (and for rwkv the
      recurrent state) on the kernel path against the plain path; the
      uncaptured prefill's logits and the tokens of the uncaptured path (the
@@ -83,7 +84,8 @@ failure exits non-zero:
      the backward of the library's attention; K4 and K5 at deepseek-7b's
      20-layer leaves (``optim_timings``, run at the start of phase 10, when
      the engines are freed) beside ``torch._foreach_norm`` and
-     ``torch.optim.AdamW(fused=True)``;
+     ``torch.optim.AdamW(fused=True)`` (and ``torch._fused_adamw_`` on
+     float32 moments, where it takes them), each with its rate in TB/s;
   7. where a full-width prefill's and decode step's time goes, per path: host
      wall, device time by kernel (torch.profiler), the host's launch calls
      and each one's bound; the prefill and the decode step each replayed
@@ -236,10 +238,11 @@ GATE_NOISE = 1e-2
 # each run, and the replayed run held to the uncaptured one there
 TRAIN_SNAP = 3
 # K4 and K5 against their plain versions: float32 on both sides, sums (K4)
-# in another order and elementwise rounding (K5, fused multiply-adds): the
-# sum of squares and the moments within this relative error, float32 params
-# too; bf16 params within one unit in the last place (the float32 results
-# may straddle a rounding boundary)
+# in another order: the sum of squares and the moments within this relative
+# error, float32 params too; bf16 params within one unit in the last place.
+# K5 rounds every operation on its own, as the plain version does, so where
+# K5 alone is held to it (phases 3 and 6) it must also equal it bit for bit;
+# one step of the gate also goes through K4's sum, whose order differs
 OPT_REL_TOL = 1e-6
 OPT_BF16_ULPS = 1
 OPT_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
@@ -275,6 +278,17 @@ def time_ms(fn, arg_sets: list, iters: int = 60, warm: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_events(prof) -> list:
+    """The device events of a torch.profiler trace, summed by name, less the
+    spans of ``record_function`` (``torch.optim``'s ``Optimizer.step#...``
+    among them), which the profiler also reports on the device, over the
+    kernels they hold: summed with those kernels they would count them twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
 def device_ms(fn, arg_sets: list, iters: int = 30, tries: int = 3,
               floor_ms: float = 0.0) -> float | None:
     """Device time per call of ``fn(*args)`` over the same rotation of
@@ -284,7 +298,6 @@ def device_ms(fn, arg_sets: list, iters: int = 30, tries: int = 3,
     (a bound no run can beat: the profiler dropped some of its kernels,
     as it does now and then), is taken again, up to ``tries`` times; then
     None: not measured."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -295,8 +308,7 @@ def device_ms(fn, arg_sets: list, iters: int = 30, tries: int = 3,
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA)
+        total_us = sum(e.self_device_time_total for e in kernel_events(prof))
         if total_us > 0 and total_us / 1e3 / iters >= floor_ms:
             return total_us / 1e3 / iters
     return None
@@ -582,11 +594,22 @@ def optim_case(sizes, pdt, gdt, gen, dev):
             torch.tensor([0.7, 3e-4, 0.271, 0.142625], device=dev))
 
 
-def check_update(name: str, got: tuple, want: tuple) -> float:
+def zero_halves(g: list, mu: list, nu: list) -> None:
+    """As an embedding's rows that no token of a step touched: the first half
+    of each leaf's gradient and moments zero (a quarter of mu -0), where K5
+    takes its shortcut past the divisions for a zero operand."""
+    for leaf in zip(g, mu, nu):
+        for t in leaf:
+            t[:t.numel() // 2] = 0
+        leaf[1][:leaf[1].numel() // 4] = -0.0
+
+
+def check_update(name: str, got: tuple, want: tuple, exact: bool = False) -> float:
     """K5's params and moments against the plain update's: moments and
     float32 params within ``OPT_REL_TOL`` of their leaf's largest
-    magnitude, bf16 params within ``OPT_BF16_ULPS``.  -> the largest
-    absolute difference over params and moments."""
+    magnitude, bf16 params within ``OPT_BF16_ULPS``, and with ``exact``
+    every leaf equal bit for bit.  -> the largest absolute difference over
+    params and moments."""
     torch.cuda.synchronize()
     worst_rel, ulps, err = 0.0, 0, 0.0
     for kind, gs, ws in zip(("p", "mu", "nu"), got, want):
@@ -599,11 +622,13 @@ def check_update(name: str, got: tuple, want: tuple) -> float:
             else:
                 scale = w.abs().max().item()
                 worst_rel = max(worst_rel, (g - w).abs().max().item() / max(scale, 1e-30))
-    ok = worst_rel <= OPT_REL_TOL and ulps <= OPT_BF16_ULPS and all(
+    equal = all(torch.equal(g, w) for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+    ok = worst_rel <= OPT_REL_TOL and ulps <= OPT_BF16_ULPS and (equal or not exact) and all(
         bool(torch.isfinite(t).all()) for ts in got for t in ts)
     log(f"[check] {name}: max_abs_err={err:.3e}, worst relative {worst_rel:.3e} (tol "
-        f"{OPT_REL_TOL:g}), bf16 params within {ulps} ulp (tol {OPT_BF16_ULPS}) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{OPT_REL_TOL:g}), bf16 params within {ulps} ulp (tol {OPT_BF16_ULPS}), "
+        f"{'bit for bit equal' if equal else 'not bit-equal'}"
+        f"{' (required)' if exact else ''} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     return err
@@ -614,9 +639,13 @@ def optim_kernel_checks(dev) -> None:
     leaves: bf16 and float32 params and gradients, ragged sizes (not
     multiples of 8), a leaf of 1 element, an empty one, leaves wider than
     a block's tile, and more leaves than one table of the kernel's
-    parameter holds (150 > 128 for K4, > 64 for K5); every case run twice,
-    bit for bit the same.  (Phase 6 checks them again at deepseek-7b's
-    20-layer leaves, the training step's.)"""
+    parameter holds (150 > 128 for K4, > 64 for K5); for K5 also the edges
+    of its tiles (tails of 1-7 elements after whole 8-vectors, a leaf
+    shorter than one step of a block's threads, one step and a tile, each
+    and one more or less) and half of each leaf's gradient and moments zero
+    (``zero_halves``); every case run twice, bit for bit the same, and K5 bit
+    for bit the plain update.  (Phase 6 checks them again at
+    deepseek-7b's 20-layer leaves, the training step's.)"""
     from repro_torch.kernels.optim import adamw
     from repro_torch.kernels.optim.ref import adamw_update_ref, grad_sumsq_ref
 
@@ -624,7 +653,11 @@ def optim_kernel_checks(dev) -> None:
     base = [4096 * 11, 1, 7, 0, 300001, 64 * 129, 16385, 3]
     many = [int(n) for n in torch.randint(1, 20000, (150,), generator=torch.Generator()
                                           .manual_seed(22))]
-    for tag, sizes in (("ragged", base), ("150 leaves", many)):
+    tile, step = adamw.UPDATE_TILE, adamw.THREADS * 8
+    edges = [1, 2, 3, 4, 5, 6, 7, 9, 15, step - 1, step, step + 1, tile - 1, tile, tile + 1,
+             2 * tile + 7]
+    for tag, sizes in (("ragged", base), ("150 leaves", many), ("tile edges", edges),
+                       ("zero halves", base)):
         for dt in (torch.bfloat16, torch.float32):
             grads = opt_leaves(sizes, dt, gen, dev, 0.3)
             got, again = adamw.grad_sumsq(grads), adamw.grad_sumsq(grads)
@@ -635,6 +668,8 @@ def optim_kernel_checks(dev) -> None:
         for pdt, gdt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
                          (torch.bfloat16, torch.float32)):
             p, g, mu, nu, scalars = optim_case(sizes, pdt, gdt, gen, dev)
+            if tag == "zero halves":
+                zero_halves(g, mu, nu)
             runs = []
             for fn in (adamw.adamw_update, adamw.adamw_update, adamw_update_ref):
                 leaves = [[t.clone() for t in ts] for ts in (p, mu, nu)]
@@ -644,8 +679,9 @@ def optim_kernel_checks(dev) -> None:
             if not all(torch.equal(a, b) for x, y in zip(runs[0], runs[1]) for a, b in zip(x, y)):
                 raise SystemExit(f"K5 {tag} {pdt}/{gdt}: two runs differ")
             check_update(f"K5 adamw_update {tag} {len(sizes)} leaves, params {pdt}, grads "
-                         f"{gdt}", runs[0], runs[2])
-    log("[check] K4 and K5: every case's two runs bit for bit equal")
+                         f"{gdt}", runs[0], runs[2], exact=True)
+    log("[check] K4 and K5: every case's two runs bit for bit equal, K5 bit for bit the "
+        "plain update")
 
 
 def llava_decode_check(gen, dev) -> float:
@@ -1420,7 +1456,6 @@ def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
     time (``device``, 0: not measured), the kernel launches
     (``launches``), the host's launch calls (``calls``, ``LAUNCH_CALLS``)
     and its graph launches (``graphs``), per call, in ms where a time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def once(around=contextlib.nullcontext()) -> float:
@@ -1437,7 +1472,7 @@ def profiled(tag, setup, body, n, nbytes, flops, watch=(), dtype=torch.bfloat16,
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     once(prof)
     events = prof.key_averages()
-    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    kern = kernel_events(prof)
     device_ms = sum(e.self_device_time_total for e in kern) / 1e3 / n
     launches = sum(e.count for e in kern) / n
     calls = sum(e.count for e in events if e.key in LAUNCH_CALLS) / n
@@ -2088,16 +2123,22 @@ def optim_timings(dev) -> tuple[dict, dict]:
     the leaves take 58.6 GB): at deepseek-7b's 20-layer leaves, the
     training step's (4.886 B bf16 params, bf16 gradients, float32 moments),
     seeded.  First each leaf through K5 and through the plain update from
-    copies of its params and moments, held to the phase 3 bars, and K4
-    over every leaf against the plain sum; then each by CUDA events and
-    profiler device time over every leaf at once, beside its bound, its
-    plain version's time and, timed only and never used by the port, the
-    library calls that compute the same function: ``torch._foreach_norm``
-    and a sum of the squared norms for K4, ``torch.optim.AdamW(fused=True)
-    .step()`` over the same bf16 params and gradients for K5 (its moments
-    in the params' dtype: it takes no float32 moments beside bf16 params,
-    so it moves 14 bytes a param where K5 moves 22).  -> (the timing rows,
-    the largest error against the plain versions)."""
+    copies of its params and moments, held to the phase 3 bars and bit for
+    bit, and K4 over every leaf against the plain sum; then each by CUDA
+    events and profiler device time over every leaf at once, beside its
+    bound, its plain version's time and, timed only and never used by the
+    port, the library calls that compute the same function:
+    ``torch._foreach_norm`` and a sum of the squared norms for K4; for K5
+    ``torch._fused_adamw_`` on the float32 moments beside the bf16 params
+    and gradients, the same function, where it takes them (PyTorch 2.11
+    refuses: it wants one dtype for all four, and the refusal is printed),
+    and ``torch.optim.AdamW(fused=True).step()`` over the same params and
+    gradients, with moments in the params' dtype (14 bytes a param where K5
+    moves 22).  Each row's rate is its own bytes over its device time.  The
+    library step's device time leaves out the optimizer's
+    ``record_function`` span, which the profiler also reports on the device
+    (``kernel_events``).  -> (the timing rows, the largest error against
+    the plain versions)."""
     from repro_torch.configs.registry import get
     from repro_torch.kernels.optim import adamw
     from repro_torch.kernels.optim.ref import adamw_update_ref, grad_sumsq_ref
@@ -2129,12 +2170,12 @@ def optim_timings(dev) -> tuple[dict, dict]:
             fn(leaf[0], [g], leaf[1], leaf[2], scalars, **OPT_HYPER)
             runs.append(leaf)
         worst = max(worst, check_update(f"K5 adamw_update, leaf {i} {tuple(p.shape)}",
-                                        *runs) if i < 3 or p.numel() > 4e8 else
+                                        *runs, exact=True) if i < 3 or p.numel() > 4e8 else
                     quiet_update_err(*runs))
         del runs
     errs["adamw_update"] = worst
     log(f"[check] K5 adamw_update over every leaf of {cfg.name}: max_abs_err {worst:.3e} "
-        "(each leaf within the phase 3 bars)")
+        "(each leaf within the phase 3 bars, and bit for bit the plain update)")
 
     sumsq_bytes = sum(g.numel() * g.element_size() for g in grads)
     update_bytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 16)
@@ -2163,8 +2204,12 @@ def optim_timings(dev) -> tuple[dict, dict]:
     def k5_plain():
         adamw_update_ref(params, grads, mu, nu, scalars, **OPT_HYPER)
 
-    # per element: the clip scale 1, mu 3, nu 4, the corrections, sqrt, eps
-    # and the quotient 5, the decay 2, the step 2
+    # the bound is the bytes (32.1 ms): the 17 float32 operations an element
+    # (the clip scale 1, mu 3, nu 4, the corrections, sqrt, eps and quotient
+    # 5, the decay 2, the step 2) take 1.2 ms at the float32 peak; the
+    # divisions and the square root are sequences of instructions on the
+    # card, not single operations, and the kernel's arithmetic hides under
+    # its loads all the same
     k5_bound = bound(update_bytes, 17 * n, torch.float32)
     row = dict(shape=f"{len(params)} leaves, {n / 1e9:.3f} B bf16 params, bf16 gradients, "
                "float32 moments", ms=time_ms(k5, [()], iters=20, warm=2),
@@ -2173,7 +2218,24 @@ def optim_timings(dev) -> tuple[dict, dict]:
                plain_device_ms=device_ms(k5_plain, [()], iters=2, tries=1,
                                          floor_ms=k5_bound[0]),
                bound=k5_bound)
-    del mu, nu
+    row["rate_tbs"] = update_bytes / row["device_ms"] / 1e9 if row["device_ms"] else None
+
+    steps = [torch.ones((), device=dev) for _ in params]
+
+    def fused_f32():
+        torch._fused_adamw_(params, grads, mu, nu, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+                            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)
+
+    try:
+        fused_f32()
+    except RuntimeError as e:
+        row["library_f32"] = f"refused: {str(e).splitlines()[0]}"
+    else:
+        f32_ms = device_ms(fused_f32, [()], iters=5, floor_ms=k5_bound[0])
+        rate = "not measured" if f32_ms is None else f"{update_bytes / f32_ms / 1e9:.3f} TB/s"
+        row["library_f32"] = (f"{time_ms(fused_f32, [()], iters=10, warm=2):.4f} ms (device "
+                              f"{fmt_ms(f32_ms)}, {rate})")
+    del mu, nu, steps
     torch.cuda.empty_cache()
     for p, g in zip(params, grads):
         p.requires_grad_(True)
@@ -2184,6 +2246,8 @@ def optim_timings(dev) -> tuple[dict, dict]:
     row.update(library_ms=time_ms(lib.step, [()], iters=10, warm=2),
                library_device_ms=device_ms(lib.step, [()], iters=5,
                                            floor_ms=14 * n / HBM_BYTES_PER_S * 1e3))
+    row["library_rate_tbs"] = (14 * n / row["library_device_ms"] / 1e9
+                               if row["library_device_ms"] else None)
     out["adamw_update"] = row
     log(f"[memory] K4/K5 timings: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
@@ -2193,7 +2257,8 @@ def optim_timings(dev) -> tuple[dict, dict]:
 
 
 def quiet_update_err(got: tuple, want: tuple) -> float:
-    """``check_update`` without its line, for the many leaves of one model."""
+    """``check_update`` with ``exact`` and without its line, for the many
+    leaves of one model."""
     torch.cuda.synchronize()
     err = 0.0
     for kind, gs, ws in zip(("p", "mu", "nu"), got, want):
@@ -2203,7 +2268,7 @@ def quiet_update_err(got: tuple, want: tuple) -> float:
                 bad = bf16_ulps(g, w) > OPT_BF16_ULPS
             else:
                 bad = (g - w).abs().max().item() > OPT_REL_TOL * max(w.abs().max().item(), 1e-30)
-            if bad or not torch.isfinite(g).all():
+            if bad or not torch.equal(g, w) or not torch.isfinite(g).all():
                 raise SystemExit(f"K5: a leaf of {g.numel()} elements disagrees with the plain "
                                  "update")
     return err
@@ -2224,7 +2289,6 @@ def train_run(cfg, dev, *, layers_note: str, captured: bool, steps: int = TRAIN_
     share); the losses finite and falling; the peak memory allocated and
     reserved; the params copied to host memory after ``TRAIN_SNAP`` steps.
     -> the run's numbers."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.attention import flash, flash_bwd
@@ -2284,8 +2348,7 @@ def train_run(cfg, dev, *, layers_note: str, captured: bool, steps: int = TRAIN_
                 m = one_step()
                 torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t1
-            kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                          key=lambda e: -e.self_device_time_total)
+            kern = sorted(kernel_events(prof), key=lambda e: -e.self_device_time_total)
             device = sum(e.self_device_time_total for e in kern) / 1e6
         else:
             m = one_step()
@@ -2945,6 +3008,14 @@ def main() -> int:
             f"bound {bound_ms:.4f} ms ({bound_by}); plain {t['plain_ms']:.4f} ms (device "
             f"{fmt_ms(t['plain_device_ms'])}); library {t['library_ms']:.4f} ms (device "
             f"{fmt_ms(t['library_device_ms'])})")
+    k5 = otimes["adamw_update"]
+    rates = [("K5 adamw_update, 22 B a param", k5["rate_tbs"]),
+             ("torch.optim.AdamW(fused=True), bf16 moments, 14 B a param",
+              k5["library_rate_tbs"])]
+    log("[time] rates over device time, each row's own bytes: " + "; ".join(
+        f"{what} {'not measured' if r is None else format(r, '.3f') + ' TB/s'}"
+        for what, r in rates) + f"; torch._fused_adamw_ on float32 moments beside bf16 params: "
+        f"{k5['library_f32']} ({card})")
 
     meta = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/attention/flash.py:69"),
@@ -2976,8 +3047,9 @@ def main() -> int:
     log(f"[kernels] launches summed over the deepseek-7b, rwkv6-1.6b, granite-moe-3b-a800m, "
         f"mistral-nemo-12b and llava-next-mistral-7b paths, the training runs and the "
         f"gate's kernel paths: {launches}")
-    pr21 = {"deepseek-7b": (467.3, 439.5, 0.941, 61.93, 4383),
-            "rwkv6-1.6b": (429.0, 226.6, 0.528, 20.95, 4774)}
+    # the replayed step before K5 kept its loads in flight (PERF.md section 5)
+    before_k5 = {"deepseek-7b": (223.3, 223.6, 1.001, 55.75, 9172),
+                 "rwkv6-1.6b": (148.0, 148.4, 1.002, 19.31, 13836)}
     for name, model in train_runs.items():
         for mode in ("replayed", "uncaptured"):
             r = model[mode]
@@ -2989,8 +3061,8 @@ def main() -> int:
                 f"tokens/s, device {fmt_ms(r['device_ms'])} a traced step (busy "
                 f"{'not measured' if r['busy'] is None else format(r['busy'], '.3f')}; {k45}), "
                 f"peak allocated {r['peak_gib']:.2f} GiB, reserved {r['reserved_gib']:.2f} GiB; "
-                "PR 21's eager step: wall {:.1f} ms, device {:.1f} ms, busy {:.3f}, peak "
-                "{:.2f} GiB, {} tokens/s ({})".format(*pr21[name], card))
+                "the replayed step before K5's redesign: wall {:.1f} ms, device {:.1f} ms, busy "
+                "{:.3f}, peak {:.2f} GiB, {} tokens/s ({})".format(*before_k5[name], card))
     for name, r in e2e.items():
         log(f"[engine] {name} full width: prefill {r['prefill_ms']:.3f} ms (replayed; "
             f"logits within {r['prefill_err']:.3e} of the uncaptured prefill's), "

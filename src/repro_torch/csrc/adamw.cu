@@ -18,6 +18,20 @@
 // param with float32 moments).  A thread moves 8 elements at a time, in
 // 16-byte loads and stores.
 //
+// What held K5 back, and its design (measured on an H100 at deepseek-7b's
+// 20-layer leaves by tools/k5_probe.py; PERF.md): each thread loaded a
+// vector, ran its arithmetic (three IEEE divisions and a square root an
+// element) and stored it, in turn, so no load of its was in flight while it
+// computed.  The same tiles with the arithmetic taken out ran near the HBM
+// rate, the kernel at half of it.  So each thread now issues its next
+// vector's loads before the arithmetic of the current one (a register double
+// buffer), as streaming loads and stores (ld/st.global.cs: every byte is
+// touched once), at more registers and so fewer threads than before; and a
+// zero operand skips the divisions' slow path (div_rn).  Persistent blocks
+// fed by a ring of bulk copies (cp.async.bulk into shared memory and
+// mbarriers), and a persistent grid with this register double buffer, were
+// tried and ran slower, the ring even with the arithmetic taken out.
+//
 // The leaves travel as a kernel parameter, a table of pointers and sizes of
 // at most 4 KB passed by value (__grid_constant__, read in place from the
 // parameter space), one launch a group of leaves.  So a launch reads no
@@ -116,11 +130,11 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[VEC]) 
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int j = 0; j < VEC / 2; ++j) h[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
+  __stcs(reinterpret_cast<uint4*>(p), u);
 }
 __device__ __forceinline__ void store8(float* p, const float (&f)[VEC]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+  __stcs(reinterpret_cast<float4*>(p), make_float4(f[0], f[1], f[2], f[3]));
+  __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(f[4], f[5], f[6], f[7]));
 }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float load1(const float* p) { return *p; }
@@ -180,6 +194,43 @@ __global__ void __launch_bounds__(FINAL_THREADS)
   if (threadIdx.x == 0) *out = (float)s;
 }
 
+// 8 values of type T as they lie in memory, loaded and not yet converted,
+// so that their loads stay in flight while other values are computed
+template <class T>
+struct Raw8 {
+  uint4 u[sizeof(T) / 2];
+};
+template <class T>
+__device__ __forceinline__ void load_raw8(const T* p, Raw8<T>& r) {
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i)
+    r.u[i] = __ldcs(reinterpret_cast<const uint4*>(p) + i);
+}
+__device__ __forceinline__ void unpack8(const Raw8<__nv_bfloat16>& r, float (&f)[VEC]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.u[0]);
+#pragma unroll
+  for (int j = 0; j < VEC / 2; ++j) {
+    const float2 x = __bfloat1622float2(h[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void unpack8(const Raw8<float>& r, float (&f)[VEC]) {
+  const float* x = reinterpret_cast<const float*>(&r.u[0]);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) f[j] = x[j];
+}
+
+// x / y and sqrt(x), rounded to nearest.  A zero x gives x itself (its sign
+// kept; over a positive y), which is what the division and the square root
+// round to, without the slow path the card takes for a zero operand: an
+// embedding row that no token of a step touched has a zero gradient, and
+// zero moments from then on (tools/k5_probe.py times K5 without this)
+__device__ __forceinline__ float div_rn(float x, float y) {
+  return x == 0.f && y > 0.f ? x : __fdiv_rn(x, y);
+}
+__device__ __forceinline__ float sqrt_rn(float x) { return x == 0.f ? x : __fsqrt_rn(x); }
+
 // the reference's update of one element, in its order (optimizer.py:62-73),
 // every product and sum rounded on its own (no fused multiply-add), as the
 // plain version's PyTorch operations round them: so the two agree bit for
@@ -189,7 +240,7 @@ __device__ __forceinline__ void adamw1(float& p, float g, float& mu, float& nu, 
   g = __fmul_rn(g, scale);
   mu = __fadd_rn(__fmul_rn(mu, h.b1), __fmul_rn(g, h.omb1));
   nu = __fadd_rn(__fmul_rn(nu, h.b2), __fmul_rn(__fmul_rn(g, h.omb2), g));
-  float delta = __fdiv_rn(__fdiv_rn(mu, b1c), __fadd_rn(__fsqrt_rn(__fdiv_rn(nu, b2c)), h.eps));
+  float delta = div_rn(div_rn(mu, b1c), __fadd_rn(sqrt_rn(div_rn(nu, b2c)), h.eps));
   delta = __fadd_rn(delta, __fmul_rn(p, h.wd));
   p = __fsub_rn(p, __fmul_rn(delta, lr));
 }
@@ -201,12 +252,29 @@ __device__ __forceinline__ void update_tile(const UpdateLeaf& L, long long start
   P* p = static_cast<P*>(L.p);
   const G* g = static_cast<const G*>(L.g);
   const long long vend = start + (end - start) / VEC * VEC;
-  for (long long i = start + (long long)threadIdx.x * VEC; i < vend; i += THREADS * VEC) {
+  long long i = start + (long long)threadIdx.x * VEC;
+  Raw8<P> rp;
+  Raw8<G> rg;
+  Raw8<float> rm, rn;
+  if (i < vend) {
+    load_raw8(p + i, rp);
+    load_raw8(g + i, rg);
+    load_raw8(L.mu + i, rm);
+    load_raw8(L.nu + i, rn);
+  }
+  for (; i < vend; i += THREADS * VEC) {
     float pf[VEC], gf[VEC], mf[VEC], nf[VEC];
-    load8(p + i, pf);
-    load8(g + i, gf);
-    load8(L.mu + i, mf);
-    load8(L.nu + i, nf);
+    unpack8(rp, pf);
+    unpack8(rg, gf);
+    unpack8(rm, mf);
+    unpack8(rn, nf);
+    const long long next = i + THREADS * VEC;
+    if (next < vend) {         // in flight during the arithmetic below
+      load_raw8(p + next, rp);
+      load_raw8(g + next, rg);
+      load_raw8(L.mu + next, rm);
+      load_raw8(L.nu + next, rn);
+    }
 #pragma unroll
     for (int j = 0; j < VEC; ++j) adamw1(pf[j], gf[j], mf[j], nf[j], h, scale, lr, b1c, b2c);
     store8(p + i, pf);

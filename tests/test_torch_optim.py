@@ -11,6 +11,7 @@ the replayed train step against the uncaptured one, bit for bit.
 
 The reference is imported in a fixture, not at the top: the card's machine
 runs this file's gpu tests without JAX."""
+import bisect
 import ctypes
 from types import SimpleNamespace
 from unittest import mock
@@ -40,6 +41,12 @@ HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 # leaf sizes: ragged (not multiples of 8), one element, one empty, and some
 # wider than a K4 or K5 tile
 SIZES = [(8, 16), (3, 5), (1,), (0,), (7,), (70000,), (3, 4, 5), (33000,)]
+# the edges of K5's tiles (UPDATE_TILE elements, walked 8 * THREADS at a
+# time): tails of 1-7 elements after whole 8-vectors, a leaf shorter than
+# one step of a block's threads, a tile and one more or less, an empty leaf
+_T, _STEP = adamw.UPDATE_TILE, adamw.THREADS * 8
+EDGES = [1, 2, 3, 4, 5, 6, 7, 9, 15, 17, _STEP - 1, _STEP, _STEP + 1, _T - 1, _T, _T + 1,
+         2 * _T + 7, 300001, 0]
 
 
 @pytest.fixture(scope="module")
@@ -204,6 +211,10 @@ def test_tables_fit_a_kernel_parameter_and_match_the_source_layout():
     src = (adamw.build.CSRC / "adamw.cu").read_text()
     for name in ("SUMSQ_LEAVES", "UPDATE_LEAVES", "THREADS"):
         assert f"constexpr int {name} = {getattr(adamw, name)};" in src
+    assert "constexpr int VEC = 8;" in src
+    assert "constexpr int SUMSQ_TILE = THREADS * VEC * 8;" in src
+    assert "constexpr int UPDATE_TILE = THREADS * VEC * 4;" in src
+    assert (adamw.SUMSQ_TILE, adamw.UPDATE_TILE) == (adamw.THREADS * 8 * 8, adamw.THREADS * 8 * 4)
 
 
 @pytest.mark.parametrize("n_leaves", [1, 64, 65, 129, 300])
@@ -230,6 +241,46 @@ def test_tables_cover_every_tile_of_every_non_empty_leaf_once(n_leaves):
                 assert t.base == base
             base += blocks
         assert seen == live and total == base == sum(-(-n // tile) for n in live)
+
+
+@pytest.mark.parametrize("case", ["edges", "ragged", "many"])
+def test_update_launch_covers_every_element_of_every_leaf_once(case):
+    """K5's index arithmetic replayed on the wrapper's launch plan (its
+    tables: each launch ``blocks`` blocks, each leaf's ``first`` block and
+    ``n``): block b takes tile b - first of the last leaf whose first <= b;
+    its thread t the 8-vectors at start + 8 t + 8 THREADS k below the tile's
+    last whole vector (each loaded one step ahead, so the same addresses),
+    then the tail elements after it one by one.  Every element of every
+    non-empty leaf is updated exactly once, nothing outside a leaf, and no
+    vector crosses its tile's end."""
+    rng = np.random.default_rng(7)
+    sizes = {"edges": EDGES, "ragged": [int(np.prod(s)) for s in SIZES],
+             "many": [int(n) for n in rng.integers(0, 3 * _T, 150)] + [0, 1, 7]}[case]
+    leaves = [tuple(torch.empty(n) for _ in range(4)) for n in sizes]
+    tables, total = adamw._tables(adamw.UpdateTable, adamw.UPDATE_LEAVES, adamw.UPDATE_TILE,
+                                  leaves, lambda e, leaf: None)
+    counts = []
+    t_idx = np.arange(adamw.THREADS)
+    for t in tables:
+        firsts = [t.leaf[j].first for j in range(t.count)]
+        cover = [np.zeros(t.leaf[j].n, np.int64) for j in range(t.count)]
+        for b in range(t.blocks):
+            j = bisect.bisect_right(firsts, b) - 1
+            e, got = t.leaf[j], cover[j]
+            start = (b - e.first) * _T
+            end = min(start + _T, e.n)
+            assert 0 <= start < end
+            vend = start + (end - start) // 8 * 8
+            for i in range(start, vend, _STEP):
+                first = i + 8 * t_idx[i + 8 * t_idx < vend]
+                assert (first + 8 <= end).all()
+                np.add.at(got, (first[:, None] + np.arange(8)).ravel(), 1)
+            assert end - vend < 8
+            got[vend:end] += 1
+        counts += cover
+    assert total == sum(t.blocks for t in tables)
+    assert [c.size for c in counts] == [n for n in sizes if n]
+    assert all((c == 1).all() for c in counts)
 
 
 # ----------------------------------------------------------------------
@@ -343,9 +394,15 @@ def test_grad_sumsq_kernel_matches_plain(cuda, dtype, n_leaves):
                                      (torch.bfloat16, torch.bfloat16),
                                      (torch.bfloat16, torch.float32),
                                      (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("n_leaves", [len(SIZES), 150])
+@pytest.mark.parametrize("n_leaves", [len(SIZES), 150, "edges", "zeros"])
 def test_adamw_update_kernel_matches_plain(cuda, pdt, gdt, n_leaves):
-    sizes = (SIZES * (n_leaves // len(SIZES) + 1))[:n_leaves]
+    """K5 against the plain update bit for bit (every operation rounded on
+    its own on both sides), over ragged leaves, more than one table of
+    them, the edges of its tiles, and zero gradients and moments (K5's
+    shortcut past the divisions); two runs bit for bit the same."""
+    sizes = ([(n,) for n in EDGES] if n_leaves == "edges"
+             else SIZES if n_leaves == "zeros"
+             else (SIZES * (n_leaves // len(SIZES) + 1))[:n_leaves])
     scalars = torch.tensor([0.7, 1e-2, 0.19, 0.0975], device=cuda)
     runs = []
     for fn in (adamw.adamw_update, adamw.adamw_update, adamw_update_ref):
@@ -353,11 +410,17 @@ def test_adamw_update_kernel_matches_plain(cuda, pdt, gdt, n_leaves):
         grads = _leaves(41, sizes=sizes, dtype=gdt, device=cuda)
         mu = _leaves(42, sizes=sizes, scale=0.1, device=cuda)
         nu = [m.square() for m in _leaves(43, sizes=sizes, scale=0.1, device=cuda)]
+        if n_leaves == "zeros":        # the first half of each leaf zero, mu -0 in a quarter
+            for g, m, v in zip(grads, mu, nu):
+                for t in (g, m, v):
+                    t.view(-1)[:t.numel() // 2] = 0
+                m.view(-1)[:m.numel() // 4] = -0.0
         fn(params, grads, mu, nu, scalars, **HYPER)
         runs.append((params, mu, nu))
     torch.cuda.synchronize()
     (p1, m1, n1), (p2, m2, n2), (pw, mw, nw) = runs
     assert all(torch.equal(a, b) for a, b in zip(p1 + m1 + n1, p2 + m2 + n2))
+    assert all(torch.equal(a, b) for a, b in zip(p1 + m1 + n1, pw + mw + nw))
     for a, b in zip(m1 + n1, mw + nw):
         assert _rel(a.cpu(), b.cpu()) < OPT_TOL
     for a, b in zip(p1, pw):
