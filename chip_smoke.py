@@ -133,6 +133,29 @@ failure exits non-zero:
      step on the kernel path against the plain path, one K4/K5 step against
      the plain update, and the microbatched step (``num_micro=2``)
      replayed against uncaptured;
+  11. (after 10, every engine freed) the sharded paths
+     (``sharded_phase``): two ranks (``repro_torch.launch.mesh.spawn``) on
+     the cards present, NCCL with a card each when there are two, gloo when
+     they share one (the backend and card count printed): deepseek-7b at
+     full width and depth, bf16, on the (1, 2) mesh (tensor parallel),
+     batch 4, prompt 100, 32 new, greedy, uncaptured: its prefill logits
+     row by row (``ROW_REL_TOL``) against the single card's engine with its
+     row-parallel products split as the two ranks split them
+     (``split_rows``), and against the plain single card (the 30 bf16
+     layers' reordering bar, ``LOGITS_REL_TOL``), the
+     tokens of both (and where they part, the step and the sharded
+     engine's logit margin there), K1 and K2 counted per rank (layers x
+     prefills, layers x steps) and one decode step's collectives per rank
+     held to ``plan_shards``' formula; the float32 gates at 2 layers and
+     full width (deepseek-7b on (1, 2) and (2, 1), granite-moe-3b-a800m on
+     (1, 2), its experts split two ways, rwkv6-1.6b on (1, 2), K3 on the
+     local heads, ``tmix.wo`` redrawn): equal tokens and prefill logits
+     within ``SHARDED_REL_TOL``; one AdamW step of deepseek-7b at 2 layers
+     in float32 on (2, 1) data parallel, (2, 1) FSDP and (1, 2) tensor
+     parallel, loss, grad norm and every param within
+     ``SHARDED_REL_TOL`` of the single card's step, K4 and K5 counted per
+     rank; each rank's peak memory and the phase's seconds.  Rank 0 runs
+     each single-card oracle in the same run;
   9. one JSON line with the kernels (launches summed over every path), then
      the last line ``{"ok": true, ...}``.
 """
@@ -2679,6 +2702,403 @@ def train_phase(dev) -> tuple:
     return runs, launches, times, errs
 
 
+# ----------------------------------------------------------------------
+# phase 11: the sharded paths (two ranks)
+# ----------------------------------------------------------------------
+
+SHARDED_WORLD = 2
+SHARDED_NEW = 32
+# phase 11's float32 gates and train step: the sharded run against the
+# single card, relative L2 (logits, each param leaf) and relative (loss,
+# grad norm): the ranks' float32 partial sums are reduced in another
+# order, about 1e-7 a layer
+SHARDED_REL_TOL = 1e-4
+SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ = 4, 128
+# phase 11's deepseek-7b at 30 bf16 layers: the sharded prefill logits are
+# held row by row to ROW_REL_TOL against the single card computing the
+# sharded arithmetic (``split_rows``).  Against the plain single card they
+# are held to LOGITS_REL_TOL: any change of summation order moves this
+# random model's bf16 logits by about 1.8e-2 relative L2 (on an H100, the
+# single card against itself with its wo/wd products summed in float32:
+# 1.82e-2, worst row 1.86e-2; PERF.md), past ROW_REL_TOL.
+
+
+def mesh_prefill(eng, prompts, n_new: int = SHARDED_NEW) -> torch.Tensor:
+    """The engine's uncaptured prefill of ``prompts``: the last real token's
+    logits of every row (a mesh engine's rows gathered), float32."""
+    tokens, last_pos, cache_len = eng._prompt(prompts, n_new)
+    with eng._on_mesh(tokens.shape[0]):
+        logits, _ = eng._prefill(eng._local_rows(tokens), last_pos, cache_len)
+        return eng._all_rows(logits.float(), 0)
+
+
+def split_rows(p: dict, key: str, x: torch.Tensor, full_in: int) -> torch.Tensor:
+    """``models.layers.row_dense`` on one card as ``SHARDED_WORLD`` ranks of a
+    model axis compute it: the input dim cut into their equal slices, each
+    slice's products in float32 (``float32_products``, at a rank's
+    shapes), the partial sums added in rank order and rounded once.  Phase
+    11's single-card oracle of the sharded bf16 arithmetic."""
+    from repro_torch.models.common import float32_products
+    q = p[key]
+    parts = [float32_products(xs.contiguous(), ws) for xs, ws in
+             zip(x.chunk(SHARDED_WORLD, -1), q["w"].chunk(SHARDED_WORLD, 0))]
+    y = parts[0]
+    for part in parts[1:]:
+        y = y + part
+    y = y.to(x.dtype)
+    return y + q["b"].to(y.dtype) if "b" in q else y
+
+
+def sharded_engine_run(cfg, mesh, prompts, params_fn, n_new: int = SHARDED_NEW, *,
+                       split: bool = False) -> dict:
+    """``cfg``'s engine on ``params_fn()`` (seeded whole weights on the
+    card): the single card's on rank 0 first (uncaptured, while the other
+    rank waits; with ``split`` also its prefill with the row products split
+    as the ranks split them, ``split_rows``), then the mesh engine's on every rank, the
+    K1/K2/K3 launches and the collectives of its ``generate`` counted.  ->
+    the single card's prefill logits and greedy tokens (rank 0), the mesh
+    run's, and its counts."""
+    import torch.distributed as dist
+
+    from repro_torch import shardctx
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.rwkv import wkv
+    from repro_torch.serving.engine import InferenceEngine
+
+    out = {}
+    if mesh.rank == 0:
+        with uncaptured():
+            eng = InferenceEngine(cfg, params=params_fn(), max_cache=256)
+            out["want_logits"] = mesh_prefill(eng, prompts, n_new).cpu()
+            if split:
+                from repro_torch.models import layers
+                with mock.patch.object(layers, "row_dense", split_rows):
+                    out["split_logits"] = mesh_prefill(eng, prompts, n_new).cpu()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["want"] = eng.generate(prompts, n_new).tokens
+            out["single_s"] = time.perf_counter() - t0
+        del eng
+        torch.cuda.empty_cache()
+    dist.barrier()
+    eng = InferenceEngine(cfg, params=params_fn(), max_cache=256, mesh=mesh)
+    torch.cuda.empty_cache()
+    out["logits"] = mesh_prefill(eng, prompts, n_new).cpu()
+    flash.launches = fd.launches = wkv.launches = 0
+    shardctx.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["tokens"] = eng.generate(prompts, n_new).tokens
+    out["mesh_s"] = time.perf_counter() - t0
+    out["launches"] = {"flash_attention": flash.launches, "flash_decode": fd.launches,
+                       "wkv6": wkv.launches}
+    out["collectives"] = shardctx.counts()
+    out["engine"] = eng
+    return out
+
+
+def hold_engine_run(name: str, run: dict, *, rel_tol: float | None = None,
+                    row_tol: float | None = None, tokens_equal: bool) -> dict:
+    """Rank 0: the mesh run's prefill logits against the single card's
+    (relative L2 under ``rel_tol``, or row by row under ``row_tol``), and,
+    when the run has them, row by row under ``ROW_REL_TOL`` against the
+    single card's with the sharded arithmetic (``split_rows``); then its
+    greedy tokens (equal with ``tokens_equal``, else printed and where they
+    part).  -> what it measured."""
+    got, want = run["logits"], run["want_logits"]
+    rows = row_rel(got, want)
+    rel = ((got - want).norm() / want.norm()).item()
+    ok = bool(torch.isfinite(got).all()) and (
+        rows.max().item() <= row_tol if rel_tol is None else rel <= rel_tol)
+    log(f"[sharded] {name}: prefill logits {tuple(got.shape)} against the single card: rel_l2 "
+        f"{rel:.3e}, worst row {rows.max().item():.3e} (tol "
+        f"{'row ' + format(row_tol, 'g') if rel_tol is None else format(rel_tol, 'g')}) "
+        f"{'ok' if ok else 'FAIL'}")
+    out = {"rel": rel, "worst_row": rows.max().item()}
+    if "split_logits" in run:
+        sl = run["split_logits"]
+        split_rows_rel = row_rel(got, sl)
+        out.update(split_rel=((got - sl).norm() / sl.norm()).item(),
+                   split_worst_row=split_rows_rel.max().item(),
+                   split_max_abs=(got - sl).abs().max().item(),
+                   split_vs_single=row_rel(sl, want).max().item())
+        split_ok = out["split_worst_row"] <= ROW_REL_TOL
+        log(f"[sharded] {name}: prefill logits against the single card with its row "
+            f"products split as the ranks split them: rel_l2 {out['split_rel']:.3e}, worst "
+            f"row {out['split_worst_row']:.3e}, max_abs {out['split_max_abs']:.3e} (tol row "
+            f"{ROW_REL_TOL:g}) {'ok' if split_ok else 'FAIL'}; that single card against the "
+            f"plain one: worst row {out['split_vs_single']:.3e}")
+        ok = ok and split_ok
+    if not ok:
+        raise SystemExit(f"{name}: the sharded prefill disagrees with the single card")
+    toks, ref = run["tokens"], run["want"]
+    same = torch.equal(toks, ref)
+    log(f"[sharded] {name}: greedy tokens equal the single card's: {same}")
+    parts = []
+    for r in range(toks.shape[0]):
+        diff = (toks[r] != ref[r]).nonzero()
+        if len(diff):
+            parts.append((r, int(diff[0])))
+    if tokens_equal and not same:
+        raise SystemExit(f"{name}: sharded greedy tokens differ from the single card's at "
+                         f"(row, step) {parts}")
+    return {**out, "tokens_equal": same, "parts": parts}
+
+
+def parting_margins(eng, prompts, toks, ref, parts) -> list:
+    """For each row where the mesh run's tokens part from the single
+    card's: the mesh engine's logit margin there between its own token and
+    the single card's (a prefill of the row's prompt and the tokens before
+    the step; every rank runs it)."""
+    out = []
+    for r, step in parts:
+        prefix = torch.cat([prompts[r], toks[r, :step]])[None]
+        logits = mesh_prefill(eng, prefix, 1)[0]
+        out.append((r, step, (logits[int(toks[r, step])] - logits[int(ref[r, step])]).item()))
+    return out
+
+
+def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict) -> dict:
+    """One AdamW step of ``cfg`` (float32) on ``mesh`` (FSDP specs with
+    ``fsdp``), K4 and K5 counted, against the single card's step in
+    ``want`` (rank 0's): loss, grad norm and every param leaf (gathered)."""
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.optim import adamw
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.models.common import tensor_leaves
+    from repro_torch.train.data import LMBatches
+    from repro_torch.train.loop import batch_on
+    from repro_torch.train.optimizer import AdamW
+
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW(learning_rate=1e-3)
+    pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh, fsdp=fsdp)
+    params = sharding.shard_tree(
+        api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), pspecs, mesh)
+    torch.cuda.empty_cache()
+    state = opt.init(params)
+    batch = batch_on(LMBatches(cfg.vocab_size, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ,
+                               seed=0)(0), cfg, dev)
+    step = make_train_step(cfg, opt, mesh=mesh, param_pspecs=pspecs)
+    for m in (flash, flash_bwd, adamw.SUMSQ, adamw.UPDATE):
+        m.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, metrics = step(params, state, sharding.shard_batch(batch, mesh))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash.launches, "flash_attention_bwd": flash_bwd.launches,
+                "grad_sumsq": adamw.SUMSQ.launches, "adamw_update": adamw.UPDATE.launches}
+    whole = [t.cpu() for t in tensor_leaves(sharding.gather_tree(params, pspecs, mesh))]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"launches": launches, "wall_s": wall, "peak_gib": peak}
+    log(f"[sharded] rank {mesh.rank} train {name}: K1 {launches['flash_attention']}, K1-bwd "
+        f"{launches['flash_attention_bwd']}, K4 {launches['grad_sumsq']}, K5 "
+        f"{launches['adamw_update']}; step {wall:.3f} s, peak allocated {peak:.2f} GiB")
+    if not (launches["grad_sumsq"] and launches["adamw_update"] and launches["flash_attention"]
+            and launches["flash_attention_bwd"]):
+        raise SystemExit(f"train {name}: a kernel of the sharded step never launched: {launches}")
+    if mesh.rank == 0:
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        rl = abs(loss - want["loss"]) / abs(want["loss"])
+        rg = abs(gnorm - want["gnorm"]) / abs(want["gnorm"])
+        worst = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                    for a, b in zip(whole, want["params"]))
+        ok = rl <= SHARDED_REL_TOL and rg <= SHARDED_REL_TOL and worst <= SHARDED_REL_TOL
+        log(f"[sharded] train {name}: loss {loss:.6f} (single card {want['loss']:.6f}, "
+            f"relative {rl:.3e}), grad norm {gnorm:.6f} ({want['gnorm']:.6f}, {rg:.3e}), "
+            f"params after the step worst leaf rel_l2 {worst:.3e} (tol {SHARDED_REL_TOL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"train {name}: the sharded step disagrees with the single card")
+        out.update(loss_rel=rl, gnorm_rel=rg, param_rel=worst)
+    del params, state, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def single_train_step(cfg, dev) -> dict:
+    """Rank 0's oracle: one AdamW step of ``cfg`` on the single card from the
+    same seed and batch.  -> loss, grad norm and the params (host)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.models.common import tensor_leaves
+    from repro_torch.train.data import LMBatches
+    from repro_torch.train.loop import batch_on
+    from repro_torch.train.optimizer import AdamW
+
+    opt = AdamW(learning_rate=1e-3)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = batch_on(LMBatches(cfg.vocab_size, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ,
+                               seed=0)(0), cfg, dev)
+    _, _, m = make_train_step(cfg, opt)(params, opt.init(params), batch)
+    out = {"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
+           "params": [t.detach().cpu() for t in tensor_leaves(params)]}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(rank: int, out_dir: str) -> None:
+    """Phase 11 on one of the ranks (``repro_torch.launch.mesh.spawn``).
+    Rank 0 runs each single-card oracle while the other waits, then both
+    run the sharded path; rank 0 holds the results and raises on a
+    mismatch.  Each rank writes its launches and seconds to ``out_dir``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import shardctx
+    from repro_torch.configs.registry import get
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
+
+    t_start = time.perf_counter()
+    tp = make_local_mesh(1, 2)
+    dp = make_local_mesh(2, 1)
+    dev = tp.device
+    launches = dict.fromkeys(("flash_attention", "flash_decode", "wkv6", "flash_attention_bwd",
+                              "grad_sumsq", "adamw_update"), 0)
+    report = {"rank": rank}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    # deepseek-7b at full width and depth, bf16, (1, 2)
+    cfg = get("deepseek-7b").config
+    prompts, _ = deepseek_inputs(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    run = sharded_engine_run(cfg, tp, prompts, lambda: api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), split=True)
+    eng = run.pop("engine")
+    add(run["launches"])
+    steps_run = SHARDED_NEW - 1
+    want_k = {"flash_attention": cfg.num_layers, "flash_decode": cfg.num_layers * steps_run}
+    k = run["launches"]
+    log(f"[sharded] rank {rank} {cfg.name} (1, 2) bf16: K1 {k['flash_attention']} (layers x "
+        f"prefills = {want_k['flash_attention']}), K2 {k['flash_decode']} (layers x steps = "
+        f"{want_k['flash_decode']}); generate {run['mesh_s']:.3f} s, collectives of the "
+        f"generate {run['collectives']}")
+    if any(k[n] != v for n, v in want_k.items()):
+        raise SystemExit(f"rank {rank}: K1/K2 launches {k} on the sharded path, not {want_k}")
+    # one decode step's collectives on this rank
+    tok = run["tokens"][:, -1].to(dev)
+    pos = torch.full((prompts.shape[0],), prompts.shape[1] + steps_run, device=dev)
+    with shardctx.use_mesh(tp):
+        shardctx.reset_counts()
+        api.decode_step(eng.params, eng._cache, tok, pos, cfg)
+        per_step = shardctx.counts()
+    n = tp.shape["model"]
+    b = prompts.shape[0]
+    ring = (n - 1) / n
+    plan = {"all-reduce": (2 * cfg.num_layers + 1,
+                           (2 * cfg.num_layers + 1) * 2.0 * (b * cfg.d_model * 4) * ring),
+            "all-gather": (1, b * cfg.vocab_size * 4 * ring)}
+    log(f"[sharded] rank {rank} {cfg.name} (1, 2): one decode step (batch {b}) moves "
+        f"{per_step}; plan_shards' formula at this config: {plan}; bytes per rank "
+        f"{sum(v[1] for v in per_step.values()):.0f} against "
+        f"{sum(v[1] for v in plan.values()):.0f}")
+    if per_step != plan:
+        raise SystemExit(f"rank {rank}: one decode step's collectives {per_step} differ from "
+                         f"plan_shards' {plan}")
+    report["deepseek"] = {"mesh_s": run["mesh_s"], "collectives": per_step,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank == 0:
+        held = hold_engine_run(f"{cfg.name} (1, 2) bf16", run, row_tol=LOGITS_REL_TOL,
+                               tokens_equal=False)
+        report["deepseek"].update(held, single_s=run["single_s"])
+        log(f"[sharded] {cfg.name} tokens, sharded: {run['tokens'].tolist()}")
+        log(f"[sharded] {cfg.name} tokens, single card: {run['want'].tolist()}")
+    parts = [report["deepseek"]["parts"] if rank == 0 else None]
+    dist.broadcast_object_list(parts, src=0)
+    margins = parting_margins(eng, prompts, run["tokens"], run["tokens"] if rank else run["want"],
+                              parts[0])
+    if rank == 0 and margins:
+        log(f"[sharded] {cfg.name}: where the tokens part (row, step, the sharded engine's "
+            f"logit of its token less that of the single card's): {margins}")
+    del eng, run
+    torch.cuda.empty_cache()
+
+    # the float32 gates at 2 layers, full width
+    gates = []
+    for arch, mesh, mname in (("deepseek-7b", tp, "(1, 2)"), ("deepseek-7b", dp, "(2, 1)"),
+                              ("granite-moe-3b-a800m", tp, "(1, 2)"),
+                              ("rwkv6-1.6b", tp, "(1, 2)")):
+        full = get(arch).config
+        gcfg = full.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
+        gprompts = deepseek_inputs(gcfg)[0]
+
+        def params_fn(gcfg=gcfg):
+            p = api.init_params(gcfg, torch.Generator(device=dev).manual_seed(0), dev)
+            if gcfg.family == "ssm":
+                redraw_wo(p, gcfg, dev)
+            return p
+
+        run = sharded_engine_run(gcfg, mesh, gprompts, params_fn)
+        run.pop("engine")
+        add(run["launches"])
+        log(f"[sharded] rank {rank} {arch} {mname} float32, 2 layers: launches "
+            f"{run['launches']}; generate {run['mesh_s']:.3f} s")
+        kernel = "wkv6" if gcfg.family == "ssm" else "flash_decode"
+        if not run["launches"][kernel]:
+            raise SystemExit(f"{arch} {mname}: {kernel} never launched on the sharded path")
+        if rank == 0:
+            held = hold_engine_run(f"{arch} {mname} float32, 2 layers", run,
+                                   rel_tol=SHARDED_REL_TOL, tokens_equal=True)
+            gates.append({"arch": arch, "mesh": mname, **held})
+        del run
+        torch.cuda.empty_cache()
+    report["gates"] = gates
+
+    # one AdamW step of deepseek-7b at 2 layers, float32
+    tcfg = get("deepseek-7b").config.replace(num_layers=2, param_dtype="float32",
+                                             compute_dtype="float32")
+    want = single_train_step(tcfg, dev) if rank == 0 else None
+    dist.barrier()
+    trains = {}
+    for name, mesh, fsdp in (("(2, 1) data parallel", dp, False), ("(2, 1) FSDP", dp, True),
+                             ("(1, 2) tensor parallel", tp, False)):
+        trains[name] = r = sharded_train_check(tcfg, mesh, name, fsdp, want)
+        add(r["launches"])
+    report["train"] = trains
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_start
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def sharded_phase() -> dict:
+    """Phase 11: the sharded paths on ``SHARDED_WORLD`` ranks placed on the
+    cards present (NCCL with a card a rank when there are enough, gloo when
+    they share one; the backend printed).  -> rank 0's report and the
+    kernel launches summed over the ranks."""
+    from repro_torch.launch.mesh import backend_for, spawn
+
+    backend, _ = backend_for(SHARDED_WORLD, "cuda")
+    log(f"[sharded] world={SHARDED_WORLD} cards={torch.cuda.device_count()} backend={backend}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(sharded_rank, SHARDED_WORLD, (tmp,), device="cuda", timeout_s=600)
+        reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                   for r in range(SHARDED_WORLD)]
+    wall = time.perf_counter() - t0
+    launches = {}
+    for rep in reports:
+        for k, n in rep["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        log(f"[sharded] rank {rep['rank']}: {rep['seconds']:.1f} s in the rank, peak allocated "
+            f"{rep['peak_gib']:.2f} GiB (deepseek-7b (1, 2): {rep['deepseek']['peak_gib']:.2f} "
+            f"GiB); launches {rep['launches']}")
+    log(f"[sharded] phase 11: {wall:.1f} s, ranks spawned and joined")
+    return {"report": reports[0], "launches": launches, "wall_s": wall, "backend": backend}
+
+
 def bootstrap_line() -> None:
     """The seconds of ``import torch`` and of the first CUDA context in a
     fresh process: the torch counterparts of the cold BOOTSTRAP that the
@@ -2999,6 +3419,9 @@ def main() -> int:
     calibration_phase(dev)
     train_runs, tlaunches, otimes, oerrs = train_phase(dev)
     for name, n in tlaunches.items():
+        launches[name] = launches.get(name, 0) + n
+    sharded = sharded_phase()
+    for name, n in sharded["launches"].items():
         launches[name] = launches.get(name, 0) + n
     times.update(otimes)
     main_err.update(oerrs)

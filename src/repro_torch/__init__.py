@@ -1,8 +1,10 @@
-"""PyTorch and CUDA port of ``repro``'s serving paths and single-device
-training: every family of its registry (dense, moe, ssm: RWKV-6, hybrid:
-RecurrentGemma, audio: Whisper, vlm: LLaVA-NeXT), the paper's CNNs, the
-calibration bridge, the KV-cache and int8 quantization utilities, and the
-optimizer, data, checkpoints and train step (see ROADMAP.md).
+"""PyTorch and CUDA port of ``repro``'s serving paths and training: every
+family of its registry (dense, moe, ssm: RWKV-6, hybrid: RecurrentGemma,
+audio: Whisper, vlm: LLaVA-NeXT), the paper's CNNs, the calibration bridge,
+the KV-cache and int8 quantization utilities, the optimizer, data,
+checkpoints and train step, and the sharded paths on a device mesh
+(``shardctx.py``, ``launch/mesh.py``, ``launch/sharding.py``; see
+ROADMAP.md).
 
 The package imports ``torch`` and nothing of ``jax`` or ``repro``; its tests hold
 it against the JAX package on the same weights and inputs.  Entry points run on

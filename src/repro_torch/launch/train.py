@@ -1,16 +1,44 @@
 """Training launcher, the port's counterpart of ``repro.launch.train``.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b --smoke \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b --smoke \\
         --steps 20 --device cpu
 
-Runs on the card unless ``--device cpu``.  ``--data-par`` and
-``--model-par`` above 1 need the sharded paths, which the port has not yet
-(ROADMAP.md Queue 1, slice F): they exit with an error.
+Runs on the card unless ``--device cpu``.  With ``--data-par N
+--model-par M`` above 1 it starts ``N * M`` ranks itself (processes of this
+host, ``launch/mesh.py::spawn``), each building the ``(N, M)`` mesh and
+training on its shards (``train/loop.py::train(mesh=)``): NCCL with a card a
+rank when there are enough cards, gloo otherwise (``--device cpu``, or
+ranks sharing a card).  Rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+
+
+def _report(rep) -> None:
+    print(f"[train] {rep.params_m:.1f}M params; loss "
+          f"{rep.initial_loss:.4f} -> {rep.final_loss:.4f} "
+          f"({rep.steps} steps, {rep.wall_s:.1f}s)")
+    print(f"[train] losses {' '.join(repr(x) for x in rep.losses)}")
+
+
+def _rank(rank: int, args) -> None:
+    """One rank of a ``--data-par``/``--model-par`` run."""
+    from repro_torch.configs.registry import get
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.loop import train
+
+    spec = get(args.arch)
+    cfg = spec.smoke if args.smoke else spec.config
+    mesh = make_local_mesh(args.data_par, args.model_par, device=args.device)
+    if rank == 0:
+        print(f"[train] mesh data={args.data_par} model={args.model_par}: {mesh.backend}, "
+              f"rank 0 on {mesh.device}", flush=True)
+    rep = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+                num_micro=args.micro, ckpt_path=args.ckpt, mesh=mesh, verbose=rank == 0)
+    if rank == 0:
+        _report(rep)
 
 
 def main(argv=None) -> int:
@@ -28,10 +56,6 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.data_par * args.model_par > 1:
-        ap.error(f"--data-par {args.data_par} --model-par {args.model_par}: data and model "
-                 "parallelism need the sharded paths, which the port has not yet "
-                 "(ROADMAP.md Queue 1, slice F)")
 
     import torch
 
@@ -40,14 +64,26 @@ def main(argv=None) -> int:
 
     spec = get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
+    world = args.data_par * args.model_par
     n_dev = torch.cuda.device_count() if args.device.startswith("cuda") else 1
     print(f"[train] {cfg.name}: {cfg.num_layers}L d={cfg.d_model} "
-          f"vocab={cfg.vocab_size} device={args.device} devices={n_dev}")
+          f"vocab={cfg.vocab_size} device={args.device} devices={n_dev} ranks={world}",
+          flush=True)
+    if world > 1:
+        from types import SimpleNamespace
+
+        from repro_torch.launch import sharding
+        from repro_torch.launch.mesh import spawn
+        try:
+            sharding.check_layout(cfg, SimpleNamespace(
+                shape={"data": args.data_par, "model": args.model_par}))
+        except NotImplementedError as e:
+            ap.error(str(e))
+        spawn(_rank, world, (args,), device=args.device, timeout_s=24 * 3600)
+        return 0
     rep = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
                 num_micro=args.micro, ckpt_path=args.ckpt, device=args.device)
-    print(f"[train] {rep.params_m:.1f}M params; loss "
-          f"{rep.initial_loss:.4f} -> {rep.final_loss:.4f} "
-          f"({rep.steps} steps, {rep.wall_s:.1f}s)")
+    _report(rep)
     return 0
 
 

@@ -13,6 +13,8 @@ here, then ``cnn.forward``/``cnn.predict``, and no prefill, decode or cache.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch import resolve_device
 
 from . import cnn, encdec, hybrid, ssm, transformer, vlm
@@ -48,6 +50,14 @@ def _lm_module(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator, device):
     return module_for(cfg).init_params(cfg, generator, device)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The param tree of ``cfg`` as meta tensors: the shapes and dtypes,
+    no memory (what the partition rules read)."""
+    meta = torch.device("meta")
+    with meta:
+        return init_params(cfg, torch.Generator(), meta)
 
 
 def train_loss(params, batch, cfg: ModelConfig, **kw):

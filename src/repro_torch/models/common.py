@@ -165,6 +165,50 @@ def dense(p: dict, x: torch.Tensor, dtype=None) -> torch.Tensor:
     return y
 
 
+def _mm_float32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if not a.is_cuda:              # the CPU has no GEMM with a float32 output
+        return a.float() @ b.float()
+    if b.dim() == 3:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32).reshape(
+        *a.shape[:-1], b.shape[-1])
+
+
+class _Float32Products(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_float32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the incoming gradient is a half-precision one cast up (the output
+        # is cast back before it is used), so it rounds back exactly; each
+        # operand's gradient is the GEMM its own dtype gives
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ b.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        gb = None
+        if ctx.needs_input_grad[1]:
+            gb = (a.transpose(1, 2) @ g if b.dim() == 3
+                  else a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1]))
+        return ga, gb
+
+
+def float32_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a 2-D ``b``, or a batch of them against a 3-D ``a``) with
+    its float32 accumulators as the output: the partial sums that a rank of
+    a row-parallel product reduces.  Float32 operands multiply as they are.
+    On the card, half-precision operands go through their own GEMM with a
+    float32 output (``out_dtype``), at the tensor cores' rate and without
+    float32 copies of the weights; on the CPU, which has no such GEMM, they
+    are cast up."""
+    b = b.to(a.dtype)
+    if a.dtype == torch.float32:
+        return a @ b
+    return _Float32Products.apply(a, b)
+
+
 def norm_init(d: int, kind: str, dtype, device) -> dict:
     p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
     if kind == "layernorm":

@@ -33,7 +33,7 @@ from HWIO to OIHW, PyTorch's layout; everything else (``fc.w`` as
 as it is.
 
 ``to_reference`` is the inverse: the port's tree (or a tree of its
-gradients) in the reference's layout, each stack stacked again on axis 0,
+gradients, or of its partition specs) in the reference's layout, each stack stacked again on axis 0,
 as torch tensors on the tree's device (bfloat16 stays bfloat16: numpy has
 no such type without the reference's ``ml_dtypes``).  ``from_reference``
 also takes such a tree of tensors, as ``train/checkpoint.py::restore``
@@ -131,6 +131,8 @@ def _stack(layers: list):
     first = layers[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in layers]) for k in first}
+    if isinstance(first, tuple):   # a spec (launch/sharding.py): the stack is not cut
+        return (None, *first)
     return torch.stack(layers)
 
 

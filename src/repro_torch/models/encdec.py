@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, shardctx
 from .common import ModelConfig, apply_norm, dense, dense_init, norm_init, row_positions
 from .layers import (CHUNK_THRESHOLD, Q_CHUNK, _split_heads, attention_chunked, attn_init,
                      embed, embed_init, sdpa, unembed)
@@ -101,6 +101,7 @@ def encode(params, frame_embeds, cfg: ModelConfig) -> torch.Tensor:
     x = frame_embeds.to(cfg.cdt) + _sinusoid(se, cfg.d_model, frame_embeds.device).to(cfg.cdt)
     full = torch.ones((se, se), dtype=torch.bool, device=x.device)
     for lp in params["enc_layers"]:
+        x = shardctx.constrain_batch(x, seq_dim=1)
         h = apply_norm(lp["ln1"], x, "layernorm")
         x = x + _attn(lp["attn"], h, h, full, cfg)
         h = apply_norm(lp["ln2"], x, "layernorm")
@@ -132,6 +133,7 @@ def decode_full(params, tokens, enc_out, cfg: ModelConfig, on_kv=None) -> torch.
     causal = pos[None, :] <= pos[:, None]
     xfull = torch.ones((s, enc_out.shape[1]), dtype=torch.bool, device=x.device)
     for i, lp in enumerate(params["dec_layers"]):
+        x = shardctx.constrain_batch(x, seq_dim=1)
         h = apply_norm(lp["ln1"], x, "layernorm")
         q = _split_heads(dense(lp["attn"]["wq"], h), cfg.num_heads)
         k = _split_heads(dense(lp["attn"]["wk"], h), cfg.num_kv_heads)
@@ -240,6 +242,7 @@ def decode_step(params, cache: dict, token, pos, cfg: ModelConfig):
     xmask = torch.ones((1, cache["xk"].shape[2]), dtype=torch.bool, device=dev)
     for i, lp in enumerate(params["dec_layers"]):
         ck, cv = cache["k"][i], cache["v"][i]
+        x = shardctx.constrain_batch(x)
         h = apply_norm(lp["ln1"], x, "layernorm")
         q = _split_heads(dense(lp["attn"]["wq"], h), cfg.num_heads)
         k = _split_heads(dense(lp["attn"]["wk"], h), cfg.num_kv_heads)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, shardctx
 from .common import (ModelConfig, apply_norm, apply_rope, dense, dense_init,
                      norm_init, remat as checkpointed, row_positions, tensor_leaves)
 from .layers import (CHUNK_THRESHOLD, Q_CHUNK, _split_heads, attention_chunked,
@@ -237,6 +237,7 @@ def block_init(generator, kind: str, cfg: ModelConfig, device) -> dict:
 def block_apply(p, kind: str, x, positions, state, cfg: ModelConfig, *, step: bool):
     """One layer; its ``state`` is updated in place.  positions: (S,) over a
     prompt, (B,) at a decode step."""
+    x = shardctx.constrain_batch(x, seq_dim=1)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "rglru":
         a = rec_block_apply(p["rec"], h, state, cfg, step=step)

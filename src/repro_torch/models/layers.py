@@ -4,13 +4,27 @@ Plain PyTorch versions of the reference's blocks.  The two attention hot
 spots go through ``repro_torch.kernels.dispatch``: on CUDA tensors that
 launches the hand-written Hopper kernels, on CPU tensors it takes the plain
 versions below.  Activations are (B,S,H,hd); a layer's KV cache is (B,S,K,hd).
+
+Under a mesh with a ``model`` axis (``repro_torch.shardctx``) the same code
+runs on a rank's local shards, Megatron-style (``launch/sharding.py`` cuts
+them): q/k/v and the MLP's ``wi``/``wu`` column-parallel on whole heads and
+ffn columns (K1 and K2 run on the local heads), ``wo`` and ``wd``
+row-parallel, their float32 partial sums all-reduced (``row_dense``), the
+embedding sharded over the vocabulary (a masked lookup, then an
+all-reduce) and the unembedding over the vocabulary too (the logits
+all-gathered).  Whether a weight is cut is the rules' answer
+(``launch.sharding.model_cut``), and heads are counted from the weights'
+local widths.  Without a mesh every collective is the identity.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, activation, apply_rope, dense, dense_init
+from repro_torch import shardctx
+from repro_torch.launch.sharding import model_cut
+from .common import (ModelConfig, activation, apply_rope, dense, dense_init,
+                     float32_products)
 
 NEG_INF = -1e30
 # torch's CPU softmax sums a row in an order that depends on the row's
@@ -37,6 +51,27 @@ def attn_init(generator, cfg: ModelConfig, device) -> dict:
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, s, _ = x.shape
     return x.reshape(b, s, n, -1)
+
+
+def _heads(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B,S,n*hd) -> (B,S,n,hd): as many heads as the (local) width holds."""
+    b, s, _ = x.shape
+    return x.reshape(b, s, -1, cfg.resolved_head_dim)
+
+
+def row_dense(p: dict, key: str, x: torch.Tensor, full_in: int) -> torch.Tensor:
+    """``dense`` of the row-parallel weight ``p[key]`` (``wo``, ``wd``), whose
+    input dim of ``full_in`` the rules may cut over the model axis: then the
+    partial products in float32 (``float32_products``), all-reduced, cast
+    back, then the bias (the reference's GSPMD reduces its float32
+    accumulators the same way)."""
+    q = p[key]
+    if model_cut((key, "w"), (full_in, q["w"].shape[1])) is None:
+        return dense(q, x)
+    y = shardctx.reduce_from(float32_products(x, q["w"])).to(x.dtype)
+    if "b" in q:
+        y = y + q["b"].to(y.dtype)
+    return y
 
 
 def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
@@ -103,16 +138,17 @@ def attention_full(p: dict, x: torch.Tensor, positions: torch.Tensor,
     from repro_torch.kernels import dispatch
     win = cfg.attention_window if window is None else window
     s = x.shape[1]
-    q = _split_heads(dense(p["wq"], x), cfg.num_heads)
-    k = _split_heads(dense(p["wk"], x), cfg.num_kv_heads)
-    v = _split_heads(dense(p["wv"], x), cfg.num_kv_heads)
+    x = shardctx.copy_to(x)
+    q = _heads(dense(p["wq"], x), cfg)
+    k = _heads(dense(p["wk"], x), cfg)
+    v = _heads(dense(p["wv"], x), cfg)
     q = apply_rope(q, positions[None], cfg.rope_theta)
     k = apply_rope(k, positions[None], cfg.rope_theta)
     if not q.is_cuda and s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
         out = attention_chunked(q, k, v, positions, positions, win)
     else:
         out = dispatch.flash_attention(q, k, v, window=win)
-    y = dense(p["wo"], out.reshape(*x.shape[:2], -1))
+    y = row_dense(p, "wo", out.reshape(*x.shape[:2], -1), cfg.q_dim)
     if return_kv:
         return y, (k, v)
     return y
@@ -138,9 +174,10 @@ def attention_decode(p: dict, x: torch.Tensor, pos, cache_k: torch.Tensor,
     b = x.shape[0]
     s = cache_k.shape[1]
     dev = x.device
-    q = _split_heads(dense(p["wq"], x), cfg.num_heads)        # (B,1,H,hd)
-    k = _split_heads(dense(p["wk"], x), cfg.num_kv_heads)     # (B,1,K,hd)
-    v = _split_heads(dense(p["wv"], x), cfg.num_kv_heads)
+    x = shardctx.copy_to(x)
+    q = _heads(dense(p["wq"], x), cfg)        # (B,1,H,hd)
+    k = _heads(dense(p["wk"], x), cfg)        # (B,1,K,hd)
+    v = _heads(dense(p["wv"], x), cfg)
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         # per-sequence positions: rope per row, write per row, (B,S) mask.
         # Every row writes, active or not, as in the reference.
@@ -154,7 +191,7 @@ def attention_decode(p: dict, x: torch.Tensor, pos, cache_k: torch.Tensor,
         if win:
             valid &= (pos[:, None] - kv_pos[None, :]) < win
         out = dispatch.flash_decode(q, cache_k, cache_v, valid)
-        y = dense(p["wo"], out.reshape(b, 1, -1))
+        y = row_dense(p, "wo", out.reshape(b, 1, -1), cfg.q_dim)
         return y, cache_k, cache_v
     pos = int(pos)
     posv = torch.full((1, 1), pos, dtype=torch.long, device=dev)
@@ -173,7 +210,7 @@ def attention_decode(p: dict, x: torch.Tensor, pos, cache_k: torch.Tensor,
     if win:
         valid &= (pos - kv_pos) < win
     out = dispatch.flash_decode(q, att_k, att_v, valid)
-    y = dense(p["wo"], out.reshape(b, 1, -1))
+    y = row_dense(p, "wo", out.reshape(b, 1, -1), cfg.q_dim)
     return y, cache_k, cache_v
 
 
@@ -192,7 +229,8 @@ def mlp_init(generator, cfg: ModelConfig, device, d_ff: int | None = None) -> di
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = activation(cfg.act)
-    return dense(p["wd"], act(dense(p["wi"], x)) * dense(p["wu"], x))
+    x = shardctx.copy_to(x)
+    return row_dense(p, "wd", act(dense(p["wi"], x)) * dense(p["wu"], x), cfg.d_ff)
 
 
 # ----------------------------------------------------------------------
@@ -212,10 +250,28 @@ def embed_init(generator, cfg: ModelConfig, device) -> dict:
 def embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # gather, then cast: the same values as the reference's cast-then-gather
     # without a compute-dtype copy of the whole table
-    return F.embedding(tokens, p["embedding"]).to(cfg.cdt)
+    w = p["embedding"]
+    if model_cut(("embedding",), (cfg.vocab_size, cfg.d_model)) is None:
+        return F.embedding(tokens, w).to(cfg.cdt)
+    # this rank's rows of the vocabulary: a masked lookup, summed over the
+    # model axis (exact: one rank holds each token's row)
+    local = tokens - shardctx.index("model") * w.shape[0]
+    hit = (local >= 0) & (local < w.shape[0])
+    x = F.embedding(local.clamp(0, w.shape[0] - 1), w).float() * hit[..., None]
+    return shardctx.reduce_from(x).to(cfg.cdt)
 
 
 def unembed(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return x @ p["embedding"].to(x.dtype).T
-    return dense(p["unembed"], x)
+    """-> logits (..., V).  With the vocabulary cut over the model axis, a
+    rank's logits columns are all-gathered (in float32, exact) into the
+    whole row on every rank."""
+    w = p["embedding"] if cfg.tie_embeddings else p["unembed"]["w"]
+    keys, shape = ((("embedding",), (cfg.vocab_size, cfg.d_model)) if cfg.tie_embeddings
+                   else (("unembed", "w"), (cfg.d_model, cfg.vocab_size)))
+    if model_cut(keys, shape) is None:
+        if cfg.tie_embeddings:
+            return x @ w.to(x.dtype).T
+        return dense(p["unembed"], x)
+    x = shardctx.copy_to(x)
+    local = x @ w.to(x.dtype).T if cfg.tie_embeddings else dense(p["unembed"], x)
+    return shardctx.gather_from(local.float(), "model", -1).to(local.dtype)

@@ -22,9 +22,25 @@ Nothing here syncs with the host: group size and capacity are Python ints
 fixed by the shapes, the drop is a spill row of the buffer that is cut off,
 and the combine is deterministic (a sum over the k axis in (token, choice)
 order, not an atomic add), so the layer can be captured into a CUDA graph
-and its replay gives the uncaptured step's values bit for bit.  The
-expert-parallel ``shard_map`` of the reference is not ported (ROADMAP.md
-Queue 1, slice F).
+and its replay gives the uncaptured step's values bit for bit.
+
+Under a mesh with a ``model`` axis (``repro_torch.shardctx``), the
+counterpart of the reference's explicit-collective ``_moe_shard_map``: each
+rank routes its own rows (the data axes' local batch) in groups, as the
+reference's ``shard_map`` body does, and
+
+* EP (``num_experts % model == 0``): the rank holds ``E/model`` experts,
+  ``e0 = rank * E_local`` the first, and dispatches only the choices routed
+  to them; the rest are dropped here and computed by their owner;
+* TP-f (otherwise, ``d_ff % model == 0``): the rank holds an ``f/model``
+  slice of every expert and runs the whole dispatch on it;
+
+either way its (E, G, C, d) buffers stay on the rank, and one all-reduce of
+the float32 activation-sized partial output combines the ranks.  The
+router is replicated and its gates enter the rank's combine through
+``shardctx.copy_to``, so that its gradient is whole on every rank.  The
+load-balance loss is taken over the tokens of every data rank (the
+expert counts all-reduced over the data axes).
 """
 from __future__ import annotations
 
@@ -32,7 +48,10 @@ import math
 
 import torch
 
-from .common import ModelConfig, activation, dense_init
+from repro_torch import shardctx
+from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.sharding import model_cut
+from .common import ModelConfig, activation, dense_init, float32_products
 
 DEFAULT_GROUP = 4096
 
@@ -61,8 +80,15 @@ def capacity(group_size: int, cfg: ModelConfig) -> int:
     return max(c, 1)
 
 
-def _route_groups(xg, idx, gate, wi, wu, wd, cfg: ModelConfig, cap: int):
-    """Every group at once: xg (G,gs,d), idx/gate (G,gs,k) -> (G,gs,d)."""
+def _route_groups(xg, idx, gate, wi, wu, wd, cfg: ModelConfig, cap: int, *,
+                  e0: int = 0, partial: bool = False, ffn_cut: bool = False):
+    """Every group at once: xg (G,gs,d), idx/gate (G,gs,k) -> (G,gs,d).
+
+    ``wi`` may hold only a local slice of the experts (expert parallelism):
+    ``e0`` is this rank's first expert id; choices routed elsewhere are
+    dropped here.  With ``partial`` the output is this rank's float32 share
+    of the sum (its experts, or with ``ffn_cut`` its ffn slice), for the
+    all-reduce."""
     g, gs, d = xg.shape
     e, k = wi.shape[0], cfg.num_experts_per_tok
     n, dev = gs * k, xg.device
@@ -74,8 +100,9 @@ def _route_groups(xg, idx, gate, wi, wu, wd, cfg: ModelConfig, cap: int):
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     ranks = torch.arange(n, device=dev) - first                # slot, in sorted order
     pos = torch.empty_like(ranks).scatter_(1, order, ranks)    # back in (token, choice) order
-    valid = pos < cap
-    slot = (eflat * g + torch.arange(g, device=dev)[:, None]) * cap + pos
+    local = eflat - e0                                         # the local expert index
+    valid = (pos < cap) & (local >= 0) & (local < e)
+    slot = (local * g + torch.arange(g, device=dev)[:, None]) * cap + pos
     spill = e * g * cap                                        # the row dropped pairs go to
     dest = torch.where(valid, slot, spill)
 
@@ -84,10 +111,16 @@ def _route_groups(xg, idx, gate, wi, wu, wd, cfg: ModelConfig, cap: int):
     buf = buf[:spill].view(e, g * cap, d)
 
     h = act(torch.bmm(buf, wi)) * torch.bmm(buf, wu)
-    yb = torch.bmm(h, wd).reshape(spill, d)
+    if ffn_cut:
+        # an ffn slice: the down projection's partial sums in float32
+        yb = float32_products(h, wd).reshape(spill, d)
+    else:
+        yb = torch.bmm(h, wd).reshape(spill, d)
 
-    gflat = gate.reshape(g, n).to(cfg.cdt) * valid.to(cfg.cdt)
+    gflat = gate.reshape(g, n).to(yb.dtype) * valid.to(yb.dtype)
     contrib = yb[torch.where(valid, slot, 0)] * gflat[..., None]
+    if partial:
+        return contrib.float().view(g, gs, k, d).sum(dim=2)
     # The reference adds each pair into its token's row in sorted order
     # (``y.at[tok].add``); this sums a token's k choices in choice order.
     # The two differ by rounding only (within 1e-5 at float32), and this
@@ -95,8 +128,10 @@ def _route_groups(xg, idx, gate, wi, wu, wd, cfg: ModelConfig, cap: int):
     return contrib.view(g, gs, k, d).sum(dim=2)
 
 
-def _dispatch_all_groups(xt, rw, wi, wu, wd, cfg: ModelConfig, group_size: int):
-    """xt: (T, d) -> (T, d) MoE output."""
+def _dispatch_all_groups(xt, rw, wi, wu, wd, cfg: ModelConfig, group_size: int, *,
+                         e0: int = 0, partial: bool = False, ffn_cut: bool = False):
+    """xt: (T, d) -> (T, d) MoE output (with ``partial``, this rank's
+    float32 share of it: the experts or the ffn slice it holds)."""
     t, d = xt.shape
     gs = min(t, group_size)
     if t % gs:
@@ -107,7 +142,12 @@ def _dispatch_all_groups(xt, rw, wi, wu, wd, cfg: ModelConfig, group_size: int):
     probs = torch.softmax(xg.float() @ rw, dim=-1)             # (G,gs,E)
     gate, idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    return _route_groups(xg, idx, gate, wi, wu, wd, cfg, cap).reshape(t, d)
+    if partial:
+        # the router and the tokens are replicated over the model axis and
+        # enter this rank's share of the experts here
+        xg, gate = shardctx.copy_to(xg), shardctx.copy_to(gate)
+    return _route_groups(xg, idx, gate, wi, wu, wd, cfg, cap, e0=e0,
+                         partial=partial, ffn_cut=ffn_cut).reshape(t, d)
 
 
 def _aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -118,7 +158,15 @@ def _aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     _, idx = torch.topk(probs, k, dim=-1)
     counts = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
         0, idx.reshape(-1), torch.ones((t * k,), dtype=torch.float32, device=x.device))
-    frac_tokens = counts / float(t * k)
+    # Under data axes: the token fractions over every rank's tokens; the
+    # probs' mean stays this rank's, whose mean over the ranks is the
+    # reference's global loss, and whose gradient, averaged as the data
+    # ranks' gradients are, is its gradient.
+    mesh = shardctx.get_mesh()
+    dax = data_axes(mesh) if mesh is not None else ()
+    t_all = t * shardctx.size(dax)
+    counts = shardctx.all_reduce(counts, dax)
+    frac_tokens = counts / float(t_all * k)
     frac_probs = probs.mean(dim=0)
     return e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_weight
 
@@ -128,8 +176,16 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, S, d) -> (B, S, d), the layer's output without its loss (what
     the prefill and the decode step run)."""
     b, s, d = x.shape
-    y = _dispatch_all_groups(x.reshape(b * s, d), p["router"]["w"], p["wi"].to(cfg.cdt),
-                             p["wu"].to(cfg.cdt), p["wd"].to(cfg.cdt), cfg, group_size)
+    wi = p["wi"]
+    # the rules cut the experts (EP, dim 0) or each one's ffn (TP-f, dim 2)
+    cut = model_cut(("moe", "wi"), (cfg.num_experts, d, cfg.d_ff))
+    sharded = cut is not None
+    e0 = shardctx.index("model") * wi.shape[0] if cut == 0 else 0
+    y = _dispatch_all_groups(x.reshape(b * s, d), p["router"]["w"], wi.to(cfg.cdt),
+                             p["wu"].to(cfg.cdt), p["wd"].to(cfg.cdt), cfg, group_size,
+                             e0=e0, partial=sharded, ffn_cut=cut == 2)
+    if sharded:
+        y = shardctx.reduce_from(y)
     return y.reshape(b, s, d).to(x.dtype)
 
 

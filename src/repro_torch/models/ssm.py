@@ -20,16 +20,31 @@ donated cache).  ``train_loss`` runs a functional copy of the layer
 (``_train_layer``): each layer starts from the zero state and writes no
 state, so autograd differentiates K3 through K3-bwd
 (``kernels/dispatch.WKV6``) and nothing is overwritten in place.
+
+Under a mesh with a ``model`` axis (``repro_torch.shardctx``) a rank holds
+the reference rules' shards (``launch/sharding.py``): ``wr``/``wk``/``wv``/
+``wg`` column-parallel by heads, ``u`` and the WKV state by heads, ``wo``
+row-parallel (its float32 partial sums all-reduced), and K3 runs on the
+rank's heads.  The rules cut two more weights whose outputs are then
+gathered: ``mix_w1`` (in their column set, so the token-shift LoRA's
+output is cut over its rank) and the channel mix's ``wv``, a down
+projection ``(f, d)`` in the column set by name (so its ``d`` columns are
+cut: the channel mix gathers its ``f`` hidden units before it and its
+output after it).  The state's token shifts are cut over ``d`` by the
+cache rules: each layer gathers them and keeps its slice of the new ones.
+The decay and the group norm are computed whole and sliced to the rank's
+heads.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, shardctx
 from repro_torch.kernels import dispatch
+from repro_torch.launch.sharding import model_cut
 from .common import ModelConfig, apply_norm, dense, dense_init, norm_init, remat as checkpointed
-from .layers import embed, embed_init, unembed
+from .layers import embed, embed_init, row_dense, unembed
 from .transformer import softmax_xent
 
 MIX_KEYS = ("r", "k", "v", "w", "g")
@@ -110,7 +125,13 @@ def _ddlerp(p, x, xprev, cfg):
     """Data-dependent token-shift: returns dict of mixed inputs for r,k,v,w,g."""
     delta = xprev - x
     xx = x + delta * p["mu_x"].to(x.dtype)
-    stacked = torch.tanh(torch.einsum("btd,dfl->fbtl", xx, p["mix_w1"].to(x.dtype)))
+    w1 = p["mix_w1"]
+    cut = model_cut(("mix_w1",), (cfg.d_model, len(MIX_KEYS), cfg.rwkv_mix_lora)) is not None
+    if cut:                                      # the LoRA width cut over "model"
+        xx = shardctx.copy_to(xx)
+    stacked = torch.tanh(torch.einsum("btd,dfl->fbtl", xx, w1.to(x.dtype)))
+    if cut:
+        stacked = shardctx.gather_from(stacked, "model", -1)
     adj = torch.einsum("fbtl,fld->fbtd", stacked, p["mix_w2"].to(x.dtype))
     return {key: x + delta * (p["mu"][i].to(x.dtype) + adj[i])
             for i, key in enumerate(MIX_KEYS)}
@@ -121,25 +142,32 @@ def time_mix(p, x, state_wkv, shift_prev, cfg: ModelConfig, *, out_state=None):
     wkv state is written into ``out_state`` when given (it may be
     ``state_wkv``: the kernel updates the state in place)."""
     b, t, d = x.shape
-    h = cfg.num_heads
-    hd = d // h
+    hd = d // cfg.num_heads
     xprev = _shift(x, shift_prev)
     m = _ddlerp(p, x, xprev, cfg)
-    r = dense(p["wr"], m["r"]).reshape(b, t, h, hd).float()
-    k = dense(p["wk"], m["k"]).reshape(b, t, h, hd).float()
-    v = dense(p["wv"], m["v"]).reshape(b, t, h, hd).float()
-    g = F.silu(dense(p["wg"], m["g"]))
+
+    def heads(key):
+        return dense(p[key], shardctx.copy_to(m[key[1]])).reshape(b, t, -1, hd)
+
+    r, k, v = (heads(key).float() for key in ("wr", "wk", "wv"))
+    g = F.silu(dense(p["wg"], shardctx.copy_to(m["g"])))
     dec = p["w0"] + torch.tanh(m["w"].float() @ p["decay_w1"].float()) \
         @ p["decay_w2"].float()
-    w = torch.exp(-torch.exp(dec)).reshape(b, t, h, hd)          # (0,1) decay
+    w = torch.exp(-torch.exp(dec))                               # (0,1) decay
+    gn_scale, gn_bias = p["gn"]["scale"].float(), p["gn"]["bias"].float()
+    if model_cut(("wr", "w"), (d, d)) is not None:
+        # whole on every rank; this rank's heads of them
+        w, gn_scale, gn_bias = (shardctx.local_slice(shardctx.copy_to(z), "model", -1)
+                                for z in (w, gn_scale, gn_bias))
+    w = w.reshape(b, t, -1, hd).contiguous()
     o, state_wkv = dispatch.rwkv_scan(r, k, v, w, p["u"].float(), state_wkv,
                                       out_state=out_state)
     # per-head group norm, population variance
     mu = o.mean(-1, keepdim=True)
     var = o.var(-1, keepdim=True, unbiased=False)
     o = (o - mu) * torch.rsqrt(var + GROUP_NORM_EPS)
-    o = o.reshape(b, t, d) * p["gn"]["scale"].float() + p["gn"]["bias"].float()
-    out = dense(p["wo"], o.to(x.dtype) * g)
+    o = o.reshape(b, t, -1) * gn_scale + gn_bias
+    out = row_dense(p, "wo", o.to(x.dtype) * g, d)
     return out, state_wkv, x[:, -1]
 
 
@@ -147,23 +175,48 @@ def channel_mix(p, x, shift_prev, cfg: ModelConfig):
     xprev = _shift(x, shift_prev)
     xk = x + (xprev - x) * p["mu_k"].to(x.dtype)
     xr = x + (xprev - x) * p["mu_r"].to(x.dtype)
-    k = torch.square(F.relu(dense(p["wk"], xk)))
-    kv = dense(p["wv"], k)
-    return torch.sigmoid(dense(p["wr"], xr)) * kv, x[:, -1]
+    k = torch.square(F.relu(dense(p["wk"], shardctx.copy_to(xk))))
+    d = x.shape[-1]
+    if model_cut(("wk", "w"), (d, cfg.d_ff)) is not None:
+        k = shardctx.gather_from(k, "model", -1)
+    kv = dense(p["wv"], shardctx.copy_to(k))
+    out = torch.sigmoid(dense(p["wr"], shardctx.copy_to(xr))) * kv
+    if model_cut(("wv", "w"), (cfg.d_ff, d)) is not None:   # and wr's, as wide
+        out = shardctx.gather_from(out, "model", -1)
+    return out, x[:, -1]
 
 
 def _layer(x, lp, state, cfg: ModelConfig):
     """One layer; ``state`` holds this layer's (B,...) views of the stacked
     state, which are updated in place.  -> x."""
+    x = shardctx.constrain_batch(x, seq_dim=1)
     h = apply_norm(lp["ln1"], x, "layernorm")
-    a, _, sh_t = time_mix(lp["tmix"], h, state["wkv"], state["shift_t"], cfg,
+    a, _, sh_t = time_mix(lp["tmix"], h, state["wkv"], _whole(state, "shift_t", x), cfg,
                           out_state=state["wkv"])
     x = x + a
     h = apply_norm(lp["ln2"], x, "layernorm")
-    c, sh_c = channel_mix(lp["cmix"], h, state["shift_c"], cfg)
-    state["shift_t"].copy_(sh_t)
-    state["shift_c"].copy_(sh_c)
+    c, sh_c = channel_mix(lp["cmix"], h, _whole(state, "shift_c", x), cfg)
+    state["shift_t"].copy_(_mine(sh_t, "shift_t"))
+    state["shift_c"].copy_(_mine(sh_c, "shift_c"))
     return x + c
+
+
+def _shift_cut(name: str, d: int) -> bool:
+    """Whether the cache rules cut the state's token shift ``name`` over
+    the model axis."""
+    return model_cut((name,), (1, 1, d), cache=True) is not None
+
+
+def _whole(state, name: str, x):
+    """The token shift ``name`` of the state (B, d), gathered when the cache
+    rules cut it."""
+    shift = state[name]
+    return shardctx.gather_from(shift, "model", -1) if _shift_cut(name, x.shape[-1]) else shift
+
+
+def _mine(new, name: str):
+    """The part of the whole new token shift that this rank's state holds."""
+    return shardctx.local_slice(new, "model", -1) if _shift_cut(name, new.shape[-1]) else new
 
 
 def _train_layer(x, lp, cfg: ModelConfig):
@@ -172,7 +225,8 @@ def _train_layer(x, lp, cfg: ModelConfig):
     b, _, d = x.shape
     hd = d // cfg.num_heads
     shift = torch.zeros((b, d), dtype=cfg.cdt, device=x.device)
-    wkv0 = torch.zeros((b, cfg.num_heads, hd, hd), dtype=torch.float32, device=x.device)
+    heads = lp["tmix"]["u"].shape[0]             # this rank's heads
+    wkv0 = torch.zeros((b, heads, hd, hd), dtype=torch.float32, device=x.device)
     h = apply_norm(lp["ln1"], x, "layernorm")
     a, _, _ = time_mix(lp["tmix"], h, wkv0, shift, cfg)
     x = x + a
@@ -214,6 +268,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int = 0, dtype=None,
     }
 
 
+def _fresh_state(cfg: ModelConfig, batch: int, device) -> dict:
+    """A zero state of ``batch`` rows; under a model axis, this rank's
+    shards of it, cut where the cache rules cut it."""
+    state = init_cache(cfg, batch, device=device)
+    for name, t in state.items():
+        dim = model_cut((name,), tuple(t.shape), cache=True)
+        if dim is not None:
+            state[name] = shardctx.local_slice(t, "model", dim).contiguous()
+    return state
+
+
 def _hidden(params, tokens, cfg: ModelConfig, state: dict):
     """The layer stack over tokens (B,T), carrying ``state`` in place.
     -> final hidden states before the norm."""
@@ -228,7 +293,7 @@ def forward(params, tokens, cfg: ModelConfig, *, state=None, return_state: bool 
     """tokens: (B,T) int.  -> (logits (B,T,V), aux 0), or (logits, state)
     with ``return_state``.  A given ``state`` is updated in place."""
     if state is None:
-        state = init_cache(cfg, tokens.shape[0], device=tokens.device)
+        state = _fresh_state(cfg, tokens.shape[0], tokens.device)
     x = _hidden(params, tokens, cfg, state)
     x = apply_norm(params["final_norm"], x, "layernorm")
     logits = unembed(params["embed"], x, cfg)
@@ -256,7 +321,7 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None, *,
                          "prefill takes exact-length prompts (last_pos=None)")
     b, s = tokens.shape
     if cache is None:
-        cache = init_cache(cfg, b, device=tokens.device)
+        cache = _fresh_state(cfg, b, tokens.device)
     else:
         if cache["wkv"].shape[1] != b:
             raise ValueError(f"the state holds {cache['wkv'].shape[1]} rows, "

@@ -7,12 +7,16 @@ written in place.  A MoE config (``num_experts > 0``) has a ``moe`` layer
 (``models/moe.py``) where a dense one has its ``mlp``; only ``forward``
 computes the MoE load-balance loss, as only the reference's training reads
 it (its jitted prefill and decode drop it as dead code).
+
+Under a mesh (``repro_torch.shardctx``) the params and the cache are a
+rank's local shards and the batch its local rows; the tensor-parallel
+collectives are in ``layers.py`` and ``moe.py``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, shardctx
 
 from . import moe
 from .common import ModelConfig, apply_norm, norm_init, remat as checkpointed
@@ -65,6 +69,7 @@ def _ffn(lp, h, cfg: ModelConfig, aux: list | None = None):
 
 
 def _block(x, lp, positions, cfg: ModelConfig, aux: list | None = None):
+    x = shardctx.constrain_batch(x, seq_dim=1)
     h = apply_norm(lp["ln1"], x, cfg.norm)
     a, kv = attention_full(lp["attn"], h, positions, cfg, return_kv=True)
     x = x + a
@@ -198,6 +203,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos, cfg: ModelConfig)
     where cache is the argument, updated in place."""
     x = embed(params["embed"], token[:, None], cfg).to(cfg.cdt)
     for i, lp in enumerate(params["layers"]):
+        x = shardctx.constrain_batch(x)
         h = apply_norm(lp["ln1"], x, cfg.norm)
         a, _, _ = attention_decode(lp["attn"], h, pos, cache["k"][i],
                                    cache["v"][i], cfg)

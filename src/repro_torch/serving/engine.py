@@ -25,9 +25,20 @@ the reference's scan carries them traced.  ``generate`` replays it
 ``n_new - 1`` times and syncs with the host once, at the end;
 ``generate_stream`` replays the same step with a sync per token, for
 per-token latency.
+
+With a ``mesh`` (``launch/mesh.py``) every rank of the mesh builds the
+engine and calls ``generate`` or ``generate_stream`` with the same prompt:
+the params are cut by ``launch/sharding.py::param_pspecs`` and the cache by
+``cache_pspecs`` into the rank's local shards, the prompt's rows by
+``batch_pspec``, and the model's collectives run on the ambient mesh
+(``repro_torch.shardctx``).  The steps run uncaptured there (gloo's
+collectives cannot be captured into a CUDA graph), through the same static
+buffers, and the sampled tokens are gathered over the data axes, so every
+rank returns the whole batch's tokens.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -35,7 +46,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device, synchronize
+from repro_torch import resolve_device, shardctx, synchronize
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig, count_params
 from repro_torch.serving.graphs import BLOCK, DecodeGraph, PrefillGraph
@@ -58,22 +71,34 @@ class GenerateResult:
 
 class InferenceEngine:
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, max_cache: int = 256,
-                 params: dict | None = None, device="cuda"):
+                 params: dict | None = None, device="cuda", mesh=None):
         """``params`` (from ``repro_torch.models.convert.from_reference``, or
-        another engine's) replaces the seeded random draw."""
+        another engine's) replaces the seeded random draw.  With ``mesh``
+        the params (drawn, or given whole) are cut into this rank's shards
+        on the mesh's device, and ``device`` is the mesh's."""
         self.cfg = cfg
         self.max_cache = max_cache
+        self.mesh = mesh
+        if mesh is not None:
+            sharding.check_layout(cfg, mesh)
+            device = mesh.device
         self.device = resolve_device(device)
         t0 = time.perf_counter()
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = api.init_params(cfg, gen, self.device)
+        if mesh is not None:
+            self.pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh)
+            params = sharding.shard_tree(params, self.pspecs, mesh)
         self.params = params
         synchronize(self.device)
         self.load_s = time.perf_counter() - t0
         # the family's cache at batch ``_batch``, reused while the batch holds,
         # and the audio or vlm family's zero frontend embeddings at that batch
         self._cache, self._batch, self._modal = None, 0, {}
+        # under a mesh: the ranks the current request's rows are cut over
+        # (and the cache's), and the rows' spec
+        self._rows_cut, self._cache_cut, self._row_spec = 1, 1, (None,)
         # decode steps over that cache, by (batch, temperature)
         self._graphs: dict[tuple, DecodeGraph] = {}
         self._captures = 0
@@ -92,16 +117,53 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def _cache_for(self, batch: int) -> dict:
         """The preallocated cache at ``batch`` rows, and the modal buffers."""
-        if self._cache is None or self._batch != batch:
+        if self._cache is None or (self._batch, self._cache_cut) != (batch, self._rows_cut):
             self._cache = None   # free the old one, and the graphs captured on it
             self._graphs.clear()
             self._prefills.clear()
-            self._cache = api.init_cache(self.cfg, batch, self.max_cache,
-                                         device=self.device)
+            self._cache = self._new_cache(batch)
             self._batch, self._modal = batch, self._add_modal(batch)
+            self._cache_cut = self._rows_cut
             if self.device.type == "cuda":
                 self._pool = torch.cuda.graph_pool_handle()
         return self._cache
+
+    def _new_cache(self, batch: int) -> dict:
+        """A zeroed cache of ``batch`` rows; with a mesh, this rank's shard
+        of the cache of the whole batch, whose rows are this rank's
+        (``batch`` is the rank's count of them)."""
+        if self.mesh is None:
+            return api.init_cache(self.cfg, batch, self.max_cache, device=self.device)
+        whole = batch * self._rows_cut
+        abs_cache = api.init_cache(self.cfg, whole, self.max_cache, device="meta")
+        specs = sharding.cache_pspecs(abs_cache, self.cfg, self.mesh, batch=whole)
+        sharding.check_cache(specs, abs_cache, self.cfg, batch=whole)
+        return sharding.local_zeros(abs_cache, specs, self.mesh)
+
+    @contextlib.contextmanager
+    def _on_mesh(self, batch: int):
+        """The ambient mesh for a request of ``batch`` rows (nothing
+        without a mesh), and whether ``batch_pspec`` cuts its rows."""
+        if self.mesh is None:
+            yield
+            return
+        spec = sharding.batch_pspec((batch,), self.mesh)
+        self._rows_cut = self.mesh.size(spec[0]) if spec[0] is not None else 1
+        self._row_spec = spec
+        with shardctx.use_mesh(self.mesh):
+            yield
+
+    def _local_rows(self, tokens):
+        """This rank's rows of the prompt (all of them without a mesh)."""
+        if self.mesh is None:
+            return tokens
+        return sharding.shard(torch.as_tensor(tokens), self._row_spec + (None,), self.mesh)
+
+    def _all_rows(self, toks: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sampled tokens of every rank's rows, along ``dim``."""
+        if self.mesh is None or self._rows_cut == 1:
+            return toks
+        return shardctx.all_gather(toks, data_axes(self.mesh), dim)
 
     def _add_modal(self, batch: int) -> dict:
         """The stubbed frontend's inputs, zeros as the reference's
@@ -134,7 +196,8 @@ class InferenceEngine:
                 return nxt, nxt, pos + 1
 
             step = DecodeGraph(batch, self.device, advance, generator=gen)
-            step.capture()
+            if self.mesh is None:
+                step.capture()
             self._graphs[key] = step
             self._captures += step.captured
         return self._graphs[key]
@@ -160,7 +223,8 @@ class InferenceEngine:
 
             graph = PrefillGraph(batch, length, cfg.vocab_size, cfg.cdt, self.device,
                                  prefill, pool=self._pool)
-            graph.capture()
+            if self.mesh is None:
+                graph.capture()
             self._prefills[key] = graph
             self._prefill_captures += graph.captured
         return self._prefills[key]
@@ -193,12 +257,14 @@ class InferenceEngine:
         card) — the modern 'cold start', as the reference's warmup compiles
         its prefill and decode."""
         t0 = time.perf_counter()
-        tokens = torch.zeros((batch, prompt_len), dtype=torch.long)
-        step = self._decoder(batch, 0.0)
-        self._prefill(tokens, None, self.max_cache)
-        self._shapes["decode"].add(batch)
-        step.start(tokens[:, -1], prompt_len)
-        step.replay()
+        with self._on_mesh(batch):
+            tokens = self._local_rows(torch.zeros((batch, prompt_len), dtype=torch.long))
+            b = tokens.shape[0]
+            step = self._decoder(b, 0.0)
+            self._prefill(tokens, None, self.max_cache)
+            self._shapes["decode"].add(b)
+            step.start(tokens[:, -1], prompt_len)
+            step.replay()
         synchronize(self.device)
         self.compile_s = time.perf_counter() - t0
         self.compiled = True
@@ -229,6 +295,11 @@ class InferenceEngine:
         temperature decoding of n_new tokens: ``n_new - 1`` replays of the
         decode step, one host sync for the decode."""
         tokens, last_pos, cache_len = self._prompt(tokens, n_new)
+        with self._on_mesh(tokens.shape[0]):
+            return self._generate(self._local_rows(tokens), last_pos, cache_len, n_new,
+                                  temperature, seed)
+
+    def _generate(self, tokens, last_pos, cache_len, n_new, temperature, seed):
         b = tokens.shape[0]
         s = tokens.shape[1] if last_pos is None else last_pos + 1
         step = self._decoder(b, temperature) if n_new > 1 else None
@@ -246,7 +317,8 @@ class InferenceEngine:
             for i in range(1, n_new, BLOCK):
                 n = min(BLOCK, n_new - i)
                 toks[i:i + n] = step.run(n)
-        toks = toks.T.cpu()      # the single host sync
+        toks = self._all_rows(toks, 1).T.cpu()      # the single host sync
+        b = toks.shape[0]
         decode_s = time.perf_counter() - t0
         tps = (b * max(n_new - 1, 1)) / max(decode_s, 1e-9)
         return GenerateResult(tokens=toks, prefill_s=prefill_s,
@@ -258,6 +330,11 @@ class InferenceEngine:
         sync per token, for per-token latency.  Emits the same tokens as
         ``generate``."""
         tokens, last_pos, cache_len = self._prompt(tokens, n_new)
+        with self._on_mesh(tokens.shape[0]):
+            return self._generate_stream(self._local_rows(tokens), last_pos, cache_len,
+                                         n_new, temperature, seed)
+
+    def _generate_stream(self, tokens, last_pos, cache_len, n_new, temperature, seed):
         b = tokens.shape[0]
         s = tokens.shape[1] if last_pos is None else last_pos + 1
         step = self._decoder(b, temperature) if n_new > 1 else None
@@ -279,8 +356,12 @@ class InferenceEngine:
             walls.append(now - prev)
             prev = now
         decode_s = time.perf_counter() - t0
+        toks = torch.stack(out, dim=1)
+        if self._rows_cut > 1:
+            toks = self._all_rows(toks.to(self.device), 0).cpu()
+        b = toks.shape[0]
         tps = (b * max(n_new - 1, 1)) / max(decode_s, 1e-9)
-        return GenerateResult(tokens=torch.stack(out, dim=1), prefill_s=prefill_s,
+        return GenerateResult(tokens=toks, prefill_s=prefill_s,
                               decode_s=decode_s, tokens_per_s=tps,
                               token_walls=walls)
 

@@ -1,0 +1,220 @@
+"""The ambient mesh, and the counted collectives that model code runs on it.
+
+The counterpart of the reference's ``repro/shardctx.py``.  The reference
+installs a mesh and lets GSPMD insert the collectives; here every rank
+holds plain local shards (``launch/sharding.py`` cuts them), the entry
+points install the rank's ``launch.mesh.Mesh`` with ``use_mesh``, and the
+model code calls the collectives below where Megatron-style tensor
+parallelism needs them:
+
+* ``copy_to(x, axes)``: identity forward, all-reduce of the gradient
+  backward, where a replicated activation enters rank-specific work;
+* ``reduce_from(x, axes)``: all-reduce forward, identity backward, where
+  row-parallel partial sums (float32 accumulators) become whole;
+* ``gather_from(x, axes, dim)``: all-gather forward, the rank's slice of
+  the gradient backward, where a sharded activation becomes whole;
+* ``gather_shards(x, axes, dim)``: all-gather forward, reduce-scatter of
+  the gradient backward (FSDP's weights).
+
+Without a mesh, or on an axis of size 1, each is the identity.  Every
+collective records ``(kind, count, bytes per rank)`` in ``COUNTS``, the
+bytes being what one rank's link moves in a ring, as the reference's
+``core/distributed.py::plan_shards`` counts them: an all-reduce of S bytes
+``2 * S * (N-1)/N``, an all-gather to a whole of S bytes ``S * (N-1)/N``, a
+reduce-scatter of S bytes ``S * (N-1)/N``.
+
+``constrain_batch`` keeps the reference's call sites: there it pins the
+batch dim of an activation to the data axes; here the entry points split
+the batch before the model runs, so it is the identity on local tensors.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+import torch
+import torch.distributed as dist
+
+_CTX = {"mesh": None}
+
+# kind -> [count, bytes per rank]
+COUNTS: dict[str, list] = {}
+
+
+def set_mesh(mesh) -> None:
+    _CTX["mesh"] = mesh
+
+
+def get_mesh():
+    return _CTX["mesh"]
+
+
+@contextmanager
+def use_mesh(mesh):
+    prev = _CTX["mesh"]
+    set_mesh(mesh)
+    try:
+        yield
+    finally:
+        _CTX["mesh"] = prev
+
+
+def constrain_batch(x, *, batch_dim: int = 0, seq_dim: int | None = None):
+    """The reference pins ``x``'s batch dim over the data axes here; the
+    port's entry points split the batch before the model runs (every
+    tensor here is a rank's local rows), so this is the identity."""
+    return x
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+
+
+def counts() -> dict:
+    """{kind: (count, bytes per rank)} since the last ``reset_counts``."""
+    return {k: (int(n), float(b)) for k, (n, b) in COUNTS.items()}
+
+
+def _record(kind: str, nbytes: float) -> None:
+    entry = COUNTS.setdefault(kind, [0, 0.0])
+    entry[0] += 1
+    entry[1] += nbytes
+
+
+def size(axes) -> int:
+    """The number of ranks over ``axes`` of the ambient mesh (1 without)."""
+    mesh = _CTX["mesh"]
+    return 1 if mesh is None else mesh.size(axes)
+
+
+def index(axes) -> int:
+    """This rank's index over ``axes`` of the ambient mesh (0 without)."""
+    mesh = _CTX["mesh"]
+    return 0 if mesh is None else mesh.index(axes)
+
+
+def local_slice(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's equal chunk of ``x`` along ``dim`` over ``axes``."""
+    n = size(axes)
+    if n == 1:
+        return x
+    return x.chunk(n, dim)[index(axes)]
+
+
+# ----------------------------------------------------------------------
+# the collectives (no autograd): sums over the group of ``axes``
+# ----------------------------------------------------------------------
+
+def all_reduce(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, a new tensor."""
+    n = size(axes)
+    if n == 1:
+        return x
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, group=_CTX["mesh"].group(axes))
+    _record("all-reduce", 2.0 * y.numel() * y.element_size() * (n - 1) / n)
+    return y
+
+
+def all_gather(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+    n = size(axes)
+    if n == 1:
+        return x
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=_CTX["mesh"].group(axes))
+    _record("all-gather", float(n * x.numel() * x.element_size()) * (n - 1) / n)
+    return torch.cat(parts, dim)
+
+
+def reduce_scatter(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of ``x`` over the ranks of
+    ``axes``.  NCCL has the collective; gloo has none for CUDA tensors, so
+    with gloo it is an all-reduce and this rank's slice (which moves the
+    all-reduce's bytes; the count records the reduce-scatter's ring
+    bytes, the layout's own)."""
+    n = size(axes)
+    if n == 1:
+        return x
+    mesh = _CTX["mesh"]
+    x = x.detach().contiguous()
+    _record("reduce-scatter", float(x.numel() * x.element_size()) * (n - 1) / n)
+    if mesh.backend == "nccl":
+        moved = x.movedim(dim, 0).contiguous()
+        out = torch.empty((moved.shape[0] // n, *moved.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, moved, group=mesh.group(axes))
+        return out.movedim(0, dim).contiguous()
+    y = x.clone()
+    dist.all_reduce(y, group=mesh.group(axes))
+    return y.chunk(n, dim)[mesh.index(axes)].contiguous()
+
+
+# ----------------------------------------------------------------------
+# the autograd pairs of tensor and fully sharded data parallelism
+# ----------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axes), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        return all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim = axes, dim
+        return all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_slice(g, ctx.axes, ctx.dim).contiguous(), None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim, ctx.dtype = axes, dim, x.dtype
+        return all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # summed over the data ranks in float32, as the gradient accumulators
+        return reduce_scatter(g.float(), ctx.axes, ctx.dim).to(ctx.dtype), None, None
+
+
+def copy_to(x: torch.Tensor, axes="model") -> torch.Tensor:
+    """Identity forward; the gradient all-reduced over ``axes`` backward."""
+    return x if size(axes) == 1 else _CopyTo.apply(x, axes)
+
+
+def reduce_from(x: torch.Tensor, axes="model") -> torch.Tensor:
+    """All-reduce (sum) over ``axes`` forward; the gradient as it is backward."""
+    return x if size(axes) == 1 else _ReduceFrom.apply(x, axes)
+
+
+def gather_from(x: torch.Tensor, axes="model", dim: int = -1) -> torch.Tensor:
+    """All-gather along ``dim`` over ``axes`` forward; the rank's slice of the
+    gradient backward."""
+    return x if size(axes) == 1 else _GatherFrom.apply(x, axes, dim % x.dim())
+
+
+def gather_shards(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` over ``axes`` forward; the gradient
+    reduce-scattered (summed) over them backward."""
+    return x if size(axes) == 1 else _GatherShards.apply(x, axes, dim % x.dim())

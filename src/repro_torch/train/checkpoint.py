@@ -9,6 +9,14 @@ stacked on axis 0 (``models/convert.py::to_reference``), for a reference
 checkpoint to restore here and a port checkpoint to restore there.
 bfloat16 is stored as its ``uint16`` bits, tagged ``"bfloat16"``.  Arrays
 are gathered to the host, as the reference's are.
+
+Under a mesh (``launch/mesh.py``) a tree of a rank's local shards is saved
+whole: ``save(..., mesh=, pspecs=)`` gathers each leaf from the ranks by
+its spec (every rank calls) and rank 0 writes, the file the same as a
+single device's; ``restore(..., mesh=, pspecs=)`` reads the whole tree and
+cuts this rank's shards (``launch/sharding.py``), as the reference's
+``restore`` places the leaves on its mesh.  The specs are in the tree's
+own layout (``models/convert.py::to_reference`` also stacks a spec tree).
 """
 from __future__ import annotations
 
@@ -17,6 +25,9 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch import sharding
 
 
 def _flatten(tree) -> list:
@@ -49,11 +60,21 @@ def _unflatten(like, leaves):
     return None if like is None else next(leaves)
 
 
-def save(path: str, tree, *, step: int = 0, extra: dict | None = None) -> None:
+def save(path: str, tree, *, step: int = 0, extra: dict | None = None, mesh=None,
+         pspecs=None) -> None:
     """``tree``: dicts and lists of torch tensors or numpy arrays.  A
     ``None`` node holds no array: it is named in ``treedef`` only, and ``n``,
     ``dtypes`` and the ``a{i}`` names count the arrays, as the reference's
-    ``jax.tree_util.tree_flatten`` does."""
+    ``jax.tree_util.tree_flatten`` does.  With ``mesh``, ``tree`` holds this
+    rank's shards of the leaves cut by ``pspecs``: every rank of the mesh
+    calls, rank 0 writes the gathered tree, and all return once it is
+    written."""
+    if mesh is not None:
+        tree = sharding.gather_tree(tree, pspecs, mesh)
+        if mesh.rank == 0:
+            save(path, tree, step=step, extra=extra)
+        dist.barrier()
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     leaves = _flatten(tree)
     arrays = {}
@@ -76,10 +97,11 @@ def save(path: str, tree, *, step: int = 0, extra: dict | None = None) -> None:
         json.dump(meta, f)
 
 
-def restore(path: str, like_tree, *, device="cpu"):
+def restore(path: str, like_tree, *, device="cpu", mesh=None, pspecs=None):
     """Restore into the structure of ``like_tree`` (its leaves are only
     counted; its ``None`` nodes stay ``None``) as torch tensors on
-    ``device``.  -> (tree, step, extra)."""
+    ``device``; with ``mesh``, this rank's shards of them by ``pspecs``, on
+    the mesh's device.  -> (tree, step, extra)."""
     with open(path + ".json") as f:
         meta = json.load(f)
     data = np.load(path + ".npz")
@@ -91,5 +113,8 @@ def restore(path: str, like_tree, *, device="cpu"):
         arr = data[f"a{i}"]
         t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) if dt == "bfloat16"
              else torch.from_numpy(arr))
-        out.append(t.to(device))
-    return _unflatten(like_tree, iter(out)), meta["step"], meta.get("extra", {})
+        out.append(t if mesh is not None else t.to(device))
+    tree = _unflatten(like_tree, iter(out))
+    if mesh is not None:
+        tree = sharding.shard_tree(tree, pspecs, mesh)
+    return tree, meta["step"], meta.get("extra", {})

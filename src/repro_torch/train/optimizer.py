@@ -9,6 +9,13 @@ fusion of the reference's jitted update; on the CPU both run as the eager
 leaf-by-leaf loop (``kernels/optim/ref.py``).  Dispatch is by device
 (``kernels/dispatch.py``).
 
+Under a mesh the params, gradients and moments are a rank's local shards
+(the moments cut like their params, ``launch/sharding.py::opt_pspecs``):
+K5 updates them in place, and K4's sum of squares becomes global, each
+group of leaves cut over the same axes summed by one K4 launch and
+all-reduced over those axes (a leaf replicated over an axis is counted
+once, not once a rank).
+
 Nothing here waits for the host, and nothing that changes from step to step
 is a host number: the step count is a device int32 that the update
 advances, and the learning rate, the bias corrections and the clip scale
@@ -24,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import shardctx
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import tensor_leaves
 
@@ -42,9 +50,19 @@ def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
     return lr
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    return torch.sqrt(dispatch.grad_sumsq(tensor_leaves(grads)))
+def global_norm(grads, shards=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+    ``shards``: under a mesh, per leaf the tuple of mesh axes that cut it
+    (``()`` for a replicated leaf): each group's local sum is all-reduced
+    over its axes on the ambient mesh."""
+    leaves = list(tensor_leaves(grads))
+    if shards is None:
+        return torch.sqrt(dispatch.grad_sumsq(leaves))
+    groups: dict[tuple, list] = {}
+    for g, axes in zip(leaves, shards):
+        groups.setdefault(tuple(axes), []).append(g)
+    return torch.sqrt(sum(shardctx.all_reduce(dispatch.grad_sumsq(gs), axes)
+                          for axes, gs in groups.items()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,17 +83,18 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=leaves[0].device)}
 
     @torch.no_grad()
-    def update(self, params, grads, state: dict):
+    def update(self, params, grads, state: dict, *, shards=None):
         """One step over the leaves of ``params`` (updated in place, with the
         moments of ``state``, and its step advanced in place) from
-        ``grads``, a tree or a list in the same leaf order.  -> (params,
-        state, {"grad_norm", "lr"}: device tensors)."""
+        ``grads``, a tree or a list in the same leaf order.  ``shards``:
+        under a mesh, the axes that cut each leaf (``global_norm``).  ->
+        (params, state, {"grad_norm", "lr"}: device tensors)."""
         step = state["step"].add_(1)
         flat_p, flat_g = list(tensor_leaves(params)), list(tensor_leaves(grads))
         dev = step.device
         lr = (self.learning_rate(step) if callable(self.learning_rate)
               else torch.full((), float(self.learning_rate), dtype=torch.float32, device=dev))
-        gnorm = global_norm(flat_g)
+        gnorm = global_norm(flat_g, shards)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         stepf = step.to(torch.float32)
         b1c = 1.0 - self.b1 ** stepf

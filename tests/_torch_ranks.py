@@ -1,0 +1,321 @@
+"""The ranks of ``tests/test_torch_distributed.py``: functions that
+``repro_torch.launch.mesh.spawn`` runs in each process of a gloo group on
+the CPU.  This module imports torch and the port only (no JAX: each rank
+imports it anew), and each rank writes what it measured to
+``<out>/<name>.rank<r>.json``, which the tests read.
+
+Every check runs on every rank in the same order, so that the collectives
+match; an exception is recorded under the check's name (with its
+traceback) and the rank goes on to the next check.
+"""
+from __future__ import annotations
+
+import json
+import os
+import traceback
+
+import numpy as np
+import torch
+
+from repro_torch import shardctx
+from repro_torch.configs import registry
+from repro_torch.launch import sharding, steps
+from repro_torch.launch.mesh import data_axes, make_local_mesh
+from repro_torch.models import api, convert, encdec, hybrid, moe, ssm, transformer, vlm
+from repro_torch.models.common import ModelConfig, tensor_leaves
+from repro_torch.serving.engine import InferenceEngine
+from repro_torch.train import checkpoint
+from repro_torch.train.data import LMBatches
+from repro_torch.train.loop import batch_on
+from repro_torch.train.optimizer import AdamW
+
+MODELS = ("deepseek-7b", "granite-moe-3b-a800m", "rwkv6-1.6b")
+# the other families: vlm under tensor parallelism, hybrid and audio on the
+# data axis (their model axis is slice F2's)
+MORE = (("llava-next-mistral-7b", "1x2"), ("recurrentgemma-9b", "2x1"), ("whisper-tiny", "2x1"))
+N_NEW = 6
+
+
+def _equal(a, b) -> bool:
+    """Two trees of tensors equal key by key (a restored tree's dicts are in
+    sorted key order)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+class Checks:
+    def __init__(self, rank: int):
+        self.rank, self.out = rank, {}
+
+    def run(self, name: str, fn, *args) -> None:
+        try:
+            self.out[name] = fn(*args)
+        except Exception as e:  # recorded for the test to report
+            self.out[name] = {"error": f"{type(e).__name__}: {e}",
+                              "traceback": traceback.format_exc()}
+
+    def write(self, path: str) -> None:
+        with open(f"{path}.rank{self.rank}.json", "w") as f:
+            json.dump(self.out, f)
+
+
+def _rows(mesh, batch: int) -> slice:
+    """This rank's rows of a batch of ``batch`` rows (``batch_pspec``)."""
+    spec = sharding.batch_pspec((batch,), mesh)
+    if spec[0] is None:
+        return slice(0, batch)
+    n = mesh.size(spec[0])
+    i = mesh.index(spec[0])
+    return slice(i * batch // n, (i + 1) * batch // n)
+
+
+def _prompts(cfg: ModelConfig, b: int = 4, s: int = 8) -> torch.Tensor:
+    """Seeded prompts; a vlm's hold its image tokens' positions first (the
+    patch embeddings take their place), then ``s`` text tokens."""
+    if cfg.family == "vlm":
+        s += cfg.num_image_tokens
+    return torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (b, s)))
+
+
+def _patches(cfg: ModelConfig, b: int = 4) -> torch.Tensor:
+    """Seeded N(0, 1) patch embeddings of a vlm's prompts, float32."""
+    return torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (b, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+
+
+def _single_logits(params, cfg, tokens, rows: slice = slice(None)):
+    """The family's forward over ``tokens`` (B,S) -> logits (B,S,V); the
+    audio family over the engine's zero frame embeddings, the vlm over
+    ``_patches``' ``rows``."""
+    b = tokens.shape[0]
+    if cfg.family == "ssm":
+        return ssm.forward(params, tokens, cfg)[0]
+    if cfg.family == "hybrid":
+        return hybrid.forward(params, tokens, cfg)[0]
+    if cfg.family == "audio":
+        frames = torch.zeros((b, cfg.encoder_seq, cfg.d_model), dtype=cfg.cdt)
+        return encdec.forward(params, {"tokens": tokens, "frame_embeds": frames}, cfg)[0]
+    if cfg.family == "vlm":
+        patches = _patches(cfg)[rows].to(cfg.cdt)
+        return vlm.forward(params, {"tokens": tokens, "patch_embeds": patches}, cfg)[0]
+    return transformer.forward(params, tokens, cfg)[0]
+
+
+def models_check(mesh, arch: str) -> dict:
+    """Sharded logits and greedy engine tokens of ``arch``'s smoke config
+    against the single-device path on the same seeded weights.  A MoE
+    routes each data rank's rows in its own groups, as the reference's
+    shard_map does: its single-device oracle runs each rank's rows apart."""
+    cfg = registry.get(arch).smoke
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = _prompts(cfg)
+    rows = _rows(mesh, tokens.shape[0])
+    per_shard = cfg.is_moe and rows != slice(0, tokens.shape[0])
+    want = _single_logits(params, cfg, tokens[rows] if per_shard else tokens,
+                          rows if per_shard else slice(None))[
+        slice(None) if per_shard else rows]
+    pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh)
+    local = sharding.shard_tree(params, pspecs, mesh)
+    with shardctx.use_mesh(mesh):
+        got = _single_logits(local, cfg, tokens[rows], rows)
+    out = {"logits_rel": _rel(got, want), "logits_max_abs": float((got - want).abs().max()),
+           "last": got[:, -1].tolist(), "rows": [rows.start, rows.stop], "per_shard": per_shard}
+    if cfg.family == "ssm":
+        with shardctx.use_mesh(mesh):
+            out["wkv_heads"] = int(local["layers"][0]["tmix"]["u"].shape[0])
+    eng = InferenceEngine(cfg, seed=0, device="cpu", mesh=mesh)
+    toks = eng.generate(tokens, N_NEW).tokens
+    if per_shard:
+        n = mesh.size(data_axes(mesh))
+        ref = torch.cat([InferenceEngine(cfg, seed=0, device="cpu").generate(part, N_NEW).tokens
+                         for part in tokens.chunk(n)])
+    else:
+        ref = InferenceEngine(cfg, seed=0, device="cpu").generate(tokens, N_NEW).tokens
+    stream = eng.generate_stream(tokens, N_NEW).tokens
+    out.update(tokens=toks.tolist(), want=ref.tolist(), stream=stream.tolist())
+    return out
+
+
+def moe_case(mesh, path: str) -> dict:
+    """The reference's MoE case in ``path`` (its weights and input, numpy)
+    through the port's layer on this mesh: the whole output (the data ranks'
+    rows gathered) and the data ranks' mean load-balance loss."""
+    z = np.load(path)
+    cfg = ModelConfig(name="m", family="moe", num_layers=1, d_model=32, num_heads=2,
+                      num_kv_heads=2, d_ff=16, vocab_size=64,
+                      num_experts=int(z["num_experts"]), num_experts_per_tok=2,
+                      moe_capacity_factor=2.0, param_dtype="float32",
+                      compute_dtype="float32")
+    p = {"router": {"w": torch.from_numpy(z["router"])},
+         **{k: torch.from_numpy(z[k]) for k in ("wi", "wu", "wd")}}
+    specs = sharding.param_pspecs({"moe": p}, cfg, mesh)
+    local = sharding.shard_tree({"moe": p}, specs, mesh)["moe"]
+    x = torch.from_numpy(z["x"])
+    dax = data_axes(mesh)
+    with shardctx.use_mesh(mesh):
+        y, aux = moe.moe_apply(local, x[_rows(mesh, x.shape[0])], cfg)
+        y = shardctx.all_gather(y, dax, 0) if y.shape[0] < x.shape[0] else y
+        aux = shardctx.all_reduce(aux, dax) / mesh.size(dax)
+    ep = local["wi"].shape[0] < cfg.num_experts
+    return {"y": y.numpy().tolist(), "aux": float(aux), "ep": ep,
+            "wi_local": list(local["wi"].shape)}
+
+
+def decode_counts(mesh, arch: str = "deepseek-7b", batch: int = 2) -> dict:
+    """One decode step's collectives on this rank: counted kinds, counts
+    and bytes per rank."""
+    cfg = registry.get(arch).smoke
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh)
+    local = sharding.shard_tree(params, pspecs, mesh)
+    abs_cache = api.init_cache(cfg, batch, 32, device="meta")
+    cache = sharding.local_zeros(
+        abs_cache, sharding.cache_pspecs(abs_cache, cfg, mesh, batch=batch), mesh)
+    tokens = _prompts(cfg, batch, 8)[_rows(mesh, batch)]
+    with shardctx.use_mesh(mesh):
+        api.prefill(local, {"tokens": tokens}, cfg, 32, cache=cache)
+        shardctx.reset_counts()
+        logits, _ = api.decode_step(local, cache, tokens[:, -1], 8, cfg)
+        counts = shardctx.counts()
+    return {"counts": counts, "batch": int(tokens.shape[0]), "vocab": list(logits.shape)}
+
+
+def _params(cfg):
+    p = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if cfg.family == "ssm":
+        gen = torch.Generator().manual_seed(6)
+        for lp in p["layers"]:
+            lp["tmix"]["wo"]["w"] = torch.randn((cfg.d_model, cfg.d_model), generator=gen) \
+                * cfg.d_model ** -0.5
+    return p
+
+
+def train_check(mesh, fsdp: bool, num_micro: int, arch: str = "deepseek-7b") -> dict:
+    """One AdamW step of ``arch``'s smoke config (float32) on this mesh
+    against the single-device step: loss, grad norm, and the params after
+    it (gathered).  rwkv's ``tmix.wo`` is redrawn (its init 0 cuts the WKV
+    branch out of the gradient).  A MoE under a data axis routes each
+    rank's rows in groups of its own: its single-device oracle takes the
+    ranks' rows as microbatches (``num_micro`` times the data ranks), whose
+    gradients it averages as the data ranks' are averaged; its load-balance
+    loss is then weighted 0, since the microbatches' loss counts each one's
+    own experts while the data ranks' counts the whole batch's, as the
+    reference's (``moe_case`` holds that loss)."""
+    cfg = registry.get(arch).smoke
+    if cfg.is_moe and mesh.size(data_axes(mesh)) > 1:
+        cfg = cfg.replace(router_aux_weight=0.0)
+    batch = batch_on(LMBatches(cfg.vocab_size, 4, 16, seed=0)(0), cfg, "cpu")
+    opt = AdamW(learning_rate=1e-3)
+    params = _params(cfg)
+    tree = _params(cfg)
+    micro = num_micro * (mesh.size(data_axes(mesh)) if cfg.is_moe else 1)
+    _, _, want = steps.make_train_step(cfg, opt, num_micro=micro)(tree, opt.init(tree), batch)
+    want_params = list(tensor_leaves(tree))
+    pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh, fsdp=fsdp)
+    local = sharding.shard_tree(params, pspecs, mesh)
+    state = opt.init(local)
+    step = steps.make_train_step(cfg, opt, num_micro=num_micro, mesh=mesh, param_pspecs=pspecs)
+    shardctx.reset_counts()
+    _, state, got = step(local, state, sharding.shard_batch(batch, mesh))
+    counts = shardctx.counts()
+    whole = sharding.gather_tree(local, pspecs, mesh)
+    rels = [_rel(a.detach(), b.detach()) for a, b in zip(tensor_leaves(whole), want_params)]
+    moments = sum(t.numel() for t in state["mu"])
+    return {"loss": float(got["loss"]), "want_loss": float(want["loss"]),
+            "gnorm": float(got["grad_norm"]), "want_gnorm": float(want["grad_norm"]),
+            "param_rel": max(rels), "counts": counts,
+            "local_moments": moments, "params": sum(t.numel() for t in want_params)}
+
+
+def refusals(mesh) -> dict:
+    """The layouts this slice refuses under a model axis, with the messages."""
+    out = {}
+    cases = [("recurrentgemma-9b", "engine"), ("whisper-tiny", "engine"),
+             ("recurrentgemma-9b", "train"), ("whisper-tiny", "train")]
+    if mesh.shape["model"] > registry.get("granite-moe-3b-a800m").smoke.num_kv_heads:
+        cases.append(("granite-moe-3b-a800m", "engine"))
+    for arch, entry in cases:
+        cfg = registry.get(arch).smoke
+        try:
+            if entry == "engine":
+                InferenceEngine(cfg, seed=0, device="cpu", mesh=mesh)
+            else:
+                steps.make_train_step(cfg, AdamW(), mesh=mesh)
+            out[f"{arch} {entry}"] = "accepted"
+        except NotImplementedError as e:
+            out[f"{arch} {entry}"] = str(e)
+    return out
+
+
+def checkpoint_save(mesh, path: str) -> dict:
+    """deepseek's smoke params cut at this mesh (FSDP specs) and saved in
+    the reference's layout."""
+    cfg = registry.get("deepseek-7b").smoke
+    params = api.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh, fsdp=True)
+    local = sharding.shard_tree(params, pspecs, mesh)
+    checkpoint.save(path, {"params": convert.to_reference(local, cfg)}, step=3, mesh=mesh,
+                    pspecs={"params": convert.to_reference(pspecs, cfg)})
+    return {"saved": os.path.exists(path + ".npz")}
+
+
+def checkpoint_restore(mesh, path: str) -> dict:
+    """The checkpoint restored into this mesh's shards, gathered again, and
+    restored on a single device: each against the seeded params."""
+    cfg = registry.get("deepseek-7b").smoke
+    params = api.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    like = {"params": convert.to_reference(params, cfg)}
+    pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh)
+    local, step, _ = checkpoint.restore(path, like, mesh=mesh,
+                                        pspecs={"params": convert.to_reference(pspecs, cfg)})
+    local = convert.from_reference(local["params"], cfg, "cpu")
+    whole = sharding.gather_tree(local, pspecs, mesh)
+    single, _, _ = checkpoint.restore(path, like)
+    single = convert.from_reference(single["params"], cfg, "cpu")
+    return {"step": step,
+            "cut": local["embed"]["embedding"].shape[0] < cfg.vocab_size,
+            "mesh_equal": _equal(whole, params), "single_equal": _equal(single, params)}
+
+
+def world4(rank: int, out: str, moe_dir: str, ckpt: str) -> None:
+    torch.set_num_threads(1)
+    c = Checks(rank)
+    mesh = make_local_mesh(2, 2, device="cpu")
+    for case in ("ep", "tpf"):
+        c.run(f"moe {case} 2x2", moe_case, mesh, os.path.join(moe_dir, f"{case}.npz"))
+    for arch in MODELS:
+        c.run(f"{arch} 2x2", models_check, mesh, arch)
+    c.run("refusals 2x2", refusals, mesh)
+    c.run("checkpoint save 2x2", checkpoint_save, mesh, ckpt)
+    mesh = make_local_mesh(1, 4, device="cpu")
+    c.run("decode counts 1x4", decode_counts, mesh)
+    c.run("refusals 1x4", refusals, mesh)
+    c.write(out)
+
+
+def world2(rank: int, out: str, ckpt: str) -> None:
+    torch.set_num_threads(2)
+    c = Checks(rank)
+    tp, dp = make_local_mesh(1, 2, device="cpu"), make_local_mesh(2, 1, device="cpu")
+    meshes = {"1x2": tp, "2x1": dp}
+    for name, mesh in meshes.items():
+        for arch in MODELS:
+            c.run(f"{arch} {name}", models_check, mesh, arch)
+    for arch, name in MORE:
+        c.run(f"{arch} {name}", models_check, meshes[name], arch)
+    c.run("decode counts 1x2", decode_counts, tp)
+    c.run("train dp 2x1", train_check, dp, False, 1)
+    c.run("train fsdp micro2 2x1", train_check, dp, True, 2)
+    c.run("train tp 1x2", train_check, tp, False, 1)
+    c.run("train tp rwkv 1x2", train_check, tp, False, 1, "rwkv6-1.6b")
+    c.run("train tp granite 1x2", train_check, tp, False, 1, "granite-moe-3b-a800m")
+    c.run("train dp granite 2x1", train_check, dp, False, 1, "granite-moe-3b-a800m")
+    c.run("checkpoint restore 1x2", checkpoint_restore, tp, ckpt)
+    c.write(out)
