@@ -33,7 +33,11 @@ failure exits non-zero:
      plain version with one KV tile dropped must read above that bar; for
      K2 also masks whose all-false tiles lie at the start, around a band,
      in the middle and at the end, a row with no valid position (the mean of
-     V), and a band slice of a longer cache; for K3 one head alone, a T that
+     V), and a band slice of a longer cache; K2's row log-sum-exp
+     (``return_lse``) at the long-KV chunk (1, 8192, 32, 128), a chunk with
+     no valid position, deepseek's, llava's and qwen3's (1, 8) decode shapes,
+     its output bit for bit K2's without it (``decode_lse_checks``); for K3
+     one head alone, a T that
      is not a multiple of its chunk, decays near 0 and near 1, and the state
      updated in place at T=1 and T=100; the backward kernels K1-bwd and
      K3-bwd at the training shapes and around them (``bwd_kernel_checks``),
@@ -77,7 +81,9 @@ failure exits non-zero:
      (inputs rotated through copies that span four times the L2) and the
      device time of the same calls from a torch.profiler trace (every kernel
      a call launches, summed), its bound, the plain version's time and one
-     PyTorch library call's time where there is one; the K1, K2 and K3
+     PyTorch library call's time where there is one (K2 also at the
+     long-KV chunk (1, 8192, 32, 128) and over the whole 16,384-position
+     cache, each with and without its row lse); the K1, K2 and K3
      wrappers' host time per call; K3 under narrower split plans than
      its own and at one head alone; and K1-bwd and K3-bwd at the training
      shapes (K1-bwd also at granite's GQA 24/8, head dim 64), K1-bwd beside
@@ -134,7 +140,8 @@ failure exits non-zero:
      the plain update, and the microbatched step (``num_micro=2``)
      replayed against uncaptured;
   11. (after 10, every engine freed) the sharded paths
-     (``sharded_phase``): two ranks (``repro_torch.launch.mesh.spawn``) on
+     (``sharded_phase``): two ranks (``repro_torch.launch.mesh.spawn``), then
+     four and eight, on
      the cards present, NCCL with a card each when there are two, gloo when
      they share one (the backend and card count printed): deepseek-7b at
      full width and depth, bf16, on the (1, 2) mesh (tensor parallel),
@@ -154,8 +161,25 @@ failure exits non-zero:
      in float32 on (2, 1) data parallel, (2, 1) FSDP and (1, 2) tensor
      parallel, loss, grad norm and every param within
      ``SHARDED_REL_TOL`` of the single card's step, K4 and K5 counted per
-     rank; each rank's peak memory and the phase's seconds.  Rank 0 runs
-     each single-card oracle in the same run;
+     rank; then the layouts that cut a KV sequence or heads inside
+     (``new_layouts_rank``): deepseek-7b at batch 1 on (2, 1), its
+     16,384-position cache cut over "data", an 8,176-token prompt and 32 new
+     tokens, unwindowed and with a 4,096-position window, every step's
+     logits held to the bit (``ROW_REL_TOL``) to one card that splits its
+     cache at 8,192 and combines the halves as the ranks do
+     (``split_decode``), the tokens to that card's and printed beside the
+     plain card's; recurrentgemma-9b at full width and depth in bf16 on
+     (1, 2), held row by row to one card that splits its row products and
+     its projections' columns as the ranks do (``split_rows``,
+     ``split_project``), its float32 gate at one pattern unit and one float32
+     TP step (over the elements above the gradient noise, as phase 10's
+     gate); whisper-tiny's float32 gate on (1, 2); then on four ranks
+     whisper-tiny's on (1, 4), and on eight qwen3-moe-235b-a22b's on (1, 8)
+     at full width and ``QWEN3_LAYERS`` layers, each rank drawing its own
+     shards (``wide_rank``); every new run's decode-step collectives held to
+     ``launch/comms.py``'s plan of its layout; each rank's peak memory and
+     the phase's seconds.  Rank 0 runs each single-card oracle in the same
+     run;
   9. one JSON line with the kernels (launches summed over every path), then
      the last line ``{"ok": true, ...}``.
 """
@@ -164,6 +188,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+from itertools import count
 import subprocess
 import sys
 import tempfile
@@ -556,6 +581,7 @@ def kernel_checks(dev) -> dict:
     err = llava_decode_check(gen, dev)
     main_err["flash_decode"] = max(main_err["flash_decode"], err)
     decode_skip_checks(gen, dev)
+    main_err["flash_decode"] = max(main_err["flash_decode"], decode_lse_checks(gen, dev))
     for (b, t, h, hd, log_decay, main) in [
             (4, 100, 32, 64, -2.0, True),     # the rwkv engine's prefill
             (4, 1, 32, 64, -2.0, True),       # its decode step
@@ -762,6 +788,55 @@ def decode_skip_checks(gen, dev) -> None:
     check(f"K2 flash_decode band slice [100:228] of cache{(b, s, h, hd)} (S,) mask, bf16",
           fd.flash_decode(q, band_k, band_v, valid),
           flash_decode_ref(q, band_k, band_v, valid), TOL[dt])
+
+
+def decode_lse_checks(gen, dev) -> float:
+    """Phase 3 for K2's row log-sum-exp (``return_lse``), at the shapes of
+    the sequence-sharded decodes of phase 11 and of the engines: the output
+    bit for bit K2's without it, against the plain version, and the lse
+    against the plain version's (float32 either way), -inf for a chunk
+    with no valid position.  -> the largest error of o at the main paths'
+    shapes."""
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.decode.ref import flash_decode_ref
+
+    worst = 0.0
+    for (b, s, h, kh, hd, form, dt, main) in [
+            (1, 8192, 32, 32, 128, "all", torch.bfloat16, True),     # deepseek long-KV chunk
+            (1, 8192, 32, 32, 128, "none", torch.bfloat16, True),    # a chunk before its turn
+            (4, 256, 32, 32, 128, "rows", torch.bfloat16, True),     # deepseek engine decode
+            (2, 3072, 32, 8, 128, "rows", torch.bfloat16, True),     # llava engine decode
+            (4, 32, 64, 4, 128, "rows", torch.float32, True),        # qwen3 (1, 8) chunk
+            (4, 64, 16, 1, 256, "rows", torch.bfloat16, False)]:     # MQA, head dim 256
+        q = rand((b, 1, h, hd), dt, gen, dev)
+        k, v = rand((b, s, kh, hd), dt, gen, dev), rand((b, s, kh, hd), dt, gen, dev)
+        kv = torch.arange(s, device=dev)
+        if form == "rows":
+            valid = kv[None, :] <= torch.randint(0, s, (b, 1), generator=gen, device=dev)
+            valid[-1] = False       # and one row without a valid position
+        else:
+            valid = torch.full((s,), form == "all", dtype=torch.bool, device=dev)
+        name = (f"K2 flash_decode with lse q{(b, 1, h, hd)} cache{(b, s, kh, hd)} "
+                f"valid {form} {dt}")
+        o, lse = fd.flash_decode(q, k, v, valid, return_lse=True)
+        plain_o, plain_lse = flash_decode_ref(q, k, v, valid, return_lse=True)
+        same = torch.equal(o, fd.flash_decode(q, k, v, valid))
+        log(f"[check] {name}: o bit for bit K2's without lse: {same}")
+        if not same:
+            raise SystemExit(f"{name}: the lse output changes o")
+        err = check(name + ", o", o, plain_o, TOL[dt])
+        empty = torch.isneginf(plain_lse)
+        if not torch.equal(torch.isneginf(lse), empty):
+            raise SystemExit(f"{name}: -inf lse rows {torch.isneginf(lse).tolist()} are not "
+                             f"the rows without a valid position {empty.tolist()}")
+        if (~empty).any():
+            check(name + f", lse ({int(empty.sum())} rows -inf)", lse[~empty],
+                  plain_lse[~empty], TOL[torch.float32])
+        else:
+            log(f"[check] {name}, lse: every row -inf, as no position is valid: ok")
+        if main:
+            worst = max(worst, err)
+    return worst
 
 
 def logits_check(eng, cfg, dev) -> None:
@@ -1403,6 +1478,28 @@ def timings(dev) -> dict:
         if not tag:
             out["flash_decode"]["host_us"] = host_us(
                 lambda q, k, v: fd.flash_decode(q, k, v, valid), sets[0])
+    # K2 at the long-KV decode: a rank's chunk of deepseek-7b's 16,384-position
+    # cache (batch 1, 8,192 positions, all valid at the last step) and the
+    # whole cache on one card (the 8,208 positions of an 8,176-token prompt
+    # and 32 new tokens valid), each without and with the row lse
+    for tag, s, n_valid in (("chunk", 8192, 8192), ("long", 16384, 8208)):
+        b, h, kh, hd = 1, 32, 32, 128
+        valid = kv_long = torch.arange(s, device=dev) < n_valid
+        nbytes = (2 * b * h * hd + 2 * n_valid * kh * hd) * 2 + s
+        flops = 4 * hd * h * n_valid
+        mask = kv_long[None, None, None, :]
+        sets = cold_copies(lambda: (rand((b, 1, h, hd), dt, gen, dev),
+                                    rand((b, s, kh, hd), dt, gen, dev),
+                                    rand((b, s, kh, hd), dt, gen, dev)), 4 * b * s * kh * hd)
+        out[f"flash_decode {tag}"] = r = row(
+            f"q {(b, 1, h, hd)} cache {(b, s, kh, hd)} bf16, {n_valid} valid",
+            lambda q, k, v, valid=valid: fd.flash_decode(q, k, v, valid),
+            lambda q, k, v, valid=valid: flash_decode_ref(q, k, v, valid),
+            lambda q, k, v, mask=mask: F.scaled_dot_product_attention(*bhsd(q, k, v),
+                                                                      attn_mask=mask),
+            sets, bound(nbytes + 4 * b * h, flops, dt))
+        lse_fn = (lambda q, k, v, valid=valid: fd.flash_decode(q, k, v, valid, return_lse=True))
+        r.update(lse_ms=time_ms(lse_fn, sets), lse_device_ms=device_ms(lse_fn, sets))
     out["flash_attention"]["host_us"] = host_us(
         lambda q, k, v: flash.flash_attention(q, k, v),
         (rand((4, 128, 32, 128), dt, gen, dev), rand((4, 128, 32, 128), dt, gen, dev),
@@ -2708,6 +2805,10 @@ def train_phase(dev) -> tuple:
 
 SHARDED_WORLD = 2
 SHARDED_NEW = 32
+# phase 11's qwen3-moe-235b-a22b on (1, 8): full width, this many layers
+# (each holds 2.4 B expert parameters; the single card's oracle holds them
+# whole in float32)
+QWEN3_LAYERS = 2
 # phase 11's float32 gates and train step: the sharded run against the
 # single card, relative L2 (logits, each param leaf) and relative (loss,
 # grad norm): the ranks' float32 partial sums are reduced in another
@@ -2749,15 +2850,37 @@ def split_rows(p: dict, key: str, x: torch.Tensor, full_in: int) -> torch.Tensor
     return y + q["b"].to(y.dtype) if "b" in q else y
 
 
+def split_project(p: dict, key: str, x: torch.Tensor, n: int, cfg) -> torch.Tensor:
+    """``models.layers.project_heads`` on one card as ``SHARDED_WORLD`` ranks
+    compute it where the rules cut its columns: each rank's equal chunk of
+    the columns (a contiguous weight of its own, and its bias) as its own
+    product, the chunks put side by side as the ranks' gather does; all
+    ``n`` heads.  A product's bits can depend on its width (on an H100,
+    recurrentgemma-9b's 256-column ``wk`` at 4 rows x 100 tokens differs
+    from its two 128-column halves), so phase 11's split oracle computes
+    each rank's width, as ``split_rows`` sums each rank's rows."""
+    from repro_torch.models.common import dense
+    q = p[key]
+    ws = [w.contiguous() for w in q["w"].chunk(SHARDED_WORLD, -1)]
+    bs = q["b"].chunk(SHARDED_WORLD, -1) if "b" in q else [None] * SHARDED_WORLD
+    y = torch.cat([dense({"w": w} if b is None else {"w": w, "b": b}, x)
+                   for w, b in zip(ws, bs)], -1)
+    return y.reshape(*y.shape[:2], n, -1)
+
+
 def sharded_engine_run(cfg, mesh, prompts, params_fn, n_new: int = SHARDED_NEW, *,
-                       split: bool = False) -> dict:
+                       split: bool = False, local_fn=None) -> dict:
     """``cfg``'s engine on ``params_fn()`` (seeded whole weights on the
     card): the single card's on rank 0 first (uncaptured, while the other
-    rank waits; with ``split`` also its prefill with the row products split
-    as the ranks split them, ``split_rows``), then the mesh engine's on every rank, the
-    K1/K2/K3 launches and the collectives of its ``generate`` counted.  ->
-    the single card's prefill logits and greedy tokens (rank 0), the mesh
-    run's, and its counts."""
+    ranks wait; with ``split`` also its prefill with the row products and
+    the projections' columns split as the ranks split them, ``split_rows``
+    and ``split_project``), then the mesh engine's on every rank, on its
+    cut of ``params_fn()`` or, with ``local_fn``, on ``local_fn()``, the
+    rank's shards drawn as they are and given to the engine as its
+    ``shards`` (no rank holds the whole weights then),
+    the K1/K2/K3 launches and the collectives of its ``generate`` counted.
+    -> the single card's prefill logits and greedy
+    tokens (rank 0), the mesh run's, and its counts."""
     import torch.distributed as dist
 
     from repro_torch import shardctx
@@ -2772,8 +2895,11 @@ def sharded_engine_run(cfg, mesh, prompts, params_fn, n_new: int = SHARDED_NEW, 
             eng = InferenceEngine(cfg, params=params_fn(), max_cache=256)
             out["want_logits"] = mesh_prefill(eng, prompts, n_new).cpu()
             if split:
-                from repro_torch.models import layers
-                with mock.patch.object(layers, "row_dense", split_rows):
+                from repro_torch.models import hybrid, layers
+                with mock.patch.object(layers, "row_dense", split_rows), \
+                        mock.patch.object(hybrid, "row_dense", split_rows), \
+                        mock.patch.object(layers, "project_heads", split_project), \
+                        mock.patch.object(hybrid, "project_heads", split_project):
                     out["split_logits"] = mesh_prefill(eng, prompts, n_new).cpu()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2782,7 +2908,10 @@ def sharded_engine_run(cfg, mesh, prompts, params_fn, n_new: int = SHARDED_NEW, 
         del eng
         torch.cuda.empty_cache()
     dist.barrier()
-    eng = InferenceEngine(cfg, params=params_fn(), max_cache=256, mesh=mesh)
+    if local_fn is None:
+        eng = InferenceEngine(cfg, params=params_fn(), max_cache=256, mesh=mesh)
+    else:
+        eng = InferenceEngine(cfg, shards=local_fn(), max_cache=256, mesh=mesh)
     torch.cuda.empty_cache()
     out["logits"] = mesh_prefill(eng, prompts, n_new).cpu()
     flash.launches = fd.launches = wkv.launches = 0
@@ -2796,6 +2925,34 @@ def sharded_engine_run(cfg, mesh, prompts, params_fn, n_new: int = SHARDED_NEW, 
     out["collectives"] = shardctx.counts()
     out["engine"] = eng
     return out
+
+
+def step_collectives(name: str, eng, toks: torch.Tensor, pos: int) -> dict:
+    """One decode step's collectives on this rank (every row's next token
+    at ``pos``, the engine's cache after its ``generate``) against
+    ``launch/comms.py``'s plan of the layout (PERF.md has the formula):
+    counts and bytes must be equal.  -> both."""
+    from repro_torch import shardctx
+    from repro_torch.launch import comms
+    from repro_torch.models import api
+
+    mesh, b = eng.mesh, toks.shape[0]
+    with eng._on_mesh(b):
+        local = eng._local_rows(toks[:, -1:])[:, 0].to(mesh.device)
+        shardctx.reset_counts()
+        api.decode_step(eng.params, eng._cache, local,
+                        torch.full((local.shape[0],), pos, device=mesh.device), eng.cfg)
+        got = shardctx.counts()
+    plan = {k: (n, float(v)) for k, (n, v) in comms.decode_step(
+        eng.cfg, mesh.shape, batch=b, cache_len=eng.max_cache,
+        model_index=mesh.coords["model"]).items()}
+    log(f"[sharded] rank {mesh.rank} {name}: one decode step (batch {b}) moves {got}; the "
+        f"layout's plan (launch/comms.py): {plan}; bytes per rank "
+        f"{sum(v[1] for v in got.values()):.0f} against {sum(v[1] for v in plan.values()):.0f}")
+    if got != plan:
+        raise SystemExit(f"rank {mesh.rank} {name}: one decode step's collectives {got} differ "
+                         f"from the plan {plan}")
+    return {"counted": got, "plan": plan}
 
 
 def hold_engine_run(name: str, run: dict, *, rel_tol: float | None = None,
@@ -2824,8 +2981,8 @@ def hold_engine_run(name: str, run: dict, *, rel_tol: float | None = None,
                    split_max_abs=(got - sl).abs().max().item(),
                    split_vs_single=row_rel(sl, want).max().item())
         split_ok = out["split_worst_row"] <= ROW_REL_TOL
-        log(f"[sharded] {name}: prefill logits against the single card with its row "
-            f"products split as the ranks split them: rel_l2 {out['split_rel']:.3e}, worst "
+        log(f"[sharded] {name}: prefill logits against the single card with its products "
+            f"split as the ranks split them: rel_l2 {out['split_rel']:.3e}, worst "
             f"row {out['split_worst_row']:.3e}, max_abs {out['split_max_abs']:.3e} (tol row "
             f"{ROW_REL_TOL:g}) {'ok' if split_ok else 'FAIL'}; that single card against the "
             f"plain one: worst row {out['split_vs_single']:.3e}")
@@ -2859,18 +3016,24 @@ def parting_margins(eng, prompts, toks, ref, parts) -> list:
     return out
 
 
-def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict) -> dict:
+def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict,
+                        kernels=("flash_attention", "flash_attention_bwd", "grad_sumsq",
+                                 "adamw_update")) -> dict:
     """One AdamW step of ``cfg`` (float32) on ``mesh`` (FSDP specs with
     ``fsdp``), K4 and K5 counted, against the single card's step in
-    ``want`` (rank 0's): loss, grad norm and every param leaf (gathered)."""
+    ``want`` (rank 0's): loss, grad norm and every param leaf (gathered).
+    Each of ``kernels`` (the family's: the hybrid's attention is plain, as
+    the reference's) must launch.  Where ``want`` holds the single card's
+    gradients, the params are held as phase 10's gate holds them: over the
+    elements whose gradient is at least ``GATE_NOISE`` of its leaf's rms
+    (AdamW's first step takes the sign of the gradient, which rounding
+    decides below that), the rest each within 2 lr."""
     from repro_torch.kernels.attention import flash, flash_bwd
     from repro_torch.kernels.optim import adamw
     from repro_torch.launch import sharding
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import api
-    from repro_torch.models.common import tensor_leaves
-    from repro_torch.train.data import LMBatches
-    from repro_torch.train.loop import batch_on
+    from repro_torch.models.common import leaf_paths, tensor_leaves
     from repro_torch.train.optimizer import AdamW
 
     dev = mesh.device
@@ -2881,8 +3044,7 @@ def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict) -> dict:
         api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), pspecs, mesh)
     torch.cuda.empty_cache()
     state = opt.init(params)
-    batch = batch_on(LMBatches(cfg.vocab_size, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ,
-                               seed=0)(0), cfg, dev)
+    batch = train_batch(cfg, dev)
     step = make_train_step(cfg, opt, mesh=mesh, param_pspecs=pspecs)
     for m in (flash, flash_bwd, adamw.SUMSQ, adamw.UPDATE):
         m.launches = 0
@@ -2893,54 +3055,428 @@ def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash.launches, "flash_attention_bwd": flash_bwd.launches,
                 "grad_sumsq": adamw.SUMSQ.launches, "adamw_update": adamw.UPDATE.launches}
-    whole = [t.cpu() for t in tensor_leaves(sharding.gather_tree(params, pspecs, mesh))]
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = {"launches": launches, "wall_s": wall, "peak_gib": peak}
     log(f"[sharded] rank {mesh.rank} train {name}: K1 {launches['flash_attention']}, K1-bwd "
         f"{launches['flash_attention_bwd']}, K4 {launches['grad_sumsq']}, K5 "
         f"{launches['adamw_update']}; step {wall:.3f} s, peak allocated {peak:.2f} GiB")
-    if not (launches["grad_sumsq"] and launches["adamw_update"] and launches["flash_attention"]
-            and launches["flash_attention_bwd"]):
+    if not all(launches[k] for k in kernels):
         raise SystemExit(f"train {name}: a kernel of the sharded step never launched: {launches}")
+    # the params after the step, gathered leaf by leaf (every rank takes
+    # part), each held on rank 0 against the single card's: on the host,
+    # or, with the gradients' noise floor, on the card a slice at a time
+    rels, sure_rels, floor, apart = [], [], 0, False
+    for local, spec, i in zip(tensor_leaves(params), sharding.spec_leaves(pspecs), count()):
+        a = sharding.gather(local.detach(), spec, mesh)
+        if mesh.rank == 0 and "grads" not in want:
+            a, b = a.cpu(), want["params"][i]
+            rels.append(((a - b).norm() / b.norm().clamp_min(1e-30)).item())
+        elif mesh.rank == 0:
+            a, b, g = a.reshape(-1), want["params"][i].reshape(-1), want["grads"][i].reshape(-1)
+            parts = [(a[j:j + 2**26], b[j:j + 2**26].to(dev), g[j:j + 2**26].to(dev))
+                     for j in range(0, a.numel(), 2**26)]
+            cut = GATE_NOISE * (sum(gc.double().square().sum() for _, _, gc in parts)
+                                / a.numel()).sqrt()
+            sums = torch.zeros(4, dtype=torch.float64, device=dev)   # all, then the sure
+            for ac, bc, gc in parts:
+                d, sure = ac - bc, gc.abs() >= cut
+                sums += torch.stack([d.double().square().sum(), bc.double().square().sum(),
+                                     d[sure].double().square().sum(),
+                                     bc[sure].double().square().sum()])
+                floor += int((~sure).sum())
+                apart |= bool((d.abs()[~sure] > 2.0001 * opt.learning_rate).any())
+            sums = sums.sqrt().tolist()
+            rels.append(sums[0] / max(sums[1], 1e-30))
+            sure_rels.append(sums[2] / max(sums[3], 1e-30))
+            del parts
+        del a
     if mesh.rank == 0:
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         rl = abs(loss - want["loss"]) / abs(want["loss"])
         rg = abs(gnorm - want["gnorm"]) / abs(want["gnorm"])
-        worst = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-                    for a, b in zip(whole, want["params"]))
+        worst = max(rels)
+        if "grads" in want:
+            unmasked = worst
+            names = ["/".join(map(str, k)) for k in leaf_paths(api.abstract_params(cfg))]
+            worst = max(sure_rels)
+            log(f"[sharded] train {name}: params, every element: worst leaf rel_l2 "
+                f"{unmasked:.3e} ({names[rels.index(unmasked)]}); {floor} elements with a "
+                f"gradient below {GATE_NOISE:g} of their leaf's rms, each within 2 lr: "
+                f"{not apart}")
+            if apart:
+                raise SystemExit(f"train {name}: an AdamW step moved further than 2 lr")
         ok = rl <= SHARDED_REL_TOL and rg <= SHARDED_REL_TOL and worst <= SHARDED_REL_TOL
         log(f"[sharded] train {name}: loss {loss:.6f} (single card {want['loss']:.6f}, "
             f"relative {rl:.3e}), grad norm {gnorm:.6f} ({want['gnorm']:.6f}, {rg:.3e}), "
-            f"params after the step worst leaf rel_l2 {worst:.3e} (tol {SHARDED_REL_TOL:g}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"params after the step worst leaf rel_l2 {worst:.3e}"
+            + (" over the elements above the gradient noise" if "grads" in want else "")
+            + f" (tol {SHARDED_REL_TOL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"train {name}: the sharded step disagrees with the single card")
         out.update(loss_rel=rl, gnorm_rel=rg, param_rel=worst)
-    del params, state, whole
+    del params, state
     torch.cuda.empty_cache()
     return out
 
 
-def single_train_step(cfg, dev) -> dict:
+def train_batch(cfg, dev) -> dict:
+    """Phase 11's training batch: ``LMBatches`` of seed 0, and the audio
+    and vlm families' stub embeddings (``modal_extras``)."""
+    from repro_torch.train.data import LMBatches, modal_extras
+    from repro_torch.train.loop import batch_on
+    return batch_on({**LMBatches(cfg.vocab_size, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ,
+                                 seed=0)(0), **modal_extras(cfg, SHARDED_TRAIN_BATCH)}, cfg, dev)
+
+
+def single_train_step(cfg, dev, *, grads: bool = False) -> dict:
     """Rank 0's oracle: one AdamW step of ``cfg`` on the single card from the
-    same seed and batch.  -> loss, grad norm and the params (host)."""
+    same seed and batch.  -> loss, grad norm and the params (host), and
+    with ``grads`` the gradients the step took (host)."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import api
     from repro_torch.models.common import tensor_leaves
-    from repro_torch.train.data import LMBatches
-    from repro_torch.train.loop import batch_on
     from repro_torch.train.optimizer import AdamW
 
     opt = AdamW(learning_rate=1e-3)
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    batch = batch_on(LMBatches(cfg.vocab_size, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ,
-                               seed=0)(0), cfg, dev)
+    batch = train_batch(cfg, dev)
+    out = {}
+    if grads:
+        leaves = [p.requires_grad_() for p in tensor_leaves(params)]
+        loss, _ = api.train_loss(params, batch, cfg)
+        out["grads"] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        del leaves, loss
     _, _, m = make_train_step(cfg, opt)(params, opt.init(params), batch)
-    out = {"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
-           "params": [t.detach().cpu() for t in tensor_leaves(params)]}
+    out.update(loss=float(m["loss"]), gnorm=float(m["grad_norm"]),
+               params=[t.detach().cpu() for t in tensor_leaves(params)])
     del params
     torch.cuda.empty_cache()
     return out
+
+
+# phase 11's long-KV decode: deepseek-7b at batch 1 on (2, 1), whose batch
+# does not divide the data axis, so the rules cut its 16,384-position cache
+# over "data"; an 8,176-token prompt (bucket 8,192) and 32 new tokens, so that
+# decode crosses the chunk boundary at 8,192; unwindowed, and with a
+# 4,096-position window whose band straddles the boundary
+LONG_CACHE, LONG_PROMPT, LONG_WINDOW = 16384, 8176, 4096
+
+
+def split_decode(half: int):
+    """``dispatch.flash_decode`` as one card computes what two ranks of a
+    sequence-sharded cache compute: a cache of ``2 * half`` positions cut
+    at ``half``, K2 with its row lse on each part, the parts combined by
+    ``shardctx.merge_softmax`` (``combine_softmax``'s arithmetic).  Phase
+    11's single-card oracle of the long-KV decode, as ``split_rows`` is of
+    the row-parallel products."""
+    from repro_torch import shardctx
+    from repro_torch.kernels.decode import flash_decode as fd
+
+    def decode(q, k, v, valid, *, return_lse: bool = False):
+        if return_lse or k.shape[1] != 2 * half:
+            return fd.flash_decode(q, k, v, valid, return_lse=return_lse)
+        parts = [fd.flash_decode(q, k[:, i:i + half], v[:, i:i + half],
+                                 valid[..., i:i + half].contiguous(), return_lse=True)
+                 for i in (0, half)]
+        return shardctx.merge_softmax([o for o, _ in parts], [lse for _, lse in parts])
+    return decode
+
+
+def stepped_logits(eng, prompts, toks) -> list:
+    """The engine's uncaptured prefill of ``prompts`` and a decode step for
+    each token of ``toks`` (B, n) but the last, fed in (teacher-forced, so
+    every engine steps through the same tokens), at each row's position as
+    a device tensor, as ``generate`` steps: each one's logits, float32 on
+    the host, a mesh engine's rows gathered."""
+    from repro_torch.models import api
+
+    tokens, last_pos, cache_len = eng._prompt(prompts, toks.shape[1])
+    s = prompts.shape[1]
+    out = []
+    with eng._on_mesh(tokens.shape[0]):
+        logits, cache = eng._prefill(eng._local_rows(tokens), last_pos, cache_len)
+        out.append(eng._all_rows(logits.float(), 0).cpu())
+        for i in range(toks.shape[1] - 1):
+            tok = eng._local_rows(toks[:, i:i + 1])[:, 0].to(eng.device)
+            pos = torch.full((tok.shape[0],), s + i, device=eng.device)
+            logits, _ = api.decode_step(eng.params, cache, tok, pos, eng.cfg)
+            out.append(eng._all_rows(logits.float(), 0).cpu())
+    return out
+
+
+def long_kv_run(cfg, mesh, window: int) -> dict:
+    """deepseek-7b (``cfg``, full depth, bf16) at batch 1 over
+    ``LONG_CACHE`` positions on ``mesh``, its cache's sequence cut over
+    "data": on rank 0 first, uncaptured, the plain single card's greedy
+    tokens and teacher-forced logits, and the same with the cache split
+    at ``LONG_CACHE / 2`` (``split_decode``); then the mesh engine's
+    logits on the plain card's tokens, its ``generate``, K1/K2 counted, and
+    one decode step's collectives against the plan."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.models import api
+    from repro_torch.serving.engine import InferenceEngine
+
+    wcfg = cfg.replace(attention_window=window) if window else cfg
+    dev = mesh.device
+    prompts = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                            generator=torch.Generator().manual_seed(5))
+
+    def params_fn():
+        return api.init_params(wcfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+    out, want = {}, [None]
+    torch.cuda.reset_peak_memory_stats()
+    if mesh.rank == 0:
+        with uncaptured():
+            eng = InferenceEngine(wcfg, params=params_fn(), max_cache=LONG_CACHE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want[0] = eng.generate(prompts, SHARDED_NEW).tokens
+            out["single_s"] = time.perf_counter() - t0
+            out["plain"] = stepped_logits(eng, prompts, want[0])
+            with mock.patch.object(dispatch, "flash_decode", split_decode(LONG_CACHE // 2)):
+                out["split_tokens"] = eng.generate(prompts, SHARDED_NEW).tokens
+                out["split"] = stepped_logits(eng, prompts, want[0])
+        out["want"] = want[0]
+        del eng
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(want, src=0)
+    eng = InferenceEngine(wcfg, params=params_fn(), max_cache=LONG_CACHE, mesh=mesh)
+    torch.cuda.empty_cache()
+    out["mesh"] = stepped_logits(eng, prompts, want[0])
+    flash.launches = fd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["tokens"] = eng.generate(prompts, SHARDED_NEW).tokens
+    out["mesh_s"] = time.perf_counter() - t0
+    out["launches"] = {"flash_attention": flash.launches, "flash_decode": fd.launches}
+    name = f"{cfg.name} (2, 1) batch 1 long-KV" + (f" window {window}" if window else "")
+    k = out["launches"]
+    want_k = {"flash_attention": cfg.num_layers,
+              "flash_decode": cfg.num_layers * (SHARDED_NEW - 1)}
+    log(f"[sharded] rank {mesh.rank} {name}: K1 {k['flash_attention']}, K2 (with lse) "
+        f"{k['flash_decode']} (layers x prefills, layers x steps: {want_k}); generate "
+        f"{out['mesh_s']:.3f} s")
+    if k != want_k:
+        raise SystemExit(f"rank {mesh.rank} {name}: K1/K2 launches {k}, not {want_k}")
+    out["step"] = step_collectives(name, eng, out["tokens"], LONG_PROMPT + SHARDED_NEW - 1)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["name"] = name
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_long_kv(run: dict) -> dict:
+    """Rank 0: the long-KV mesh run's logits at every step against the
+    single card that splits the cache as the ranks do (row by row, bit for
+    bit where they are, held to ``ROW_REL_TOL``) and its tokens equal to
+    that card's; against the plain single card, the logits' relative L2
+    and the tokens, printed.  -> what it measured."""
+    name = run["name"]
+    rows = [row_rel(m, s).max().item() for m, s in zip(run["mesh"], run["split"])]
+    bits = sum(torch.equal(m, s) for m, s in zip(run["mesh"], run["split"]))
+    plain = [((m - p).norm() / p.norm()).item() for m, p in zip(run["mesh"], run["plain"])]
+    ok = max(rows) <= ROW_REL_TOL and all(bool(torch.isfinite(m).all()) for m in run["mesh"])
+    log(f"[sharded] {name}: logits of the prefill and {len(rows) - 1} decode steps against the "
+        f"single card splitting its cache at {LONG_CACHE // 2}: worst row rel_l2 "
+        f"{max(rows):.3e} (tol {ROW_REL_TOL:g}), {bits} of {len(rows)} steps bit for bit "
+        f"{'ok' if ok else 'FAIL'}; against the plain single card: rel_l2 worst "
+        f"{max(plain):.3e}, last {plain[-1]:.3e}")
+    same_split = torch.equal(run["tokens"], run["split_tokens"])
+    same_plain = torch.equal(run["tokens"], run["want"])
+    parts = (run["tokens"][0] != run["want"][0]).nonzero()
+    log(f"[sharded] {name}: greedy tokens equal the split single card's: {same_split}; the "
+        f"plain single card's: {same_plain}"
+        + ("" if same_plain else f" (they part at step {int(parts[0])})"))
+    if not ok or not same_split:
+        raise SystemExit(f"{name}: the sequence-sharded decode disagrees with the single card "
+                         "that splits its cache as the ranks do")
+    return {"worst_row": max(rows), "bit_steps": bits, "steps": len(rows),
+            "plain_rel": max(plain), "tokens_equal_split": same_split,
+            "tokens_equal_plain": same_plain, "single_s": run["single_s"]}
+
+
+def leafwise_params(cfg, dev, mesh=None, specs=None):
+    """Seeded random weights of ``cfg`` drawn one leaf at a time on
+    ``dev``, each from its own generator (seeded by its index): norm scales
+    1, biases 0, the embedding N(0, 1/d), every other matrix N(0, 1/fan-in).
+    With ``mesh``, each leaf is cut to the rank's shard by ``specs`` as soon
+    as it is drawn, so that no rank holds the whole weights (qwen3's 128
+    experts a layer are 2.4 B parameters); without, the whole tree, the
+    same numbers."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import api
+
+    count = [0]
+
+    def make(node, spec, keys=()):
+        if isinstance(node, dict):
+            return {k: make(v, None if spec is None else spec[k], keys + (k,))
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [make(v, None if spec is None else spec[j], keys)
+                    for j, v in enumerate(node)]
+        gen = torch.Generator(device=dev).manual_seed(1000 + count[0])
+        count[0] += 1
+        shape = tuple(node.shape)
+        t = torch.empty(shape, dtype=node.dtype, device=dev)   # drawn in place
+        if keys[-1] == "scale":
+            t.fill_(1.0)
+        elif keys[-1] in ("b", "bias"):
+            t.zero_()
+        else:
+            fan_in = cfg.d_model if keys[-1] == "embedding" else shape[-2]
+            t.normal_(0.0, fan_in ** -0.5, generator=gen)
+        return t if mesh is None else sharding.shard(t, spec, mesh)
+
+    return make(api.abstract_params(cfg), specs)
+
+
+def gate_run(cfg, mesh, name: str, params_fn, local_fn=None) -> dict:
+    """A float32 gate: ``cfg`` through ``sharded_engine_run`` (on
+    ``local_fn()``'s shards where given), K2 counted where the family runs
+    it, one decode step's collectives against the plan, and on rank 0 the
+    prefill logits within ``SHARDED_REL_TOL`` of the single card's and the
+    greedy tokens equal.  -> rank 0's reading, the launches and the step's
+    collectives."""
+    prompts = deepseek_inputs(cfg)[0]
+    run = sharded_engine_run(cfg, mesh, prompts, params_fn, local_fn=local_fn)
+    eng = run.pop("engine")
+    log(f"[sharded] rank {mesh.rank} {name}: launches {run['launches']}; generate "
+        f"{run['mesh_s']:.3f} s")
+    if cfg.family in ("dense", "moe", "vlm") and not run["launches"]["flash_decode"]:
+        raise SystemExit(f"rank {mesh.rank} {name}: K2 never launched on the sharded path")
+    out = {"launches": run["launches"], "mesh_s": run["mesh_s"],
+           "step": step_collectives(name, eng, run["tokens"],
+                                    prompts.shape[1] + SHARDED_NEW - 1)}
+    if mesh.rank == 0:
+        out.update(hold_engine_run(name, run, rel_tol=SHARDED_REL_TOL, tokens_equal=True))
+    del eng, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32(cfg, layers: int | None = None):
+    """``cfg`` in float32, at ``layers`` layers where given."""
+    cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
+def new_layouts_rank(rank: int, tp, dp) -> tuple[dict, dict]:
+    """Phase 11's layouts that cut a KV sequence or heads inside, on the
+    two ranks: deepseek-7b's long-KV decode over "data", unwindowed and
+    windowed; recurrentgemma-9b on (1, 2) at full width and depth in bf16
+    (held row by row to the single card with its row products split as the
+    ranks split them, ``split_rows``), its float32 gate at one pattern unit
+    and one float32 train step there; whisper-tiny's float32 gate on
+    (1, 2).  -> (rank 0's readings, the launches)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get
+    from repro_torch.models import api
+
+    dev = tp.device
+    report, launches = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    cfg = get("deepseek-7b").config
+    for window in (0, LONG_WINDOW):
+        t0 = time.perf_counter()
+        run = long_kv_run(cfg, dp, window)
+        add(run["launches"])
+        entry = {"mesh_s": run["mesh_s"], "step": run["step"], "peak_gib": run["peak_gib"]}
+        if rank == 0:
+            entry.update(hold_long_kv(run))
+        entry["wall_s"] = time.perf_counter() - t0
+        report[run["name"]] = entry
+        del run
+
+    hcfg = get("recurrentgemma-9b").config
+    prompts = deepseek_inputs(hcfg)[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = sharded_engine_run(hcfg, tp, prompts, lambda: api.init_params(
+        hcfg, torch.Generator(device=dev).manual_seed(0), dev), split=True)
+    eng = run.pop("engine")
+    name = f"{hcfg.name} (1, 2) bf16"
+    entry = {"mesh_s": run["mesh_s"], "collectives": run["collectives"],
+             "step": step_collectives(name, eng, run["tokens"],
+                                      prompts.shape[1] + SHARDED_NEW - 1),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank == 0:
+        entry.update(hold_engine_run(name, run, row_tol=LOGITS_REL_TOL, tokens_equal=False),
+                     single_s=run["single_s"])
+    entry["wall_s"] = time.perf_counter() - t0
+    report[name] = entry
+    del eng, run
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    gcfg = f32(hcfg, len(hcfg.pattern))
+    name = f"{hcfg.name} (1, 2) float32, {gcfg.num_layers} layers"
+    report[name] = r = gate_run(gcfg, tp, name, lambda: api.init_params(
+        gcfg, torch.Generator(device=dev).manual_seed(0), dev))
+    add(r["launches"])
+    want = single_train_step(gcfg, dev, grads=True) if rank == 0 else None
+    dist.barrier()
+    name = f"{hcfg.name} (1, 2) tensor parallel, {gcfg.num_layers} layers"
+    report[f"train {name}"] = r = sharded_train_check(
+        gcfg, tp, name, False, want, kernels=("grad_sumsq", "adamw_update"))
+    add(r["launches"])
+    r["wall_s"] = time.perf_counter() - t0     # the gate and the train step
+    del want
+
+    wcfg = f32(get("whisper-tiny").config)
+    name = f"{wcfg.name} (1, 2) float32"
+    report[name] = r = gate_run(wcfg, tp, name, lambda: api.init_params(
+        wcfg, torch.Generator(device=dev).manual_seed(0), dev))
+    add(r["launches"])
+    return report, launches
+
+
+def wide_rank(rank: int, out_dir: str, world: int) -> None:
+    """Phase 11 on one of ``world`` ranks sharing the card through gloo, on
+    the model axis alone: whisper-tiny's float32 gate on (1, 4), its heads
+    and its caches' sequences (self and cross attention) cut over "model";
+    qwen3-moe-235b-a22b's float32 gate on (1, 8), full width at
+    ``QWEN3_LAYERS`` layers, its 64 query heads whole on each rank, its 4 kv
+    heads cut inside, its cache's sequence over "model" (K2 with its row
+    lse on every rank), its experts 16 a rank, each rank's shards drawn
+    leaf by leaf (``leafwise_params``).  Each rank writes its report."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
+
+    t_start = time.perf_counter()
+    mesh = make_local_mesh(1, world)
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats()
+    if world == 4:
+        cfg = f32(get("whisper-tiny").config)
+        name = f"{cfg.name} (1, 4) float32"
+        r = gate_run(cfg, mesh, name, lambda: api.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    else:
+        cfg = f32(get("qwen3-moe-235b-a22b").config, QWEN3_LAYERS)
+        name = f"{cfg.name} (1, {world}) float32, {cfg.num_layers} layers"
+        specs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh)
+        r = gate_run(cfg, mesh, name, lambda: leafwise_params(cfg, dev),
+                     local_fn=lambda: leafwise_params(cfg, dev, mesh, specs))
+    report = {"rank": rank, "launches": r.pop("launches"), name: r,
+              "seconds": time.perf_counter() - t_start,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(report, f)
 
 
 def sharded_rank(rank: int, out_dir: str) -> None:
@@ -3065,6 +3601,10 @@ def sharded_rank(rank: int, out_dir: str) -> None:
         trains[name] = r = sharded_train_check(tcfg, mesh, name, fsdp, want)
         add(r["launches"])
     report["train"] = trains
+    report["f1_s"] = time.perf_counter() - t_start
+    del want
+    report["layouts"], more = new_layouts_rank(rank, tp, dp)
+    add(more)
     report["launches"] = launches
     report["seconds"] = time.perf_counter() - t_start
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -3075,28 +3615,44 @@ def sharded_rank(rank: int, out_dir: str) -> None:
 def sharded_phase() -> dict:
     """Phase 11: the sharded paths on ``SHARDED_WORLD`` ranks placed on the
     cards present (NCCL with a card a rank when there are enough, gloo when
-    they share one; the backend printed).  -> rank 0's report and the
-    kernel launches summed over the ranks."""
+    they share one; the backend printed), then on 4 and 8 ranks
+    (``wide_rank``).  -> rank 0's reports and the kernel launches summed
+    over the ranks."""
     from repro_torch.launch.mesh import backend_for, spawn
 
-    backend, _ = backend_for(SHARDED_WORLD, "cuda")
-    log(f"[sharded] world={SHARDED_WORLD} cards={torch.cuda.device_count()} backend={backend}")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        spawn(sharded_rank, SHARDED_WORLD, (tmp,), device="cuda", timeout_s=600)
-        reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
-                   for r in range(SHARDED_WORLD)]
-    wall = time.perf_counter() - t0
-    launches = {}
-    for rep in reports:
-        for k, n in rep["launches"].items():
-            launches[k] = launches.get(k, 0) + n
-        log(f"[sharded] rank {rep['rank']}: {rep['seconds']:.1f} s in the rank, peak allocated "
-            f"{rep['peak_gib']:.2f} GiB (deepseek-7b (1, 2): {rep['deepseek']['peak_gib']:.2f} "
-            f"GiB); launches {rep['launches']}")
-    log(f"[sharded] phase 11: {wall:.1f} s, ranks spawned and joined")
-    return {"report": reports[0], "launches": launches, "wall_s": wall, "backend": backend}
+    launches, reports, walls = {}, {}, {}
+    for world, fn, args in ((SHARDED_WORLD, sharded_rank, ()), (4, wide_rank, (4,)),
+                            (8, wide_rank, (8,))):
+        backend, _ = backend_for(world, "cuda")
+        log(f"[sharded] world={world} cards={torch.cuda.device_count()} backend={backend}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            spawn(fn, world, (tmp, *args), device="cuda", timeout_s=600)
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(world)]
+        walls[world] = time.perf_counter() - t0
+        for rep in ranks:
+            for k, n in rep["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            log(f"[sharded] world {world} rank {rep['rank']}: {rep['seconds']:.1f} s in the "
+                f"rank, peak allocated {rep['peak_gib']:.2f} GiB; launches {rep['launches']}")
+        if world == SHARDED_WORLD:
+            log(f"[sharded] deepseek-7b (1, 2) bf16 peak allocated: "
+                + ", ".join(f"rank {rep['rank']} {rep['deepseek']['peak_gib']:.2f} GiB"
+                            for rep in ranks))
+            for name, entry in ranks[0]["layouts"].items():
+                peaks = [rep["layouts"][name].get("peak_gib") for rep in ranks]
+                if peaks[0] is not None:
+                    log(f"[sharded] {name}: peak allocated per rank "
+                        + ", ".join(f"{p:.2f} GiB" for p in peaks))
+                if "wall_s" in entry:
+                    log(f"[sharded] {name}: {entry['wall_s']:.1f} s of the phase")
+            log(f"[sharded] the F1 runs before them: {ranks[0]['f1_s']:.1f} s")
+        reports[world] = ranks[0]
+        log(f"[sharded] phase 11, {world} ranks: {walls[world]:.1f} s, spawned and joined")
+    log(f"[sharded] phase 11: {sum(walls.values()):.1f} s")
+    return {"reports": reports, "launches": launches, "wall_s": sum(walls.values())}
 
 
 def bootstrap_line() -> None:
@@ -3396,6 +3952,10 @@ def main() -> int:
             f"{fmt_ms(t['plain_device_ms'])}); library {library}")
         if "host_us" in t:
             log(f"[time] {name} wrapper: {t['host_us']:.1f} us of host time per call")
+        if "lse_ms" in t:
+            log(f"[time] {name} with the row lse: {t['lse_ms']:.4f} ms (device "
+                f"{fmt_ms(t['lse_device_ms'])}), without {t['ms']:.4f} ms (device "
+                f"{fmt_ms(t['device_ms'])}) ({card})")
     prefills, steps = {}, {}
     prefills[cfg.name], steps[cfg.name] = breakdown(eng, cfg, dev)
     del eng

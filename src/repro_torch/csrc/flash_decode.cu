@@ -44,6 +44,13 @@
 //    none), and for a row without one it reads every position as the
 //    reference does;
 //  * positions past S are neither loaded nor counted (-inf, weight 0).
+//
+// On request the combine also writes each row's log-sum-exp of its logits
+// (natural log, float32, (B,H)), from the (M, L) it holds anyway: the
+// weight that lets partial softmaxes over chunks of a sequence-sharded
+// cache be combined across ranks.  It is -inf for a row with no valid
+// position (whose output is still the mean of V), so such a chunk weighs 0.
+// Writing it changes nothing else: o is the same with and without it.
 
 #include <math.h>
 #include <stdint.h>
@@ -60,6 +67,7 @@ constexpr int BKD = 64;   // cache positions per tile: the unit of a split
 constexpr int NT = 128;   // threads per CTA
 constexpr int NW = NT / 32;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // the VEC float32 values of one 16-byte load
 __device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
@@ -287,11 +295,15 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-// One CTA per (batch row, head): weight each split by 2^(m_i - M).
+// One CTA per (batch row, head): weight each split by 2^(m_i - M).  With
+// lse (not null), also the row's natural log-sum-exp: M is the largest
+// base-2 logit and L the sum of 2^(s - M), so it is (M + log2 L) ln 2; a row
+// with no valid position has only masked logits (NEG) and gets -inf.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 decode_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
-               const float* __restrict__ part_acc, T* __restrict__ o, int nsplit, int hd) {
+               const float* __restrict__ part_acc, T* __restrict__ o, float* __restrict__ lse,
+               int nsplit, int hd) {
   const long long row = blockIdx.x;  // b*H + h; o is (B,1,H,hd) contiguous
   const float* pm = part_m + row * nsplit;
   const float* pl = part_l + row * nsplit;
@@ -299,6 +311,8 @@ decode_combine(const float* __restrict__ part_m, const float* __restrict__ part_
   for (int i = 1; i < nsplit; ++i) M = fmaxf(M, pm[i]);
   float L = 0.f;
   for (int i = 0; i < nsplit; ++i) L += exp2f(pm[i] - M) * pl[i];
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[row] = M <= 0.5f * NEG ? -INFINITY : (M + log2f(L)) * LN2;
   L = fmaxf(L, 1e-30f);
   for (int d = threadIdx.x; d < hd; d += blockDim.x) {
     float a = 0.f;
@@ -310,7 +324,7 @@ decode_combine(const float* __restrict__ part_m, const float* __restrict__ part_
 struct Args {
   const void *q, *k, *v, *valid;
   long long valid_bstride;
-  void *o, *part_m, *part_l, *part_acc;
+  void *o, *lse, *part_m, *part_l, *part_acc;
   int B, S, H, KH, hd;
   long long cache_bstride, cache_sstride;
   int nsplit, tiles_per_split;
@@ -330,7 +344,8 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   decode_combine<T><<<a.B * a.H, NT, 0, a.stream>>>(
       static_cast<const float*>(a.part_m), static_cast<const float*>(a.part_l),
-      static_cast<const float*>(a.part_acc), static_cast<T*>(a.o), a.nsplit, a.hd);
+      static_cast<const float*>(a.part_acc), static_cast<T*>(a.o), static_cast<float*>(a.lse),
+      a.nsplit, a.hd);
   return cudaGetLastError();
 }
 
@@ -362,6 +377,8 @@ cudaError_t launch_t(const Args& a) {
 // q, o: (B,1,H,hd) contiguous.  k, v: (B,S,KH,hd) with the last two dims
 // contiguous and element strides cache_bstride (batch) and cache_sstride
 // (position).  valid: uint8, element (b, p) at b*valid_bstride + p.
+// lse: null, or (B,H) float32, each row's natural log-sum-exp (-inf for a
+// row with no valid position).
 // part_m, part_l: (B,H,nsplit) float32 scratch; part_acc: (B,H,nsplit,hd).
 // Split i covers tiles [i*tiles_per_split, (i+1)*tiles_per_split) of 64
 // positions.  dtype 0 = float32, 1 = bfloat16.  hd is a multiple of 16
@@ -369,11 +386,11 @@ cudaError_t launch_t(const Args& a) {
 // Returns the cudaError_t.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* valid, long long valid_bstride, void* o,
-                                  void* part_m, void* part_l, void* part_acc, int B, int S,
-                                  int H, int KH, int hd, long long cache_bstride,
+                                  void* lse, void* part_m, void* part_l, void* part_acc,
+                                  int B, int S, int H, int KH, int hd, long long cache_bstride,
                                   long long cache_sstride, int nsplit, int tiles_per_split,
                                   float scale, int dtype, void* stream) {
-  const Args a{q, k, v, valid, valid_bstride, o, part_m, part_l, part_acc, B, S, H, KH, hd,
+  const Args a{q, k, v, valid, valid_bstride, o, lse, part_m, part_l, part_acc, B, S, H, KH, hd,
                cache_bstride, cache_sstride, nsplit, tiles_per_split, scale * LOG2E,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)launch_t<float>(a);

@@ -4,6 +4,11 @@
 
 Takes CUDA tensors only: it checks them, allocates the output and the
 split partials (one scratch buffer), and launches on the current stream.
+With ``return_lse`` the combine also writes each row's log-sum-exp of its
+logits, (B,H) float32, natural log, -inf for a row with no valid position:
+the weight under which the outputs over chunks of a sequence-sharded cache
+combine (``repro_torch.shardctx.combine_softmax``).  The output is the same
+with and without it.
 CPU tensors go to the plain version through ``repro_torch.kernels.dispatch``.
 """
 from __future__ import annotations
@@ -33,7 +38,7 @@ def _kernel():
     if _fn is None:
         fn = build.library(SOURCE).repro_flash_decode
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, ll, p, p, p, p, i, i, i, i, i, ll, ll, i, i,
+        fn.argtypes = [p, p, p, p, ll, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i,
                        ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -52,13 +57,14 @@ def split_plan(batch: int, kv_heads: int, seq: int) -> tuple[int, int]:
 
 
 def flash_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                 valid: torch.Tensor) -> torch.Tensor:
+                 valid: torch.Tensor, *, return_lse: bool = False):
     """q: (B,1,H,hd) contiguous; cache_k/v: (B,S,K,hd) with the last two
     dims contiguous (batch and position strides are free, so a band slice
     of a longer cache needs no copy); valid: (S,) bool shared by every row,
     or (B,S) bool contiguous, per row.  float32 or bfloat16; hd <= 256 and
     a whole number of 16-byte vectors; q, the caches and the cache strides
-    16-byte aligned."""
+    16-byte aligned.  -> o (B,1,H,hd), or (o, lse (B,H) float32) with
+    ``return_lse``."""
     global launches
     build.refuse_grad("flash_decode", q, cache_k, cache_v)   # K2 has no backward
     dev = q.device
@@ -98,15 +104,17 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
         raise ValueError(f"flash_decode: valid {tuple(valid.shape)} is neither a "
                          f"contiguous ({s},) nor ({b}, {s})")
     o = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) if return_lse else None
     if q.numel() == 0:
-        return o
+        return (o, lse) if return_lse else o
     nsplit, per = split_plan(b, kh, s)
     n = b * h * nsplit
     part = torch.empty(n * (hd + 2), dtype=torch.float32, device=dev)   # m, l, acc
     m_ptr = part.data_ptr()
     args = (q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
             valid.data_ptr(), valid_bstride, o.data_ptr(),   # bool: one byte, 0 or 1
-            m_ptr, m_ptr + 4 * n, m_ptr + 8 * n, b, s, h, kh, hd,
+            lse.data_ptr() if return_lse else None, m_ptr, m_ptr + 4 * n, m_ptr + 8 * n,
+            b, s, h, kh, hd,
             cache_k.stride(0), cache_k.stride(1), nsplit, per, hd ** -0.5,
             DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if dev.index == torch.cuda.current_device():
@@ -117,4 +125,4 @@ def flash_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     if err:
         raise RuntimeError(f"flash_decode: launch failed with CUDA error {err}")
     launches += 1
-    return o
+    return (o, lse) if return_lse else o

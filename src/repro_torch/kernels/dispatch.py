@@ -58,11 +58,12 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, window: int = 0):
     return flash_attention_bwd_ref(q, k, v, o, do, lse, window=window)
 
 
-def flash_decode(q, cache_k, cache_v, valid):
-    """One query per row against the cache; valid (S,) or (B,S) bool."""
+def flash_decode(q, cache_k, cache_v, valid, *, return_lse: bool = False):
+    """One query per row against the cache; valid (S,) or (B,S) bool.  ->
+    o, or (o, the float32 row log-sum-exp (B,H)) with ``return_lse``."""
     if q.is_cuda:
-        return fd.flash_decode(q, cache_k, cache_v, valid)
-    return flash_decode_ref(q, cache_k, cache_v, valid)
+        return fd.flash_decode(q, cache_k, cache_v, valid, return_lse=return_lse)
+    return flash_decode_ref(q, cache_k, cache_v, valid, return_lse=return_lse)
 
 
 def rwkv_scan(r, k, v, w, u, state, *, out_state=None):

@@ -28,6 +28,7 @@ MoE experts: expert-parallel over ``model`` when num_experts divides the axis
 from __future__ import annotations
 
 import functools
+from contextlib import contextmanager
 from types import SimpleNamespace
 
 import torch
@@ -337,43 +338,6 @@ def local_zeros(abs_tree, specs, mesh):
 
 
 # ----------------------------------------------------------------------
-# the layouts this slice runs
-# ----------------------------------------------------------------------
-
-F2 = "slice F2 of the sharded paths (ROADMAP.md Queue 1)"
-
-
-def check_layout(cfg: ModelConfig, mesh) -> None:
-    """Refuse, naming slice F2, a model axis that the port's sharded
-    families cannot run yet: the hybrid and audio families under it, and
-    attention heads (query or kv) that do not divide it, where the rules
-    would cut inside a head or shard the KV sequence over "model"."""
-    m = mesh.shape.get("model", 1)
-    if m == 1:
-        return
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family under a model axis "
-                                  f"of {m} is {F2}")
-    if cfg.num_heads % m or cfg.num_kv_heads % m:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_heads} query and {cfg.num_kv_heads} kv heads over a model "
-            f"axis of {m}: heads that do not divide it (the KV sequence sharded over "
-            f"\"model\", K2's partial softmax all-reduced) are {F2}")
-
-
-def check_cache(specs, abs_cache, cfg: ModelConfig, *, batch: int) -> None:
-    """Refuse a cache whose rules shard a KV sequence dim (the long-KV
-    layout of a batch that does not divide the data axes), naming F2."""
-    def look(keys, leaf, _stacked):
-        return (keys[-1] if keys else "", _batch_dim(keys) + 1)
-    for (name, s_idx), spec in zip(spec_leaves(_walk(abs_cache, look)), spec_leaves(specs)):
-        if name in ("k", "v", "xk", "xv") and len(spec) > s_idx and spec[s_idx] is not None:
-            raise NotImplementedError(f"{cfg.name}: a cache with its sequence sharded over "
-                                      f"{spec[s_idx]!r} (a batch of {batch} rows that does "
-                                      f"not divide the data axes) is {F2}")
-
-
-# ----------------------------------------------------------------------
 # what the rules cut, for the model code
 # ----------------------------------------------------------------------
 
@@ -403,3 +367,74 @@ def _model_cut(keys, shape, names, sizes, cache):
     else:
         spec = _spec_for(list(keys), shape, None, mesh)
     return next((dim for dim, axes in spec_cuts(spec) if "model" in axes), None)
+
+
+def model_span(keys: tuple, shape: tuple) -> tuple[int, int] | None:
+    """[start, stop) of the dim ``model_cut`` names that this rank holds
+    (its equal chunk over the model axis of the ambient mesh), or None
+    where the rules leave the leaf whole on it."""
+    dim = model_cut(keys, shape)
+    if dim is None:
+        return None
+    n = shape[dim] // shardctx.size("model")
+    i = shardctx.index("model")
+    return i * n, (i + 1) * n
+
+
+def head_span(keys: tuple, shape: tuple, head_dim: int) -> tuple[int, int, bool] | None:
+    """The heads of ``head_dim`` entries that this rank's chunk of the cut
+    dim (``model_span``) touches, [first, stop), and whether the chunk
+    holds exactly those heads whole; None where the rules leave the leaf
+    whole.  The rules cut a projection's columns whenever its width divides
+    the model axis, so a chunk may start or end inside a head."""
+    span = model_span(keys, shape)
+    if span is None:
+        return None
+    lo, hi = span
+    return lo // head_dim, -(-hi // head_dim), lo % head_dim == 0 and hi % head_dim == 0
+
+
+# ----------------------------------------------------------------------
+# what the rules cut of a cache's sequence, for the model code
+# ----------------------------------------------------------------------
+
+SEQ_LEAVES = ("k", "v", "xk", "xv")
+
+
+def seq_cuts(abs_cache, specs) -> dict:
+    """{leaf name: the axes (a tuple, () for none) that ``specs``
+    (``cache_pspecs`` of ``abs_cache``) cut the sequence dim of the
+    attention leaves ``k``, ``v``, ``xk``, ``xv`` over}.  Every leaf of one
+    name must be cut alike (the hybrid family's ring buffers are)."""
+    def look(keys, leaf, _stacked):
+        return (keys[-1] if keys else "", _batch_dim(keys) + 1)
+    cuts = {}
+    for (name, s_idx), spec in zip(spec_leaves(_walk(abs_cache, look)), spec_leaves(specs)):
+        if name not in SEQ_LEAVES:
+            continue
+        entry = spec[s_idx] if len(spec) > s_idx else None
+        axes = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+        if cuts.setdefault(name, axes) != axes:
+            raise ValueError(f"cache leaves named {name!r} cut their sequence over both "
+                             f"{cuts[name]} and {axes}")
+    return cuts
+
+
+@contextmanager
+def use_cache_layout(abs_cache, specs):
+    """Make the sequence cuts of the cache that ``specs`` lay out
+    (``cache_pspecs`` of the whole ``abs_cache``) ambient for the model
+    code: ``seq_cut`` answers from them.  The entry points that cut a
+    cache enter it with the mesh."""
+    with shardctx.use_seq_cuts(seq_cuts(abs_cache, specs)):
+        yield
+
+
+def seq_cut(name: str) -> tuple:
+    """The mesh axes that the ambient cache layout (``use_cache_layout``)
+    cuts the sequence dim of the cache leaf ``name`` over: () when it is
+    whole, without a mesh, or outside a layout.  A rank holds the
+    ``shardctx.index(axes)``-th equal chunk of the positions."""
+    if shardctx.get_mesh() is None:
+        return ()
+    return shardctx.get_seq_cuts().get(name, ())

@@ -97,7 +97,6 @@ def _rebuild(tree, leaves):
 
 
 def _sharded_train_step(cfg: ModelConfig, opt: AdamW, num_micro: int, mesh, pspecs):
-    sharding.check_layout(cfg, mesh)
     if pspecs is None:
         pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh)
     specs = sharding.spec_leaves(pspecs)

@@ -70,15 +70,7 @@ def main(argv=None) -> int:
           f"vocab={cfg.vocab_size} device={args.device} devices={n_dev} ranks={world}",
           flush=True)
     if world > 1:
-        from types import SimpleNamespace
-
-        from repro_torch.launch import sharding
         from repro_torch.launch.mesh import spawn
-        try:
-            sharding.check_layout(cfg, SimpleNamespace(
-                shape={"data": args.data_par, "model": args.model_par}))
-        except NotImplementedError as e:
-            ap.error(str(e))
         spawn(_rank, world, (args,), device=args.device, timeout_s=24 * 3600)
         return 0
     rep = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,

@@ -302,6 +302,19 @@ def tensor_leaves(params: Params):
             yield from tensor_leaves(v)
 
 
+def leaf_paths(params: Params, keys: tuple = ()):
+    """The key path of every tensor of a nested dict / list tree, in
+    ``tensor_leaves`` order (a list's index as an int)."""
+    if isinstance(params, torch.Tensor):
+        yield keys
+    elif isinstance(params, dict):
+        for k, v in params.items():
+            yield from leaf_paths(v, keys + (k,))
+    elif isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            yield from leaf_paths(v, keys + (i,))
+
+
 def count_params(params: Params) -> int:
     return sum(t.numel() for t in tensor_leaves(params))
 

@@ -15,6 +15,16 @@ fills all four, a decode step writes ``k``/``v`` at its position and reads
 ``xk``/``xv`` unchanged.  No Pallas kernel is on this path in the
 reference: the attention is ``sdpa`` or ``attention_chunked``, and so it
 is here, on every device.
+
+Under a mesh with a ``model`` axis each rank holds what the rules cut
+(``launch/sharding.py``): the attention follows ``layers.py`` (heads cut
+inside where the head count does not divide the axis; a self-attention
+cache and the cross-attention's ``xk``/``xv`` whose sequence the rules cut
+over "model" or "data" hold a rank's chunk of the positions, combined by
+their row log-sum-exp through the plain ``sdpa``); the MLP is ``wi``
+column-parallel, ``wo`` row-parallel, whose bias is added once, after the
+all-reduce; the vocabulary is cut only where it divides the axis
+(``layers.embed``/``unembed`` ask the rules).
 """
 from __future__ import annotations
 
@@ -23,8 +33,10 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device, shardctx
 from .common import ModelConfig, apply_norm, dense, dense_init, norm_init, row_positions
-from .layers import (CHUNK_THRESHOLD, Q_CHUNK, _split_heads, attention_chunked, attn_init,
-                     embed, embed_init, sdpa, unembed)
+from .layers import (CHUNK_THRESHOLD, Q_CHUNK, attend_decode, attend_full, attention_chunked,
+                     attn_init, cache_positions, chunk_positions, embed, embed_init,
+                     first_heads, project_heads, prompt_span, row_dense, sdpa, unembed,
+                     write_prompt, write_token)
 from .transformer import softmax_xent
 
 MAX_DEC_POS = 32768
@@ -40,12 +52,18 @@ def _sinusoid(seq: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _attn(p, xq, xkv, mask, cfg: ModelConfig):
-    q = _split_heads(dense(p["wq"], xq), cfg.num_heads)
-    k = _split_heads(dense(p["wk"], xkv), cfg.num_kv_heads)
-    v = _split_heads(dense(p["wv"], xkv), cfg.num_kv_heads)
-    out = sdpa(q, k, v, mask)
-    return dense(p["wo"], out.reshape(*xq.shape[:2], -1))
+def _kv(p, xkv, cfg: ModelConfig):
+    """-> (k, v): whole heads (``layers.project_heads``)."""
+    return (project_heads(p, "wk", xkv, cfg.num_kv_heads, cfg),
+            project_heads(p, "wv", xkv, cfg.num_kv_heads, cfg))
+
+
+def _attn(p, xq, kv, attend, cfg: ModelConfig):
+    """Attention of xq (B,S,d) over ``kv`` (``_kv``) by ``attend(q, k, v)``
+    on this rank's heads, then ``wo``."""
+    q0, k0 = first_heads(cfg)
+    q = project_heads(p, "wq", xq, cfg.num_heads, cfg)
+    return row_dense(p, "wo", attend_full(q, q0, kv[0], kv[1], k0, cfg, attend), cfg.q_dim)
 
 
 def _mlp_init(generator, cfg: ModelConfig, device) -> dict:
@@ -53,8 +71,9 @@ def _mlp_init(generator, cfg: ModelConfig, device) -> dict:
             "wo": dense_init(generator, cfg.d_ff, cfg.d_model, cfg.pdt, device, bias=True)}
 
 
-def _mlp(p, x):
-    return dense(p["wo"], F.gelu(dense(p["wi"], x), approximate="tanh"))
+def _mlp(p, x, cfg: ModelConfig):
+    x = shardctx.copy_to(x)
+    return row_dense(p, "wo", F.gelu(dense(p["wi"], x), approximate="tanh"), cfg.d_ff)
 
 
 def _ln(cfg: ModelConfig, device) -> dict:
@@ -102,10 +121,11 @@ def encode(params, frame_embeds, cfg: ModelConfig) -> torch.Tensor:
     full = torch.ones((se, se), dtype=torch.bool, device=x.device)
     for lp in params["enc_layers"]:
         x = shardctx.constrain_batch(x, seq_dim=1)
-        h = apply_norm(lp["ln1"], x, "layernorm")
-        x = x + _attn(lp["attn"], h, h, full, cfg)
+        h = shardctx.copy_to(apply_norm(lp["ln1"], x, "layernorm"))
+        x = x + _attn(lp["attn"], h, _kv(lp["attn"], h, cfg),
+                      lambda q, k, v: sdpa(q, k, v, full), cfg)
         h = apply_norm(lp["ln2"], x, "layernorm")
-        x = x + _mlp(lp["mlp"], h)
+        x = x + _mlp(lp["mlp"], h, cfg)
     return apply_norm(params["enc_ln_post"], x, "layernorm")
 
 
@@ -132,27 +152,26 @@ def decode_full(params, tokens, enc_out, cfg: ModelConfig, on_kv=None) -> torch.
     pos = torch.arange(s, device=x.device)
     causal = pos[None, :] <= pos[:, None]
     xfull = torch.ones((s, enc_out.shape[1]), dtype=torch.bool, device=x.device)
-    for i, lp in enumerate(params["dec_layers"]):
-        x = shardctx.constrain_batch(x, seq_dim=1)
-        h = apply_norm(lp["ln1"], x, "layernorm")
-        q = _split_heads(dense(lp["attn"]["wq"], h), cfg.num_heads)
-        k = _split_heads(dense(lp["attn"]["wk"], h), cfg.num_kv_heads)
-        v = _split_heads(dense(lp["attn"]["wv"], h), cfg.num_kv_heads)
+    enc_out = shardctx.copy_to(enc_out)
+
+    def self_attend(q, k, v):
         if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
             # memory-bounded: the full (S,S) logits would dominate the memory
-            a = attention_chunked(q, k, v, pos, pos, 0)
-        else:
-            a = sdpa(q, k, v, causal)
-        x = x + dense(lp["attn"]["wo"], a.reshape(b, s, -1))
-        h = apply_norm(lp["ln2"], x, "layernorm")
-        xk = _split_heads(dense(lp["xattn"]["wk"], enc_out), cfg.num_kv_heads)
-        xv = _split_heads(dense(lp["xattn"]["wv"], enc_out), cfg.num_kv_heads)
-        xq = _split_heads(dense(lp["xattn"]["wq"], h), cfg.num_heads)
-        x = x + dense(lp["xattn"]["wo"], sdpa(xq, xk, xv, xfull).reshape(b, s, -1))
+            return attention_chunked(q, k, v, pos, pos, 0)
+        return sdpa(q, k, v, causal)
+
+    for i, lp in enumerate(params["dec_layers"]):
+        x = shardctx.constrain_batch(x, seq_dim=1)
+        h = shardctx.copy_to(apply_norm(lp["ln1"], x, "layernorm"))
+        kv = _kv(lp["attn"], h, cfg)
+        x = x + _attn(lp["attn"], h, kv, self_attend, cfg)
+        h = shardctx.copy_to(apply_norm(lp["ln2"], x, "layernorm"))
+        xkv = _kv(lp["xattn"], enc_out, cfg)
+        x = x + _attn(lp["xattn"], h, xkv, lambda q, k, v: sdpa(q, k, v, xfull), cfg)
         h = apply_norm(lp["ln3"], x, "layernorm")
-        x = x + _mlp(lp["mlp"], h)
+        x = x + _mlp(lp["mlp"], h, cfg)
         if on_kv is not None:
-            on_kv(i, k, v, xk, xv)
+            on_kv(i, *kv, *xkv)
     return x
 
 
@@ -212,20 +231,19 @@ def prefill(params, inputs: dict, cfg: ModelConfig, cache_len: int | None = None
     cache_len = cache_len or s
     if cache is None:
         cache = init_cache(cfg, b, cache_len, device=tokens.device)
-    elif cache["k"].shape[2] != cache_len:
-        raise ValueError(f"cache holds {cache['k'].shape[2]} positions, "
-                         f"cache_len is {cache_len}")
+    elif cache_positions("k", cache["k"].shape[2]) != cache_len:
+        raise ValueError(f"cache holds {cache_positions('k', cache['k'].shape[2])} "
+                         f"positions, cache_len is {cache_len}")
     enc_out = encode(params, _frames(inputs, cfg), cfg)
 
     def on_kv(i, k, v, xk, xv):
-        cache["k"][i, :, :s] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :s] = v.to(cache["v"].dtype)
-        cache["xk"][i] = xk.to(cache["xk"].dtype)
-        cache["xv"][i] = xv.to(cache["xv"].dtype)
+        for name, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
+            write_prompt(cache[name][i], t, name)
 
     x = decode_full(params, tokens, enc_out, cfg, on_kv)
-    cache["k"][:, :, s:] = 0
-    cache["v"][:, :, s:] = 0
+    m = prompt_span("k", cache["k"].shape[2], s)
+    cache["k"][:, :, m:] = 0
+    cache["v"][:, :, m:] = 0
     last = apply_norm(params["final_norm"], x[:, -1], "layernorm")
     return unembed(params["embed"], last, cfg), cache
 
@@ -237,25 +255,26 @@ def decode_step(params, cache: dict, token, pos, cfg: ModelConfig):
     b, dev = token.shape[0], token.device
     pos = row_positions(pos, b, dev)
     x = _dec_embed(params, token[:, None], pos, cfg)
-    rows = torch.arange(b, device=dev)
-    valid = torch.arange(cache["k"].shape[2], device=dev)[None, :] <= pos[:, None]
-    xmask = torch.ones((1, cache["xk"].shape[2]), dtype=torch.bool, device=dev)
+    n = cache["k"].shape[2]
+    kv_pos = chunk_positions("k", n, dev)
+    valid = kv_pos[None, :] <= pos[:, None]
+    xvalid = torch.ones((cache["xk"].shape[2],), dtype=torch.bool, device=dev)
+    q0, k0 = first_heads(cfg)
     for i, lp in enumerate(params["dec_layers"]):
         ck, cv = cache["k"][i], cache["v"][i]
         x = shardctx.constrain_batch(x)
-        h = apply_norm(lp["ln1"], x, "layernorm")
-        q = _split_heads(dense(lp["attn"]["wq"], h), cfg.num_heads)
-        k = _split_heads(dense(lp["attn"]["wk"], h), cfg.num_kv_heads)
-        v = _split_heads(dense(lp["attn"]["wv"], h), cfg.num_kv_heads)
-        ck[rows, pos] = k[:, 0].to(ck.dtype)
-        cv[rows, pos] = v[:, 0].to(cv.dtype)
-        a = sdpa(q, ck, cv, valid[:, None, :])
-        x = x + dense(lp["attn"]["wo"], a.reshape(b, 1, -1))
-        h = apply_norm(lp["ln2"], x, "layernorm")
-        xq = _split_heads(dense(lp["xattn"]["wq"], h), cfg.num_heads)
-        xa = sdpa(xq, cache["xk"][i], cache["xv"][i], xmask)
-        x = x + dense(lp["xattn"]["wo"], xa.reshape(b, 1, -1))
+        h = shardctx.copy_to(apply_norm(lp["ln1"], x, "layernorm"))
+        q = project_heads(lp["attn"], "wq", h, cfg.num_heads, cfg)
+        k, v = _kv(lp["attn"], h, cfg)
+        write_token(ck, cv, k[:, 0], v[:, 0], pos)
+        a = attend_decode(q, q0, ck, cv, k0, valid, cfg, kernel=False)
+        x = x + row_dense(lp["attn"], "wo", a, cfg.q_dim)
+        h = shardctx.copy_to(apply_norm(lp["ln2"], x, "layernorm"))
+        xq = project_heads(lp["xattn"], "wq", h, cfg.num_heads, cfg)
+        xa = attend_decode(xq, q0, cache["xk"][i], cache["xv"][i], k0, xvalid, cfg, name="xk",
+                           kernel=False)
+        x = x + row_dense(lp["xattn"], "wo", xa, cfg.q_dim)
         h = apply_norm(lp["ln3"], x, "layernorm")
-        x = x + _mlp(lp["mlp"], h)
+        x = x + _mlp(lp["mlp"], h, cfg)
     x = apply_norm(params["final_norm"], x, "layernorm")
     return unembed(params["embed"], x, cfg)[:, 0], cache

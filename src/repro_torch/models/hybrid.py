@@ -21,6 +21,18 @@ list of per-layer dicts (the batch on axis 0).  A state handed to
 
 No Pallas kernel is on this path in the reference: the attention is
 ``sdpa`` or ``attention_chunked``, and so it is here, on every device.
+
+Under a mesh with a ``model`` axis each rank holds what the rules cut
+(``launch/sharding.py``): ``w_in``'s columns over the concatenation
+``[xb | gate]`` (at a model axis of 2, rank 0 holds all of ``xb`` and rank
+1 all of ``gate``), so they are gathered and each rank keeps its channels
+of both; ``conv_w``, ``conv_b``, ``lam`` and the ``conv`` and ``lru``
+states by channel; ``wa`` and ``wx`` whole, applied to the gathered input
+on every rank, each rank keeping its channels of the gates; ``w_out``
+row-parallel, all-reduced.  The local attention's heads and its ring
+buffer follow ``layers.py``: the ring is whole over "model" (its window
+exempts it from the kv-heads rule), and cut by slot over "data" for a batch
+that does not divide the data axes.
 ``train_loss`` runs functional copies of the blocks (``_train_block``),
 from the zero state and writing none, so that autograd sees no in-place
 write.
@@ -31,11 +43,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device, shardctx
+from repro_torch.launch.sharding import model_cut
 from .common import (ModelConfig, apply_norm, apply_rope, dense, dense_init,
                      norm_init, remat as checkpointed, row_positions, tensor_leaves)
-from .layers import (CHUNK_THRESHOLD, Q_CHUNK, _split_heads, attention_chunked,
-                     attn_init, causal_window_mask, embed, embed_init, mlp_apply,
-                     mlp_init, sdpa, unembed)
+from .layers import (CHUNK_THRESHOLD, Q_CHUNK, attend_decode, attend_full, attention_chunked,
+                     attn_init, cache_offset, causal_window_mask, chunk_positions, embed,
+                     embed_init, first_heads, mlp_apply, mlp_init, project_heads, row_dense,
+                     sdpa, unembed, write_token)
 from .transformer import softmax_xent
 
 LRU_C = 8.0
@@ -102,10 +116,26 @@ def _scan(a, b):
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
+def _width(p) -> int:
+    """The recurrence's whole width dr (``w_in``'s input dim: lru_width ==
+    d_model for RecurrentGemma, and the rules never cut it)."""
+    return p["w_in"]["w"].shape[0]
+
+
+def _channels_cut(p) -> bool:
+    """Whether the rules cut the recurrence's channels over the model axis."""
+    return model_cut(("conv_w",), (p["conv_w"].shape[0], _width(p))) is not None
+
+
 def _gates(p, xf):
-    """-> (a, the gated input sqrt(1 - a^2) * (i * x)), float32."""
-    r = torch.sigmoid(dense(p["wa"], xf, dtype=torch.float32))
-    i = torch.sigmoid(dense(p["wx"], xf, dtype=torch.float32))
+    """-> (a, the gated input sqrt(1 - a^2) * (i * x)), float32.  Under a
+    cut of the channels, ``wa`` and ``wx`` (whole on every rank) take the
+    whole input, gathered, and each rank keeps its channels of the gates."""
+    xin = shardctx.gather_from(xf, "model", -1) if _channels_cut(p) else xf
+    r = torch.sigmoid(dense(p["wa"], xin, dtype=torch.float32))
+    i = torch.sigmoid(dense(p["wx"], xin, dtype=torch.float32))
+    if _channels_cut(p):
+        r, i = shardctx.scatter_to(r, "model", -1), shardctx.scatter_to(i, "model", -1)
     a = torch.exp(-LRU_C * F.softplus(p["lam"].float()) * r)
     return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * xf)
 
@@ -127,14 +157,28 @@ def _rglru_step(p, x, h):
     return h.to(x.dtype)[:, None], h
 
 
+def _split_in(p, x):
+    """(xb, gate): the input projection's two halves, each rank's channels
+    of both where the rules cut them.  ``w_in``'s columns are cut over the
+    concatenation, so they are gathered first (the gradient reduce-scattered
+    back, as each rank uses its own channels of the whole)."""
+    y = dense(p["w_in"], x)
+    if model_cut(("w_in", "w"), (_width(p), 2 * _width(p))) is None:
+        return y.chunk(2, dim=-1)
+    if not _channels_cut(p):
+        return shardctx.gather_from(y, "model", -1).chunk(2, dim=-1)
+    xb, gate = shardctx.gather_shards(y, "model", -1).chunk(2, dim=-1)
+    return shardctx.local_slice(xb, "model", -1), shardctx.local_slice(gate, "model", -1)
+
+
 def _rec(p, x, conv, lru, *, step: bool):
     """The recurrent block on x (B,T,d) from the states ``conv`` (B,W-1,dr)
-    and ``lru`` (B,dr) float32.  -> (y, the new conv state, the new lru
-    state)."""
-    xb, gate = dense(p["w_in"], x).chunk(2, dim=-1)
+    and ``lru`` (B,dr) float32 (a rank's channels of them under a cut).
+    -> (y, the new conv state, the new lru state)."""
+    xb, gate = _split_in(p, shardctx.copy_to(x))
     xc, conv = _causal_conv(p["conv_w"], p["conv_b"], xb, conv)
     y, lru = (_rglru_step if step else _rglru)(p, xc, lru)
-    return dense(p["w_out"], y * F.gelu(gate, approximate="tanh")), conv, lru
+    return row_dense(p, "w_out", y * F.gelu(gate, approximate="tanh"), _width(p)), conv, lru
 
 
 def rec_block_apply(p, x, state, cfg: ModelConfig, *, step: bool):
@@ -164,9 +208,12 @@ def attn_state_init(cfg: ModelConfig, batch: int, dtype, device) -> dict:
 
 
 def _qkv(p, x, positions, cfg: ModelConfig):
-    q = _split_heads(dense(p["wq"], x), cfg.num_heads)
-    k = _split_heads(dense(p["wk"], x), cfg.num_kv_heads)
-    v = _split_heads(dense(p["wv"], x), cfg.num_kv_heads)
+    """-> (q, k, v), whole heads (``layers.project_heads``; the first of
+    each is ``layers.first_heads``'), q and k roped."""
+    x = shardctx.copy_to(x)
+    q = project_heads(p, "wq", x, cfg.num_heads, cfg)
+    k = project_heads(p, "wk", x, cfg.num_kv_heads, cfg)
+    v = project_heads(p, "wv", x, cfg.num_kv_heads, cfg)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -175,28 +222,33 @@ def _local_attn(p, x, positions, cfg: ModelConfig):
     """Windowed attention over the whole prompt.  -> (y, k, v)."""
     s, win = x.shape[1], cfg.attention_window
     q, k, v = _qkv(p, x, positions[None], cfg)
-    if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
-        out = attention_chunked(q, k, v, positions, positions, win)
-    else:
-        out = sdpa(q, k, v, causal_window_mask(positions, positions, win))
-    return dense(p["wo"], out.reshape(*x.shape[:2], -1)), k, v
+    q0, k0 = first_heads(cfg)
+
+    def attend(qa, ka, va):
+        if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
+            return attention_chunked(qa, ka, va, positions, positions, win)
+        return sdpa(qa, ka, va, causal_window_mask(positions, positions, win))
+
+    out = attend_full(q, q0, k, v, k0, cfg, attend)
+    return row_dense(p, "wo", out, cfg.q_dim), k, v
 
 
 def local_attn_full(p, x, positions, state, cfg: ModelConfig):
     """Attention over the whole prompt; its ring buffer is written into
     ``state`` in place: slot ``p % window`` holds position ``p`` when the
     prompt fills the window, else the prompt's positions lead and the rest
-    is zero."""
+    is zero (a rank's slots of it where the rules cut the ring)."""
     s, win = x.shape[1], cfg.attention_window
     y, k, v = _local_attn(p, x, positions, cfg)
     for name, t in (("k", k), ("v", v)):
         ring = state[name]
         if s >= win:
             # the last window's positions s-win .. s-1 go to their slots
-            ring.copy_(torch.roll(t[:, s - win:], (s - win) % win, dims=1))
+            full = torch.roll(t[:, s - win:], (s - win) % win, dims=1)
         else:
-            ring[:, :s] = t.to(ring.dtype)
-            ring[:, s:] = 0
+            full = F.pad(t, (0, 0, 0, 0, 0, win - s))
+        off = cache_offset(name, ring.shape[1])
+        ring.copy_(full[:, off:off + ring.shape[1]])
     return y
 
 
@@ -205,18 +257,17 @@ def local_attn_step(p, x, pos, state, cfg: ModelConfig):
     position, on the device: the ring slot and the absolute position each
     slot holds are computed there, and the new key and value go in by an
     indexed copy, so the step can be captured."""
-    b, win = x.shape[0], cfg.attention_window
+    win = cfg.attention_window
     q, k, v = _qkv(p, x, pos[:, None], cfg)
+    q0, k0 = first_heads(cfg)
     slot = torch.remainder(pos, win)
-    rows = torch.arange(b, device=x.device)
-    state["k"][rows, slot] = k[:, 0].to(state["k"].dtype)
-    state["v"][rows, slot] = v[:, 0].to(state["v"].dtype)
-    idx = torch.arange(win, device=x.device)[None]
+    write_token(state["k"], state["v"], k[:, 0], v[:, 0], slot)
+    idx = chunk_positions("k", state["k"].shape[1], x.device)[None]
     base = (pos - slot)[:, None]
     kv_pos = torch.where(idx <= slot[:, None], base + idx, base - win + idx)
-    valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])               # (B, win)
-    out = sdpa(q, state["k"], state["v"], valid[:, None, :])
-    return dense(p["wo"], out.reshape(b, 1, -1))
+    valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])               # (B, n)
+    out = attend_decode(q, q0, state["k"], state["v"], k0, valid, cfg, kernel=False)
+    return row_dense(p, "wo", out, cfg.q_dim)
 
 
 # ----------------------------------------------------------------------
@@ -254,9 +305,9 @@ def _train_block(p, kind: str, x, positions, cfg: ModelConfig):
     """One layer for training, from the zero state and writing none."""
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "rglru":
-        b, d = x.shape[0], cfg.d_model
-        conv = torch.zeros((b, cfg.rglru_conv_width - 1, d), dtype=cfg.cdt, device=x.device)
-        lru = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        b, dr = x.shape[0], p["rec"]["conv_w"].shape[-1]    # a rank's channels
+        conv = torch.zeros((b, cfg.rglru_conv_width - 1, dr), dtype=cfg.cdt, device=x.device)
+        lru = torch.zeros((b, dr), dtype=torch.float32, device=x.device)
         a = _rec(p["rec"], h, conv, lru, step=False)[0]
     else:
         a = _local_attn(p["attn"], h, positions, cfg)[0]

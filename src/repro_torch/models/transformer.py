@@ -10,7 +10,10 @@ it (its jitted prefill and decode drop it as dead code).
 
 Under a mesh (``repro_torch.shardctx``) the params and the cache are a
 rank's local shards and the batch its local rows; the tensor-parallel
-collectives are in ``layers.py`` and ``moe.py``.
+collectives are in ``layers.py`` and ``moe.py``.  Where the rules cut the
+cache's sequence (``launch.sharding.seq_cut``), a rank's cache holds its
+chunk of the positions, and the prefill writes the prompt's keys and
+values only where the rank owns them (``layers.write_prompt``).
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ from repro_torch import resolve_device, shardctx
 
 from . import moe
 from .common import ModelConfig, apply_norm, norm_init, remat as checkpointed
-from .layers import (attn_init, attention_decode, attention_full, embed,
-                     embed_init, mlp_apply, mlp_init, unembed)
+from .layers import (attn_init, attention_decode, attention_full, cache_positions, embed,
+                     embed_init, mlp_apply, mlp_init, prompt_span, unembed, write_prompt)
 
 
 # ----------------------------------------------------------------------
@@ -177,17 +180,18 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None,
     cache_len = cache_len or s
     if cache is None:
         cache = init_cache(cfg, b, cache_len, device=tokens.device)
-    elif cache["k"].shape[2] != cache_len:
-        raise ValueError(f"cache holds {cache['k'].shape[2]} positions, "
-                         f"cache_len is {cache_len}")
+    elif cache_positions("k", cache["k"].shape[2]) != cache_len:
+        raise ValueError(f"cache holds {cache_positions('k', cache['k'].shape[2])} "
+                         f"positions, cache_len is {cache_len}")
 
     def on_kv(i, k, v):
-        cache["k"][i, :, :s] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :s] = v.to(cache["v"].dtype)
+        write_prompt(cache["k"][i], k, "k")
+        write_prompt(cache["v"][i], v, "v")
 
     x = _hidden(params, tokens, cfg, on_kv, input_embeds=input_embeds)
-    cache["k"][:, :, s:] = 0
-    cache["v"][:, :, s:] = 0
+    m = prompt_span("k", cache["k"].shape[2], s)
+    cache["k"][:, :, m:] = 0
+    cache["v"][:, :, m:] = 0
     if last_pos is None:
         last = x[:, -1]
     elif isinstance(last_pos, torch.Tensor) and last_pos.dim() == 1:

@@ -31,7 +31,10 @@ engine and calls ``generate`` or ``generate_stream`` with the same prompt:
 the params are cut by ``launch/sharding.py::param_pspecs`` and the cache by
 ``cache_pspecs`` into the rank's local shards, the prompt's rows by
 ``batch_pspec``, and the model's collectives run on the ambient mesh
-(``repro_torch.shardctx``).  The steps run uncaptured there (gloo's
+(``repro_torch.shardctx``) and cache layout (``sharding.use_cache_layout``:
+where the rules cut the cache's sequence, over "model" for kv heads that do
+not divide it or over "data" for a batch that does not divide the data
+axes, a rank holds its chunk of the positions).  The steps run uncaptured there (gloo's
 collectives cannot be captured into a CUDA graph), through the same static
 buffers, and the sampled tokens are gathered over the data axes, so every
 rank returns the whole batch's tokens.
@@ -50,7 +53,7 @@ from repro_torch import resolve_device, shardctx, synchronize
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models import api
-from repro_torch.models.common import ModelConfig, count_params
+from repro_torch.models.common import ModelConfig, count_params, leaf_paths, tensor_leaves
 from repro_torch.serving.graphs import BLOCK, DecodeGraph, PrefillGraph
 from repro_torch.serving.sampler import sample_token
 
@@ -69,27 +72,61 @@ class GenerateResult:
     token_walls: Optional[list] = None   # per-token decode walls (stream path)
 
 
+def _check_shards(shards: dict, abstract: dict, pspecs: dict, mesh) -> None:
+    """Raise unless ``shards`` holds, at the key path of every leaf of the
+    whole tree ``abstract`` and at no other, a tensor of its local shape
+    under its spec, on the mesh's device."""
+    n = 0
+    for keys, whole, spec in zip(leaf_paths(abstract), tensor_leaves(abstract),
+                                 sharding.spec_leaves(pspecs)):
+        name, t = "/".join(map(str, keys)), shards
+        try:
+            for k in keys:
+                t = t[k]
+        except (KeyError, IndexError, TypeError):
+            raise ValueError(f"shard {name}: missing") from None
+        shape = sharding.local_shape(tuple(whole.shape), spec, mesh)
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape or t.device != mesh.device:
+            got = (tuple(t.shape), t.device) if isinstance(t, torch.Tensor) else type(t).__name__
+            raise ValueError(f"shard {name}: {got}, the rank holds {shape} on {mesh.device}")
+        n += 1
+    extra = sum(1 for _ in tensor_leaves(shards)) - n
+    if extra:
+        raise ValueError(f"shards: {extra} leaves more than the model has")
+
+
 class InferenceEngine:
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, max_cache: int = 256,
-                 params: dict | None = None, device="cuda", mesh=None):
+                 params: dict | None = None, device="cuda", mesh=None,
+                 shards: dict | None = None):
         """``params`` (from ``repro_torch.models.convert.from_reference``, or
         another engine's) replaces the seeded random draw.  With ``mesh``
         the params (drawn, or given whole) are cut into this rank's shards
-        on the mesh's device, and ``device`` is the mesh's."""
+        on the mesh's device, and ``device`` is the mesh's; or ``shards``
+        are this rank's shards already (``train.checkpoint.restore(mesh=,
+        pspecs=)``, for weights no rank can hold whole), each leaf checked
+        against ``sharding.local_shape`` of its spec and kept as it is."""
         self.cfg = cfg
         self.max_cache = max_cache
         self.mesh = mesh
         if mesh is not None:
-            sharding.check_layout(cfg, mesh)
             device = mesh.device
         self.device = resolve_device(device)
         t0 = time.perf_counter()
-        if params is None:
+        if shards is not None:
+            if mesh is None or params is not None:
+                raise ValueError("shards are a mesh rank's, given instead of params")
+            params = shards
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = api.init_params(cfg, gen, self.device)
         if mesh is not None:
-            self.pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh)
-            params = sharding.shard_tree(params, self.pspecs, mesh)
+            abstract = api.abstract_params(cfg)
+            self.pspecs = sharding.param_pspecs(abstract, cfg, mesh)
+            if shards is None:
+                params = sharding.shard_tree(params, self.pspecs, mesh)
+            else:
+                _check_shards(params, abstract, self.pspecs, mesh)
         self.params = params
         synchronize(self.device)
         self.load_s = time.perf_counter() - t0
@@ -97,8 +134,10 @@ class InferenceEngine:
         # and the audio or vlm family's zero frontend embeddings at that batch
         self._cache, self._batch, self._modal = None, 0, {}
         # under a mesh: the ranks the current request's rows are cut over
-        # (and the cache's), and the rows' spec
+        # (and the cache's), the rows' spec, and the whole cache of the
+        # request's batch (meta) with its specs
         self._rows_cut, self._cache_cut, self._row_spec = 1, 1, (None,)
+        self._layout = None
         # decode steps over that cache, by (batch, temperature)
         self._graphs: dict[tuple, DecodeGraph] = {}
         self._captures = 0
@@ -134,11 +173,7 @@ class InferenceEngine:
         (``batch`` is the rank's count of them)."""
         if self.mesh is None:
             return api.init_cache(self.cfg, batch, self.max_cache, device=self.device)
-        whole = batch * self._rows_cut
-        abs_cache = api.init_cache(self.cfg, whole, self.max_cache, device="meta")
-        specs = sharding.cache_pspecs(abs_cache, self.cfg, self.mesh, batch=whole)
-        sharding.check_cache(specs, abs_cache, self.cfg, batch=whole)
-        return sharding.local_zeros(abs_cache, specs, self.mesh)
+        return sharding.local_zeros(*self._layout, self.mesh)
 
     @contextlib.contextmanager
     def _on_mesh(self, batch: int):
@@ -150,7 +185,10 @@ class InferenceEngine:
         spec = sharding.batch_pspec((batch,), self.mesh)
         self._rows_cut = self.mesh.size(spec[0]) if spec[0] is not None else 1
         self._row_spec = spec
-        with shardctx.use_mesh(self.mesh):
+        abs_cache = api.init_cache(self.cfg, batch, self.max_cache, device="meta")
+        self._layout = (abs_cache, sharding.cache_pspecs(abs_cache, self.cfg, self.mesh,
+                                                         batch=batch))
+        with shardctx.use_mesh(self.mesh), sharding.use_cache_layout(*self._layout):
             yield
 
     def _local_rows(self, tokens):

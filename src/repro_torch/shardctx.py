@@ -13,8 +13,16 @@ parallelism needs them:
   row-parallel partial sums (float32 accumulators) become whole;
 * ``gather_from(x, axes, dim)``: all-gather forward, the rank's slice of
   the gradient backward, where a sharded activation becomes whole;
+* ``scatter_to(x, axes, dim)``: the rank's slice forward, all-gather of the
+  gradient backward, where a whole activation (computed alike on every
+  rank, from replicated weights) feeds rank-specific work;
 * ``gather_shards(x, axes, dim)``: all-gather forward, reduce-scatter of
-  the gradient backward (FSDP's weights).
+  the gradient backward (FSDP's weights, and columns that the rules cut
+  inside a head, gathered into whole heads that each rank uses for its own
+  part of the output);
+* ``combine_softmax(o, lse, axes)``: the attention outputs of the ranks'
+  chunks of a sequence-sharded KV cache, each under its row log-sum-exp,
+  combined into the output over the whole sequence (decode only).
 
 Without a mesh, or on an axis of size 1, each is the identity.  Every
 collective records ``(kind, count, bytes per rank)`` in ``COUNTS``, the
@@ -34,7 +42,7 @@ from contextlib import contextmanager
 import torch
 import torch.distributed as dist
 
-_CTX = {"mesh": None}
+_CTX = {"mesh": None, "seq_cuts": {}}
 
 # kind -> [count, bytes per rank]
 COUNTS: dict[str, list] = {}
@@ -56,6 +64,22 @@ def use_mesh(mesh):
         yield
     finally:
         _CTX["mesh"] = prev
+
+
+def get_seq_cuts() -> dict:
+    """{cache leaf name: the axes that cut its sequence dim} of the ambient
+    cache layout (``launch.sharding.use_cache_layout``)."""
+    return _CTX["seq_cuts"]
+
+
+@contextmanager
+def use_seq_cuts(cuts: dict):
+    prev = _CTX["seq_cuts"]
+    _CTX["seq_cuts"] = cuts
+    try:
+        yield
+    finally:
+        _CTX["seq_cuts"] = prev
 
 
 def constrain_batch(x, *, batch_dim: int = 0, seq_dim: int | None = None):
@@ -186,6 +210,17 @@ class _GatherFrom(torch.autograd.Function):
         return local_slice(g, ctx.axes, ctx.dim).contiguous(), None, None
 
 
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim = axes, dim
+        return local_slice(x, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axes, ctx.dim), None, None
+
+
 class _GatherShards(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, dim):
@@ -214,7 +249,53 @@ def gather_from(x: torch.Tensor, axes="model", dim: int = -1) -> torch.Tensor:
     return x if size(axes) == 1 else _GatherFrom.apply(x, axes, dim % x.dim())
 
 
+def scatter_to(x: torch.Tensor, axes="model", dim: int = -1) -> torch.Tensor:
+    """The rank's slice along ``dim`` over ``axes`` forward; the gradient
+    all-gathered backward."""
+    return x if size(axes) == 1 else _ScatterTo.apply(x, axes, dim % x.dim())
+
+
 def gather_shards(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     """All-gather along ``dim`` over ``axes`` forward; the gradient
     reduce-scattered (summed) over them backward."""
     return x if size(axes) == 1 else _GatherShards.apply(x, axes, dim % x.dim())
+
+
+def _softmax_weights(lses: torch.Tensor) -> tuple:
+    """(each chunk's weight exp(lse - max), their sum) of the chunks' row
+    log-sum-exps ``lses`` (n, B, H): weight 0 for a chunk without a valid
+    position, 1 for every chunk of a row that has none anywhere."""
+    top = lses.amax(0)
+    none = torch.isneginf(top)
+    top = torch.where(none, 0.0, top)
+    w = torch.where(none, 1.0, torch.exp(lses - top))
+    return w, w.sum(0)
+
+
+def combine_softmax(o: torch.Tensor, lse: torch.Tensor, axes) -> torch.Tensor:
+    """The attention output over a sequence cut over ``axes`` from each
+    rank's output over its chunk: ``o`` (B,1,H,hd), normalised over the
+    chunk, and ``lse`` (B,H) float32, its rows' log-sum-exp (-inf where the
+    chunk holds no valid position).  In float32: the ranks' ``lse`` are
+    all-gathered, each ``o`` weighted by exp(lse - max) and the weighted sum
+    all-reduced and divided by the weights' sum.  A chunk without a valid
+    position weighs 0; a row with none in any chunk gets the mean of the
+    chunks' outputs, which with equal chunks is what one device gives, the
+    mean of V over the whole cache.  No autograd: decode only."""
+    n = size(axes)
+    if n == 1:
+        return o
+    w, total = _softmax_weights(all_gather(lse[None], axes, 0))
+    acc = all_reduce(o.float() * w[index(axes)][:, None, :, None], axes)
+    return (acc / total[:, None, :, None]).to(o.dtype)
+
+
+def merge_softmax(outs: list, lses: list) -> torch.Tensor:
+    """``combine_softmax`` of the chunks' outputs and log-sum-exps held on
+    one device (the chunks in rank order), with the same arithmetic: the
+    single-device oracle of a sequence-sharded decode."""
+    w, total = _softmax_weights(torch.stack(lses))
+    acc = outs[0].float() * w[0][:, None, :, None]
+    for i in range(1, len(outs)):
+        acc = acc + outs[i].float() * w[i][:, None, :, None]
+    return (acc / total[:, None, :, None]).to(outs[0].dtype)

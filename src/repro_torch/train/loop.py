@@ -57,7 +57,6 @@ def train(cfg: ModelConfig, *, steps: int = 100, batch: int = 8, seq: int = 64,
     step on this rank's shards and rows."""
     pspecs = None
     if mesh is not None:
-        sharding.check_layout(cfg, mesh)
         device = mesh.device
     dev = resolve_device(device)
     opt = AdamW(learning_rate=cosine_schedule(lr, warmup=max(steps // 10, 1), total=steps))

@@ -3,9 +3,9 @@
 ``FileStore`` in a temporary directory), with a 60 s process-group timeout
 so that a hung collective fails instead of running the suite out of time.
 
-Two spawns do all the work, each with its own time limit (its ranks are
-killed when one fails): four ranks on the (2, 2) and (1, 4) meshes, then two
-ranks on (1, 2) and (2, 1) (``tests/_torch_ranks.py``).  Every rank writes
+Three spawns do all the work, each with its own time limit (its ranks are
+killed when one fails): four ranks on the (2, 2) and (1, 4) meshes, two
+ranks on (1, 2) and (2, 1), then eight on (1, 8) (``tests/_torch_ranks.py``).  Every rank writes
 what it measured; the tests below read it.  The oracles: the reference's
 ``moe_apply`` (its own cases from ``tests/test_distributed.py``, weights from
 its ``moe_init`` through numpy), the reference's single-device ``prefill``
@@ -29,6 +29,7 @@ import torch
 
 from repro.configs import registry as ref_registry
 from repro.core import distributed as ref_distributed
+from repro.launch import sharding as ref_sharding
 from repro.models import api as ref_api
 from repro.models import moe as ref_moe
 from repro.models.common import ModelConfig as RefConfig
@@ -37,6 +38,7 @@ from repro_torch.configs import registry
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import spawn
 from repro_torch.models import api, convert
+from repro_torch.models.common import leaf_paths
 
 sys.path.insert(0, os.path.dirname(__file__))
 import _torch_ranks as ranks  # noqa: E402
@@ -85,8 +87,10 @@ def runs(tmp_path_factory):
           pg_timeout_s=PG_TIMEOUT_S)
     spawn(ranks.world2, 2, (str(d / "w2"), ckpt), device="cpu", timeout_s=SPAWN_S,
           pg_timeout_s=PG_TIMEOUT_S)
-    return {"4": _read(str(d / "w4"), 4), "2": _read(str(d / "w2"), 2), "dir": d,
-            "ckpt": ckpt}
+    spawn(ranks.world8, 8, (str(d / "w8"),), device="cpu", timeout_s=SPAWN_S,
+          pg_timeout_s=PG_TIMEOUT_S)
+    return {"4": _read(str(d / "w4"), 4), "2": _read(str(d / "w2"), 2),
+            "8": _read(str(d / "w8"), 8), "dir": d, "ckpt": ckpt}
 
 
 def _result(runs, world: str, name: str) -> list:
@@ -127,25 +131,30 @@ def test_sharded_logits_and_tokens_match_one_device(runs, arch, world, mesh):
 _REF_LAST: dict = {}
 
 
-def _reference_last_logits(arch: str, rows: tuple) -> np.ndarray:
+def _reference_last_logits(arch: str, rows: tuple, batch: int = 4,
+                           window: int = 0) -> np.ndarray:
     """The reference's single-device ``prefill`` of rows ``rows`` of the
-    ranks' prompts (``_torch_ranks._prompts``) on the port's seeded weights
-    (``convert.to_reference``): the last position's logits, (rows, V)."""
-    if (arch, rows) not in _REF_LAST:
-        cfg = registry.get(arch).smoke
+    ranks' ``batch`` prompts (``_torch_ranks._prompts``) on the port's
+    seeded weights (``convert.to_reference``), the attention window
+    ``window`` where given: the last position's logits, (rows, V)."""
+    if (arch, rows, batch, window) not in _REF_LAST:
+        cfg = ranks._smoke(arch, window)
         ref_cfg = ref_registry.ARCHS[arch].smoke
+        if window:
+            ref_cfg = ref_cfg.replace(attention_window=window)
         params = jax.tree_util.tree_map(
             lambda t: jnp.asarray(t.detach().numpy()),
             convert.to_reference(api.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
                                  cfg))
-        toks = ranks._prompts(cfg).numpy()[slice(*rows)]
+        toks = ranks._prompts(cfg, batch).numpy()[slice(*rows)]
         inputs = {"tokens": jnp.asarray(toks)}
         if cfg.family == "audio":
             inputs["frame_embeds"] = jnp.zeros((toks.shape[0], cfg.encoder_seq, cfg.d_model))
         if cfg.family == "vlm":
             inputs["patch_embeds"] = jnp.asarray(ranks._patches(cfg).numpy()[slice(*rows)])
-        _REF_LAST[(arch, rows)] = np.asarray(ref_api.prefill(params, inputs, ref_cfg)[0])
-    return _REF_LAST[(arch, rows)]
+        _REF_LAST[(arch, rows, batch, window)] = np.asarray(
+            ref_api.prefill(params, inputs, ref_cfg)[0])
+    return _REF_LAST[(arch, rows, batch, window)]
 
 
 @pytest.mark.parametrize("arch,world,mesh", CELLS)
@@ -229,15 +238,114 @@ def test_a_sharded_checkpoint_restores_on_other_meshes(runs):
         np.testing.assert_array_equal(np.asarray(g), w)
 
 
+@pytest.mark.parametrize("world,name", [("4", "whisper-tiny 1x4"),
+                                        ("2", "recurrentgemma-9b 1x2")])
+def test_a_checkpoint_of_the_new_layouts_restores(runs, world, name):
+    """whisper's heads cut inside over 4 ranks and the hybrid's recurrence
+    over 2: the ranks' shards saved in the reference's layout restore into
+    the same shards, gather into the seeded params, and restore on a single
+    device (``gather_tree``/``shard_tree`` needed no change for them).  The
+    restored shards serve as a mesh engine's ``shards`` with the tokens of
+    the engine that cuts the whole params; whole params given as shards
+    are refused."""
+    for res in _result(runs, world, f"checkpoint {name}"):
+        assert res == {"step": 2, "shards_equal": True, "mesh_equal": True,
+                       "single_equal": True, "engine_tokens_equal": True,
+                       "whole_refused": True}
+
+
 @pytest.mark.parametrize("world,mesh", [("4", "2x2"), ("4", "1x4")])
 def test_layouts_left_for_f2_are_refused(runs, world, mesh):
-    """hybrid and audio under a model axis, and kv heads that do not divide
-    it (granite's smoke config: 2 kv heads over 4), raise
-    ``NotImplementedError`` naming slice F2."""
+    """The layouts that the port refused, naming slice F2, until it cut
+    heads inside and KV sequences: hybrid and audio under a model axis, and
+    kv heads that do not divide it (granite's smoke config: 2 kv heads over
+    4).  The engine and the train step now build every one of them (what
+    they compute is held in ``test_layouts_match_one_device_and_the_
+    reference``)."""
     for res in _result(runs, world, f"refusals {mesh}"):
         assert len(res) == (5 if mesh == "1x4" else 4)
         for case, msg in res.items():
-            assert "slice F2" in msg, (case, msg)
+            assert msg == "accepted", (case, msg)
+
+
+LAYOUT_CELLS = [(world, *cell) for world, cells in ranks.LAYOUTS.items() for cell in cells]
+
+
+def _mesh_shape(mesh: str) -> dict:
+    data, model = (int(n) for n in mesh.split("x"))
+    return {"data": data, "model": model}
+
+
+def _reference_seq_cuts(arch: str, mesh: str, batch: int, window: int) -> dict:
+    """The axes that the reference's ``cache_pspecs`` cut each attention
+    leaf's sequence over, for its smoke cache of ``LAYOUT_CACHE`` positions
+    (each stacked leaf's layer axis resized to a prime, so that the
+    reference's search for the batch dim cannot take it for the batch, as
+    in ``tests/test_torch_sharding.py``)."""
+    shape = _mesh_shape(mesh)
+    ref_cfg = ref_registry.ARCHS[arch].smoke
+    if window:
+        ref_cfg = ref_cfg.replace(attention_window=window)
+    cache = jax.tree_util.tree_map_with_path(
+        lambda path, x: x if any(str(getattr(k, "key", "")) == "extra" for k in path)
+        else jax.ShapeDtypeStruct((10007, *x.shape[1:]), x.dtype),
+        jax.eval_shape(lambda: ref_api.init_cache(ref_cfg, batch, ranks.LAYOUT_CACHE)))
+    specs = ref_sharding.cache_pspecs(cache, ref_cfg, SimpleNamespace(
+        shape=shape, axis_names=tuple(shape)), batch=batch)
+    out = {}
+    flat = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    for path, spec in flat:
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name in ("k", "v", "xk", "xv"):
+            s_idx = 1 if any(str(getattr(k, "key", "")) == "extra" for k in path) else 2
+            entry = tuple(spec)[s_idx] if len(tuple(spec)) > s_idx else None
+            out[name] = [] if entry is None else ([entry] if isinstance(entry, str)
+                                                  else list(entry))
+    return out
+
+
+@pytest.mark.parametrize("world,arch,mesh,batch,window,train", LAYOUT_CELLS)
+def test_layouts_match_one_device_and_the_reference(runs, world, arch, mesh, batch, window,
+                                                    train):
+    """Heads cut inside and KV sequences cut over "model", "data" or both,
+    through the mesh engine: the prefill's and each teacher-forced decode
+    step's logits against the single device within ``LOGITS_TOL``, the
+    prefill's also against the reference's own ``prefill``; the greedy
+    tokens of ``generate`` and ``generate_stream`` equal to the single
+    device's; the cache's sequence cuts those of the reference's
+    ``cache_pspecs``; one decode step's counted collectives equal to
+    ``launch/comms.py``'s plan of the layout."""
+    want_cuts = _reference_seq_cuts(arch, mesh, batch, window)
+    ref_last = _reference_last_logits(arch, (0, batch), batch, window)
+    for res in _result(runs, world, ranks.layout_name(arch, mesh, batch, window)):
+        assert res["prefill_rel"] <= LOGITS_TOL and res["decode_rel"] <= LOGITS_TOL, res
+        assert res["tokens"] == res["want"] == res["stream"]
+        assert res["seq_cuts"] == want_cuts
+        got = np.array(res["last"])
+        rel = np.linalg.norm(got - ref_last) / np.linalg.norm(ref_last)
+        assert rel <= LOGITS_TOL, rel
+        counts = {k: tuple(v) for k, v in res["counts"].items()}
+        assert counts == {k: tuple(v) for k, v in res["plan"].items()}
+        assert counts, "a sharded layout moves something"
+
+
+@pytest.mark.parametrize("world,arch,mesh,batch,window", [
+    cell[:5] for cell in LAYOUT_CELLS if cell[5]])
+def test_layout_train_step_matches_one_device(runs, world, arch, mesh, batch, window):
+    """One AdamW step of the tensor-parallel layouts (heads cut inside, the
+    hybrid's recurrence and whisper under "model"): loss and grad norm
+    within ``TRAIN_TOL`` of the single device's, every param within
+    ``PARAM_TOL`` but the key biases', whose gradient is zero in exact
+    arithmetic (``_torch_ranks.train_check``)."""
+    for res in _result(runs, world, f"train {ranks.layout_name(arch, mesh, batch, window)}"):
+        assert abs(res["loss"] - res["want_loss"]) <= TRAIN_TOL * abs(res["want_loss"])
+        assert abs(res["gnorm"] - res["want_gnorm"]) <= TRAIN_TOL * abs(res["want_gnorm"])
+        assert res["param_rel"] <= PARAM_TOL
+        cfg = registry.get(arch).smoke
+        assert res["key_bias_leaves"] == sum(keys[-2:] == ("wk", "b") for keys in
+                                             leaf_paths(api.abstract_params(cfg)))
+        assert res["local_moments"] < res["params"]
 
 
 def _losses(out: str) -> list:
@@ -259,3 +367,4 @@ def test_the_train_cli_spawns_its_ranks_and_matches_one_device(capfd):
     assert len(single) == len(sharded) == 5
     for a, b in zip(sharded, single):
         assert abs(a - b) <= TRAIN_TOL * abs(b)
+

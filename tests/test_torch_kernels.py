@@ -148,6 +148,87 @@ def test_flash_decode_plain_all_false_mask_matches_pallas_mean_of_v(ref):
     _close(got, mean_v.numpy(), F32_TOL)
 
 
+def _masked_logsumexp(ref, q, k, valid):
+    """jax.nn.logsumexp of the reference's masked logits (its sdpa's
+    float32 q.k * hd^-0.5, -1e30 where masked), (B,H)."""
+    import jax
+    jnp = ref.jnp
+    g = q.shape[2] // k.shape[2]
+    kk = jnp.repeat(k.astype(jnp.float32), g, axis=2)
+    logits = jnp.einsum("bqhd,bshd->bhqs", q.astype(jnp.float32), kk) * q.shape[-1] ** -0.5
+    logits = jnp.where(jnp.asarray(valid)[:, None, None, :], logits, -1e30)
+    return np.asarray(jax.nn.logsumexp(logits, axis=-1)[:, :, 0])
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd", [(3, 256, 4, 2, 64), (3, 300, 8, 8, 32),
+                                         (3, 128, 4, 1, 128)])
+def test_flash_decode_plain_lse_matches_jax_logsumexp(ref, b, s, h, kh, hd):
+    """K2's plain version with ``return_lse``: each row's log-sum-exp equals
+    ``jax.nn.logsumexp`` of the reference's masked logits, -inf for a row
+    with no valid position (row 1), and the output equals the one without
+    it."""
+    q, tq = _both(ref, _rand((b, 1, h, hd), 11), torch.float32)
+    k, tk = _both(ref, _rand((b, s, kh, hd), 12), torch.float32)
+    _, tv = _both(ref, _rand((b, s, kh, hd), 13), torch.float32)
+    pos = np.random.default_rng(14).integers(0, s, size=b)
+    valid = np.arange(s)[None, :] <= pos[:, None]
+    valid[1] = False
+    o, lse = flash_decode_ref(tq, tk, tv, torch.from_numpy(valid), return_lse=True)
+    assert lse.shape == (b, h) and lse.dtype == torch.float32
+    assert torch.equal(o, flash_decode_ref(tq, tk, tv, torch.from_numpy(valid)))
+    want = _masked_logsumexp(ref, q, k, valid)
+    rows = [0, 2]
+    _close(lse[rows], want[rows], F32_TOL)
+    assert torch.isneginf(lse[1]).all()
+
+
+@pytest.mark.parametrize("mask", ["both halves", "first half", "second half", "none"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+def test_two_combined_cache_halves_match_pallas_on_the_whole_cache(ref, mask, dtype, tol):
+    """A cache cut at S/2 as two ranks hold it: K2's plain version on each
+    half with its row log-sum-exp, combined (``shardctx.merge_softmax``, the
+    arithmetic of ``combine_softmax``), against the reference's Pallas
+    kernel on the whole cache; with no valid position anywhere, both give
+    the mean of V."""
+    from repro_torch import shardctx
+    b, s, h, kh, hd = 2, 512, 4, 2, 64
+    q, tq = _both(ref, _rand((b, 1, h, hd), 21), dtype)
+    k, tk = _both(ref, _rand((b, s, kh, hd), 22), dtype)
+    v, tv = _both(ref, _rand((b, s, kh, hd), 23), dtype)
+    lo, hi = {"both halves": (100, 400), "first half": (3, 200), "second half": (300, 511),
+              "none": (0, -1)}[mask]
+    valid = (np.arange(s) >= lo) & (np.arange(s) <= hi)
+    want = ref.flash_decode(q, k, v, ref.jnp.asarray(valid), interpret=True)
+    tvalid = torch.from_numpy(valid)
+    parts = [flash_decode_ref(tq, tk[:, i:i + s // 2], tv[:, i:i + s // 2],
+                              tvalid[i:i + s // 2], return_lse=True) for i in (0, s // 2)]
+    got = shardctx.merge_softmax([o for o, _ in parts], [lse for _, lse in parts])
+    _close(got, want, tol)
+
+
+def test_combined_halves_with_a_row_without_valid_positions_match_jax_sdpa(ref):
+    """Per-row masks over two halves, one row with no valid position in
+    either, one with valid positions in the second half only: the combined
+    halves equal the reference's ``flash_decode_ref`` (its sdpa) on the
+    whole cache row by row, the empty row the mean of V."""
+    from repro.kernels.decode.ref import flash_decode_ref as jax_decode_ref
+    from repro_torch import shardctx
+    b, s, h, kh, hd = 3, 256, 4, 4, 32
+    q, tq = _both(ref, _rand((b, 1, h, hd), 31), torch.float32)
+    k, tk = _both(ref, _rand((b, s, kh, hd), 32), torch.float32)
+    v, tv = _both(ref, _rand((b, s, kh, hd), 33), torch.float32)
+    kv = np.arange(s)
+    valid = np.stack([kv <= 40, np.zeros(s, bool), (kv >= 150) & (kv <= 200)])
+    tvalid = torch.from_numpy(valid)
+    parts = [flash_decode_ref(tq, tk[:, i:i + s // 2], tv[:, i:i + s // 2],
+                              tvalid[:, i:i + s // 2], return_lse=True) for i in (0, s // 2)]
+    got = shardctx.merge_softmax([o for o, _ in parts], [lse for _, lse in parts])
+    for r in range(b):
+        want = jax_decode_ref(q[r:r + 1], k[r:r + 1], v[r:r + 1], ref.jnp.asarray(valid[r]))
+        _close(got[r:r + 1], want, F32_TOL)
+    _close(got[1], tv[1].mean(dim=0)[None].numpy(), F32_TOL)
+
+
 def test_flash_decode_shared_mask_equals_per_row_broadcast():
     tq, tk, tv = (torch.from_numpy(_rand(sh, i)) for i, sh in
                   enumerate([(2, 1, 4, 32), (2, 100, 2, 32), (2, 100, 2, 32)]))
@@ -225,6 +306,9 @@ def test_dispatch_takes_plain_versions_on_cpu_without_counting():
     q1 = tq[:, :1].contiguous()
     assert torch.equal(dispatch.flash_decode(q1, tk, tv, valid),
                        flash_decode_ref(q1, tk, tv, valid))
+    for got, want in zip(dispatch.flash_decode(q1, tk, tv, valid, return_lse=True),
+                         flash_decode_ref(q1, tk, tv, valid, return_lse=True)):
+        assert torch.equal(got, want)
     assert (flash.launches, fd.launches) == before
 
 
@@ -412,6 +496,33 @@ def test_flash_decode_kernel_matches_plain(cuda, b, s, h, kh, hd, per_row, dtype
     assert fd.launches == n + 1
     want = flash_decode_ref(q, k, v, valid)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kh,hd", [(1, 8192, 32, 32, 128), (4, 512, 64, 4, 128),
+                                         (3, 300, 8, 2, 64)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_decode_kernel_lse_matches_plain(cuda, b, s, h, kh, hd, dtype, tol):
+    """K2 with ``return_lse``: o bit-equal to K2's without it, each row's
+    log-sum-exp against the plain version's (float32 either way), -inf for
+    a row with no valid position."""
+    q = _dev(_rand((b, 1, h, hd), 1), dtype, cuda)
+    k = _dev(_rand((b, s, kh, hd), 2), dtype, cuda)
+    v = _dev(_rand((b, s, kh, hd), 3), dtype, cuda)
+    pos = torch.tensor(np.random.default_rng(0).integers(0, s, size=b), device=cuda)
+    valid = torch.arange(s, device=cuda)[None, :] <= pos[:, None]
+    valid[-1] = False
+    n = fd.launches
+    o, lse = fd.flash_decode(q, k, v, valid, return_lse=True)
+    plain = fd.flash_decode(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert fd.launches == n + 2
+    assert torch.equal(o, plain)
+    want_o, want = flash_decode_ref(q, k, v, valid, return_lse=True)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse[:-1], want[:-1], atol=GPU_F32_TOL, rtol=GPU_F32_TOL)
+    assert torch.isneginf(lse[-1]).all()
 
 
 @pytest.mark.gpu

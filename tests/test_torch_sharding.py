@@ -28,7 +28,9 @@ from repro_torch.models import api
 from repro_torch.train import optimizer
 
 MESHES = {"1x2": {"data": 1, "model": 2}, "2x1": {"data": 2, "model": 1},
-          "2x2": {"data": 2, "model": 2}, "4x4": {"data": 4, "model": 4},
+          "2x2": {"data": 2, "model": 2}, "1x4": {"data": 1, "model": 4},
+          "1x8": {"data": 1, "model": 8}, "2x4": {"data": 2, "model": 4},
+          "4x4": {"data": 4, "model": 4},
           "16x16": {"data": 16, "model": 16},
           "2x16x16": {"pod": 2, "data": 16, "model": 16}}
 CASES = [(arch, size, mesh) for arch in ARCHS for size in ("smoke", "full")
@@ -200,7 +202,7 @@ def test_local_shapes_follow_the_specs():
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x2", "4x4", "16x16"])
 @pytest.mark.parametrize("arch", ["deepseek-7b", "granite-moe-3b-a800m", "rwkv6-1.6b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", "recurrentgemma-9b", "whisper-tiny"])
 def test_model_cut_is_the_rules_answer(arch, mesh):
     """What the model code asks (``model_cut`` on a leaf's trailing names and
     whole shape, under the ambient mesh) is the model-axis cut of the
@@ -245,3 +247,70 @@ def test_float32_products_match_the_upcast_product_and_its_gradients(batched):
         torch.testing.assert_close(got.float(), ref, rtol=1e-2, atol=1e-2)
     x, w = torch.randn(4, 8, generator=g), torch.randn(8, 3, generator=g)
     assert torch.equal(float32_products(x, w), x @ w)
+
+
+def _rank_mesh(name: str, model_index: int) -> SimpleNamespace:
+    """A mesh as the rank at ``model_index`` on its model axis sees it."""
+    shape = MESHES[name]
+    return SimpleNamespace(shape=dict(shape), axis_names=tuple(shape),
+                           size=lambda axes: shape["model"] if axes == "model" else 1,
+                           index=lambda axes: model_index if axes == "model" else 0)
+
+
+@pytest.mark.parametrize("arch,mesh", [("granite-moe-3b-a800m", "16x16"),
+                                       ("qwen2.5-32b", "16x16"), ("whisper-tiny", "1x4"),
+                                       ("recurrentgemma-9b", "1x2"),
+                                       ("qwen3-moe-235b-a22b", "1x8")])
+def test_head_spans_cover_the_rules_columns(arch, mesh):
+    """``head_span`` on every rank of the model axis: the heads that touch
+    the rank's columns of ``wq`` and of ``wo``'s rows (``model_span``,
+    the rules' equal chunks), whole exactly where the chunk starts and ends
+    on a head boundary; over the ranks the chunks tile the width and the
+    spans cover every head, a head shared by two ranks only where a cut
+    falls inside it."""
+    from repro_torch import shardctx
+    cfg = registry.get(arch).config
+    hd, m = cfg.resolved_head_dim, MESHES[mesh]["model"]
+    for keys, shape in ((("wq", "w"), (cfg.d_model, cfg.q_dim)),
+                        (("wo", "w"), (cfg.q_dim, cfg.d_model))):
+        covered, cols = [], []
+        for r in range(m):
+            with shardctx.use_mesh(_rank_mesh(mesh, r)):
+                lo, hi = sharding.model_span(keys, shape)
+                first, stop, whole = sharding.head_span(keys, shape, hd)
+            cols.append((lo, hi))
+            assert (first, stop) == (lo // hd, -(-hi // hd))
+            assert whole == (lo % hd == 0 and hi % hd == 0) == (cfg.num_heads % m == 0)
+            covered.extend(range(first, stop))
+        assert cols == [(r * cfg.q_dim // m, (r + 1) * cfg.q_dim // m) for r in range(m)]
+        assert set(covered) == set(range(cfg.num_heads))
+        assert len(covered) - cfg.num_heads <= (m - 1 if cfg.num_heads % m else 0)
+
+
+@pytest.mark.parametrize("arch,mesh,batch,want", [
+    ("granite-moe-3b-a800m", "1x4", 4, {"k": ("model",)}),     # 2 kv heads over 4
+    ("deepseek-7b", "2x2", 1, {"k": ("data",)}),               # batch 1: long-KV
+    ("deepseek-7b", "2x1", 1, {"k": ("data", "model")}),       # and kv heads over 1
+    ("granite-moe-3b-a800m", "2x4", 1, {"k": ("data", "model")}),  # both axes cut
+    ("deepseek-7b", "2x2", 2, {"k": ()}),                      # rows and heads cut
+    ("whisper-tiny", "1x4", 4, {"k": ("model",), "xk": ("model",)}),
+    ("recurrentgemma-9b", "2x1", 1, {"k": ("data",)}),         # the ring, by slot
+    ("recurrentgemma-9b", "1x2", 4, {"k": ()}),                # its window exempts it
+])
+def test_seq_cut_reads_the_cache_specs(arch, mesh, batch, want):
+    """What the model code asks of a cache's sequence (``seq_cut``) is the
+    sequence entry of the leaf's spec in ``cache_pspecs``, inside the
+    layout the entry points make ambient; () outside it or without a mesh."""
+    from repro_torch import shardctx
+    cfg = registry.get(arch).smoke
+    m = _mesh(mesh)
+    cache = api.init_cache(cfg, batch, 64, device="meta")
+    specs = sharding.cache_pspecs(cache, cfg, m, batch=batch)
+    with shardctx.use_mesh(m):
+        assert sharding.seq_cut("k") == ()
+        with sharding.use_cache_layout(cache, specs):
+            for name, axes in want.items():
+                assert sharding.seq_cut(name) == axes
+                assert sharding.seq_cut(name.replace("k", "v")) == axes
+    with sharding.use_cache_layout(cache, specs):
+        assert sharding.seq_cut("k") == ()
