@@ -1720,6 +1720,40 @@ def breakdown(eng, cfg, dev, tag: str = "") -> tuple:
                                  ("decode_split", "decode_combine"))
 
 
+def dryrun_bounds(cfg, prefill: dict, step: tuple, card: str) -> None:
+    """The dry-run's count held to the card (after phase 7's ``breakdown``):
+    the deepseek-7b (4, 128) bucketed prefill and its decode step over a
+    256-position cache, each run once as the one rank of a (1, 1) mesh on
+    meta tensors under a fake process group (``launch/dryrun.py``, a few
+    seconds of host time, nothing on the card), each roofline
+    ``bound_time_s`` beside the device time the card measured for the
+    replayed prefill and decode step.  A measured time under its bound
+    means the count is wrong: it raises."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    with dryrun.fake_group(1):
+        mesh = make_local_mesh(1, 1, device="meta")
+        for tag, shape, b, s, measured in (
+                ("prefill", "prefill_32k", 4, 128, prefill["replayed"]["device"]),
+                ("decode step", "decode_32k", 4, 256, step[1])):
+            rec = dryrun.run_pair(cfg.name, shape, multi_pod=False, out_dir="", verbose=False,
+                                  mesh=mesh, batch=b, seq=s)
+            t = rec["roofline"]
+            bound_ms = t["bound_time_s"] * 1e3
+            log(f"[dryrun] {cfg.name} {tag} ({b}, {s}) on a (1, 1) meta mesh: bound "
+                f"{bound_ms:.4f} ms ({t['dominant']}: {rec['cost']['flops'] / 1e12:.4f} TFLOP, "
+                f"{rec['cost']['bytes accessed'] / 1e9:.3f} GB); the card's replayed "
+                f"{tag} {fmt_ms(measured)} ({card})")
+            if not measured:
+                log(f"[dryrun] the card's {tag}: device time not measured; no check")
+            elif measured < bound_ms:
+                raise SystemExit(f"[dryrun] the card's {tag} took {measured:.4f} ms, under "
+                                 f"the dry-run's bound {bound_ms:.4f} ms: the count is wrong")
+    log(f"[dryrun] both pairs counted in {time.perf_counter() - t0:.1f} s of host time")
+
+
 def rwkv_breakdown(eng, cfg, dev) -> tuple:
     """Phase 7 for rwkv: a full-width prefill (batch 4, 100 tokens, exact)
     and a decode step (batch 4), each replayed and uncaptured.  Bound: every
@@ -3958,6 +3992,7 @@ def main() -> int:
                 f"{fmt_ms(t['device_ms'])}) ({card})")
     prefills, steps = {}, {}
     prefills[cfg.name], steps[cfg.name] = breakdown(eng, cfg, dev)
+    dryrun_bounds(cfg, prefills[cfg.name], steps[cfg.name], card)
     del eng
     prefills[rcfg.name], steps[rcfg.name] = rwkv_breakdown(reng, rcfg, dev)
     del reng

@@ -27,3 +27,19 @@ class ArchSpec:
         if shape_id == "long_500k" and self.long_strategy == "skip":
             return False
         return True
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    shape_id: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -1,8 +1,8 @@
 """The collectives that one decode step moves on a rank, from the layout alone.
 
 The analytic side of ``repro_torch.shardctx``'s counts: what the model code
-of the dense, MoE, vlm, hybrid and audio families runs on a rank for one
-token of every row, derived from the partition rules of
+of the dense, MoE, vlm, hybrid, audio and ssm families runs on a rank for
+one token of every row, derived from the partition rules of
 ``launch/sharding.py`` (which widths they cut over "model", where a cut
 falls inside a head, which axes cut a cache's sequence) and the mesh's
 axis sizes, with no model run.  The bytes are a rank's ring bytes, as
@@ -25,6 +25,12 @@ sequence:
   M: an all-reduce of the float32 (b, d) partial sums each;
 * the hybrid's recurrence under a cut: its input projection's (b, 2 dr)
   gathered, in e bytes, and the gates' float32 (b, dr) input gathered;
+* an RWKV-6 layer (ssm): each token shift that the cache rules cut
+  (``shift_t``, ``shift_c``) gathered, (b, d) in e bytes; the five
+  data-dependent mixes' LoRA activations gathered where ``mix_w1`` is cut,
+  (5, b, lora) in e bytes; the channel mix's key, (b, d_ff), where ``wk``
+  is cut, and its output, (b, d), where ``wv`` is cut, gathered in e bytes;
+  the time mix's ``wo`` as a row-cut projection above;
 
 and once a step, the embedding's float32 (b, d) all-reduce and the
 logits' float32 (b, V) all-gather where the vocabulary is cut.
@@ -36,7 +42,7 @@ import torch
 from repro_torch import shardctx
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import Mesh, axis_size
-from repro_torch.models import api, layers
+from repro_torch.models import api, layers, ssm
 from repro_torch.models.common import ModelConfig
 
 
@@ -48,7 +54,7 @@ def decode_step(cfg: ModelConfig, mesh_shape: dict, *, batch: int, cache_len: in
     ``mesh_shape`` (axis name -> size, in mesh order).  What a rank holds
     is asked of ``sharding.model_cut``, ``head_span`` and
     ``layers.out_heads`` under that rank's mesh, as the model code asks."""
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "audio"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "audio", "ssm"):
         raise ValueError(f"{cfg.name}: no decode plan for the {cfg.family} family")
     mesh = Mesh(axis_names=tuple(mesh_shape), shape=dict(mesh_shape), rank=0,
                 coords={a: model_index if a == "model" else 0 for a in mesh_shape},
@@ -102,7 +108,19 @@ def _decode_step(cfg: ModelConfig, mesh: Mesh, batch: int, cache_len: int) -> di
     vocab_keys = (("embedding",), (cfg.vocab_size, d))
     if cut(*vocab_keys):
         add("all-reduce", b * d * 4, m)
-    if cfg.family == "audio":
+    if cfg.family == "ssm":
+        for _ in range(cfg.num_layers):
+            for name in ("shift_t", "shift_c"):
+                if sharding.model_cut((name,), (1, 1, d), cache=True) is not None:
+                    add("all-gather", b * d * e, m)
+            if cut(("mix_w1",), (d, len(ssm.MIX_KEYS), cfg.rwkv_mix_lora)):
+                add("all-gather", len(ssm.MIX_KEYS) * b * cfg.rwkv_mix_lora * e, m)
+            row("wo", d)
+            if cut(("wk", "w"), (d, cfg.d_ff)):
+                add("all-gather", b * cfg.d_ff * e, m)
+            if cut(("wv", "w"), (cfg.d_ff, d)):
+                add("all-gather", b * d * e, m)
+    elif cfg.family == "audio":
         for _ in range(cfg.num_layers):
             attention("k", True)
             attention("xk", False)

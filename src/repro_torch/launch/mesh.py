@@ -1,12 +1,14 @@
-"""Local device meshes: the port's counterpart of ``repro/launch/mesh.py``.
+"""Device meshes: the port's counterpart of ``repro/launch/mesh.py``.
 
-A mesh here is the reference's ``("data", "model")`` grid laid over the
-ranks of a ``torch.distributed`` process group, one rank per grid point,
-row-major: rank = d * model + m.  Each rank builds the same ``Mesh``
-(``make_local_mesh``) and holds plain local shards of the tensors the rules
-in ``launch/sharding.py`` cut; model code reaches the other ranks only
+A mesh here is one of the reference's grids, ``("data", "model")`` or the
+multi-pod ``("pod", "data", "model")``, laid over the ranks of a
+``torch.distributed`` process group, one rank per grid point, row-major:
+on (data, model), rank = d * model + m.  Each rank builds the same ``Mesh``
+(``make_local_mesh``; ``make_production_mesh`` for the reference's (16, 16)
+and (2, 16, 16)) and holds plain local shards of the tensors the rules in
+``launch/sharding.py`` cut; model code reaches the other ranks only
 through the counted collectives of ``repro_torch/shardctx.py``, on the
-process group of one axis or of both.
+process group of any tuple of axes.
 
 The backend follows from the layout and is never chosen by catching an
 error (``backend_for``): NCCL with one rank per card when there are at
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import tempfile
 import time
@@ -92,9 +95,10 @@ def backend_for(world: int, device) -> tuple[str, torch.device]:
 
 
 def rank_device(rank: int, device) -> torch.device:
-    """The card of ``rank`` (rank modulo the cards present), or the CPU."""
+    """The card of ``rank`` (rank modulo the cards present), or the CPU (or
+    the meta device, the dry-run's)."""
     dev = torch.device(device)
-    if dev.type == "cpu":
+    if dev.type != "cuda":
         return dev
     return torch.device("cuda", rank % torch.cuda.device_count())
 
@@ -112,29 +116,67 @@ def init_process_group(rank: int, world: int, store_path: str, *, device="cuda",
     return backend
 
 
-def make_local_mesh(data: int = 1, model: int = 1, *, device="cuda") -> Mesh:
-    """The ``(data, model)`` mesh over the ranks of the default process
-    group, built on every rank: its DeviceMesh, the process group of each
-    axis, and that of both (the gradient norm's sums over a leaf cut on
-    both).  The group must hold exactly the mesh's ranks; its backend is
-    the one ``init_process_group`` chose."""
+def _subsets(names: tuple) -> list:
+    """Every tuple of two or more of ``names`` short of all of them, in mesh
+    order."""
+    n = len(names)
+    return [tuple(a for i, a in enumerate(names) if bit >> i & 1)
+            for bit in range(1, (1 << n) - 1) if bin(bit).count("1") > 1]
+
+
+def _axes_group(dims: tuple, names: tuple, axes: tuple):
+    """This rank's process group over ``axes`` of a mesh of ``dims``: the
+    ranks that differ from it only on those axes, in rank order (row-major
+    over ``axes``, as ``Mesh.index`` counts).  Every rank creates every
+    such group (``new_subgroups_by_enumeration`` is collective)."""
+    import numpy as np
+    keep = [names.index(a) for a in axes]
+    moved = np.moveaxis(np.arange(math.prod(dims)).reshape(dims), keep,
+                        list(range(len(dims) - len(keep), len(dims))))
+    groups = moved.reshape(-1, math.prod(dims[i] for i in keep)).tolist()
+    return dist.new_subgroups_by_enumeration(groups)[0]
+
+
+def make_local_mesh(*sizes: int, names: tuple = ("data", "model"), device="cuda") -> Mesh:
+    """The mesh of ``sizes`` on the axes ``names`` (by default ``(data,
+    model)``; ``make_local_mesh(2, 2)``) over the ranks of the default
+    process group, built on every rank: its DeviceMesh, the process group
+    of each axis, of every tuple of axes, and of all of them (the gradient
+    norm's sums over a leaf cut on several; the batch over ``("pod",
+    "data")``).  The group must hold exactly the mesh's ranks; its backend
+    is the one ``init_process_group`` chose (or the dry-run's ``fake``)."""
     if not dist.is_initialized():
         raise RuntimeError("make_local_mesh: no process group; start the ranks with "
                            "repro_torch.launch.mesh.spawn or init_process_group")
     from torch.distributed.device_mesh import init_device_mesh
-    names, dims = ("data", "model"), (data, model)
+    sizes = sizes or (1, 1)
+    names, dims = tuple(names), tuple(int(n) for n in sizes)
+    if len(names) != len(dims):
+        raise ValueError(f"a mesh of {dims} needs {len(dims)} axis names, got {names}")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if data * model != world:
-        raise ValueError(f"a {dims} mesh needs {data * model} ranks, the group has {world}")
+    if math.prod(dims) != world:
+        raise ValueError(f"a {dims} mesh needs {math.prod(dims)} ranks, the group has {world}")
     backend = dist.get_backend()
     dev = rank_device(rank, resolve_device(device))
     # the DeviceMesh only groups ranks here: with gloo it is a CPU mesh even
     # when the ranks' tensors are on a card
     dm = init_device_mesh("cuda" if backend == "nccl" else "cpu", dims, mesh_dim_names=names)
     groups = {(n,): dm.get_group(n) for n in names}
+    for axes in _subsets(names):
+        groups[axes] = _axes_group(dims, names, axes)
     groups[names] = dist.group.WORLD
     return Mesh(names, dict(zip(names, dims)), rank, dict(zip(names, dm.get_coordinate())),
                 dev, backend, dm, groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="meta") -> Mesh:
+    """The reference's production mesh over the ranks of the default
+    process group: (16, 16) on ``("data", "model")``, or with ``multi_pod``
+    (2, 16, 16) on ``("pod", "data", "model")``.  ``device``: the meta
+    device, as the dry-run holds its tensors (``launch/dryrun.py``)."""
+    if multi_pod:
+        return make_local_mesh(2, 16, 16, names=("pod", "data", "model"), device=device)
+    return make_local_mesh(16, 16, device=device)
 
 
 def data_axes(mesh) -> tuple:

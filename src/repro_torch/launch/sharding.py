@@ -27,6 +27,7 @@ MoE experts: expert-parallel over ``model`` when num_experts divides the axis
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from contextlib import contextmanager
 from types import SimpleNamespace
@@ -197,6 +198,57 @@ def param_pspecs(abs_params, cfg: ModelConfig, mesh, *, fsdp: bool = False):
     return _walk(abs_params, assign)
 
 
+def replicated_pspecs(abs_params):
+    """Every leaf whole on every rank: the reference's layout for a small
+    model's prefill under a model axis (pure data parallelism; see
+    ``replicated``)."""
+    return _walk(abs_params, lambda keys, leaf, stacked: ())
+
+
+def replicated(mesh):
+    """The view of ``mesh`` that a step with replicated weights runs under:
+    its model axis of size 1, this rank at index 0 on it, and each group
+    over axes with "model" the group of the same axes without it.  Under
+    it ``model_cut``, ``head_span`` and ``seq_cut`` answer "whole" and the
+    model's collectives over "model" are the identity, so every model rank
+    repeats the work of its data rank on whole weights (the rows stay cut
+    over the data axes alone, as ``batch_pspec`` cuts them); the cache is
+    then ``cache_pspecs(..., use_model=False)``."""
+    if mesh.shape.get("model", 1) == 1:
+        return mesh
+    groups = {}
+    for axes in mesh.groups:
+        rest = tuple(a for a in axes if a != "model")
+        if rest:
+            groups[axes] = mesh.groups[rest]
+    return dataclasses.replace(mesh, shape={**mesh.shape, "model": 1},
+                               coords={**mesh.coords, "model": 0}, groups=groups)
+
+
+def step_mesh(mesh, pspecs):
+    """The mesh a step runs under whose weights ``pspecs`` lay out: the
+    mesh itself where they cut some leaf over the model axis (then the
+    rules' cuts, which the model code asks for), else ``replicated(mesh)``."""
+    cut = any("model" in axes for spec in spec_leaves(pspecs) for _, axes in spec_cuts(spec))
+    return mesh if cut else replicated(mesh)
+
+
+def fsdp_cuts(spec: tuple, mesh) -> list:
+    """(dim, axes) of each dim of ``spec`` cut over data axes alone: FSDP's
+    cuts, which a step gathers whole before it uses the leaf."""
+    dax = set(data_axes(mesh))
+    return [(dim, axes) for dim, axes in spec_cuts(spec) if set(axes) <= dax]
+
+
+def gather_fsdp(x: torch.Tensor, cuts: list) -> torch.Tensor:
+    """``x`` gathered whole over its FSDP ``cuts`` (``fsdp_cuts``) on the
+    ambient mesh: an all-gather each, a reduce-scatter of its gradient
+    backward."""
+    for dim, axes in reversed(cuts):
+        x = shardctx.gather_shards(x, axes, dim)
+    return x
+
+
 def opt_pspecs(abs_opt, param_specs) -> dict:
     """Optimizer moments shard exactly like their parameters.  The port's
     opt state is {"mu": [leaf], "nu": [leaf], "step": ()}, its lists in the
@@ -233,14 +285,17 @@ def _batch_dim(keys: list) -> int:
     return 0 if "extra" in keys else 1
 
 
-def cache_pspecs(cache_tree, cfg: ModelConfig, mesh, *, batch: int):
+def cache_pspecs(cache_tree, cfg: ModelConfig, mesh, *, batch: int, use_model: bool = True):
     """Decode cache sharding.  Batch shards over data axes when divisible;
     for batch=1 (long_500k) the long KV sequence dim shards over "data"
-    instead, and head-like dims shard over "model" when divisible."""
+    instead, and head-like dims shard over "model" when divisible.  With
+    ``use_model=False`` (the replicated-weights prefill, ``replicated``)
+    the cache is replicated over the model axis too, matching the compute
+    layout."""
     dax = data_axes(mesh)
     dsz = axis_size(mesh, dax)
-    m = model_axis(mesh)
-    msz = axis_size(mesh, m)
+    m = model_axis(mesh) if use_model else None
+    msz = axis_size(mesh, m) if use_model else 1
     batch_ok = _div(batch, dsz)
     dspec = dax if len(dax) > 1 else (dax[0] if dax else None)
 

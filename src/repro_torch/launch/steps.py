@@ -13,7 +13,13 @@ specs cut over "data" all-gathered for the step (its gradient
 reduce-scattered back), the other leaves' gradients all-reduced over the
 data axes, the data ranks' mean taken; the loss is the data ranks' mean.
 The float32 accumulators of ``num_micro`` > 1 are the local shards' own,
-so they are cut like the params."""
+so they are cut like the params.
+
+The serving steps take a mesh too (``make_prefill_step``,
+``make_serve_step``): the rank's shards of the params and the cache, FSDP's
+leaves gathered over the data axes before the step, and weights that no
+spec cuts over "model" (the reference's replicated small-model prefill) run
+under ``sharding.replicated``'s view of the mesh."""
 from __future__ import annotations
 
 import torch
@@ -107,16 +113,11 @@ def _sharded_train_step(cfg: ModelConfig, opt: AdamW, num_micro: int, mesh, pspe
     # axes (FSDP: gathered for the step), the data axes that do not cut it
     # (its gradient all-reduced over them)
     shards = [tuple(a for _, axes in c for a in axes) for c in cuts]
-    fsdp = [[(dim, axes) for dim, axes in c if set(axes) <= set(dax)] for c in cuts]
+    fsdp = [sharding.fsdp_cuts(spec, mesh) for spec in specs]
     over = [tuple(a for a in dax if a not in cut) for cut in shards]
 
-    def whole(p, gathers):
-        for dim, axes in reversed(gathers):
-            p = shardctx.gather_shards(p, axes, dim)
-        return p
-
     def grads_of(leaves, params, batch):
-        full = _rebuild(params, iter([whole(p, g) for p, g in zip(leaves, fsdp)]))
+        full = _rebuild(params, iter([sharding.gather_fsdp(p, g) for p, g in zip(leaves, fsdp)]))
         loss, metrics = api.train_loss(full, batch, cfg)
         return loss, metrics, torch.autograd.grad(loss, leaves)
 
@@ -152,13 +153,68 @@ def _sharded_train_step(cfg: ModelConfig, opt: AdamW, num_micro: int, mesh, pspe
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, inputs):
-        return api.prefill(params, inputs, cfg)
+def _serving_mesh(mesh, param_pspecs, cache_pspecs):
+    """(the mesh the step runs under, per leaf its FSDP cuts) of a serving
+    step on ``mesh`` whose weights ``param_pspecs`` and cache
+    ``cache_pspecs`` lay out; (None, None) without a mesh."""
+    if mesh is None:
+        if param_pspecs is not None or cache_pspecs is not None:
+            raise ValueError("a serving step: specs without a mesh")
+        return None, None
+    if param_pspecs is None or cache_pspecs is None:
+        raise ValueError("a serving step on a mesh needs the param_pspecs and the "
+                         "cache_pspecs its weights and cache were cut by")
+    fsdp = [sharding.fsdp_cuts(spec, mesh) for spec in sharding.spec_leaves(param_pspecs)]
+    return sharding.step_mesh(mesh, param_pspecs), fsdp
+
+
+def _whole_params(params, fsdp):
+    """The params with every FSDP-cut leaf gathered over its data axes (all
+    of them before the step, as the train step gathers them)."""
+    if not any(fsdp):
+        return params
+    leaves = tensor_leaves(params)
+    return _rebuild(params, iter([sharding.gather_fsdp(p, c) for p, c in zip(leaves, fsdp)]))
+
+
+def make_prefill_step(cfg: ModelConfig, *, mesh=None, param_pspecs=None, cache_pspecs=None):
+    """``prefill_step(params, inputs, cache=None) -> (last logits, cache)``,
+    a given ``cache`` written in place (``api.prefill``).  With a ``mesh``:
+    ``params`` are the rank's shards under ``param_pspecs`` (FSDP-cut
+    leaves gathered over the data axes for the step; weights that no spec
+    cuts over "model" run as ``sharding.replicated`` says), ``inputs`` the
+    rank's rows, and ``cache`` (required) the rank's shard of a cache of the
+    prompt's length laid out by ``cache_pspecs`` (``sharding.cache_pspecs``
+    of the whole cache, ``use_model=False`` for replicated weights; made by
+    ``sharding.local_zeros``, as the engine makes its own)."""
+    on, fsdp = _serving_mesh(mesh, param_pspecs, cache_pspecs)
+    if on is None:
+        def prefill_step(params, inputs, cache=None):
+            return api.prefill(params, inputs, cfg, cache=cache)
+        return prefill_step
+
+    def prefill_step(params, inputs, cache=None):
+        if cache is None:
+            raise ValueError("a prefill step on a mesh writes the rank's shard of the "
+                             "cache: pass it (sharding.local_zeros)")
+        with shardctx.use_mesh(on), sharding.use_cache_layout(cache, cache_pspecs):
+            return api.prefill(_whole_params(params, fsdp), inputs, cfg,
+                               inputs["tokens"].shape[1], cache=cache)
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, *, mesh=None, param_pspecs=None, cache_pspecs=None):
+    """``serve_step(params, cache, token, pos) -> (logits, cache)``, the
+    cache updated in place.  With a ``mesh``: the rank's shards of the
+    params (``param_pspecs``, gathered as ``make_prefill_step`` says) and
+    of the cache (``cache_pspecs``), its rows of ``token``."""
+    on, fsdp = _serving_mesh(mesh, param_pspecs, cache_pspecs)
+    if on is None:
+        def serve_step(params, cache, token, pos):
+            return api.decode_step(params, cache, token, pos, cfg)
+        return serve_step
+
     def serve_step(params, cache, token, pos):
-        return api.decode_step(params, cache, token, pos, cfg)
+        with shardctx.use_mesh(on), sharding.use_cache_layout(cache, cache_pspecs):
+            return api.decode_step(_whole_params(params, fsdp), cache, token, pos, cfg)
     return serve_step

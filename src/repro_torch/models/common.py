@@ -166,7 +166,7 @@ def dense(p: dict, x: torch.Tensor, dtype=None) -> torch.Tensor:
 
 
 def _mm_float32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if not a.is_cuda:              # the CPU has no GEMM with a float32 output
+    if a.device.type == "cpu":     # the CPU has no GEMM with a float32 output
         return a.float() @ b.float()
     if b.dim() == 3:
         return torch.bmm(a, b, out_dtype=torch.float32)

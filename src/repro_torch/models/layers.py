@@ -340,7 +340,7 @@ def attention_full(p: dict, x: torch.Tensor, positions: torch.Tensor,
     k = apply_rope(k, positions[None], cfg.rope_theta)
 
     def attend(qa, ka, va):
-        if not qa.is_cuda and s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
+        if qa.device.type == "cpu" and s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
             return attention_chunked(qa, ka, va, positions, positions, win)
         return dispatch.flash_attention(qa, ka, va, window=win)
 

@@ -261,6 +261,53 @@ def decode_counts(mesh, arch: str = "deepseek-7b", batch: int = 2) -> dict:
     return {"counts": counts, "batch": int(tokens.shape[0]), "vocab": list(logits.shape)}
 
 
+def serving_steps_check(mesh, arch: str, layout: str) -> dict:
+    """``launch/steps.py``'s prefill and decode steps on a mesh, ``layout``
+    "fsdp" (every weight cut over "data" too, gathered by the step) or
+    "replicated" (no weight cut, the cache whole over "model": the
+    dry-run's small-model prefill): this rank's last logits of a (4, 8)
+    prefill and of one decode step at position 8 of a 16-position cache,
+    against the single device's rows on the same seeded weights, and the
+    collectives each step ran."""
+    cfg = registry.get(arch).smoke
+    params = _params(cfg)
+    tokens = _prompts(cfg)
+    b, s = tokens.shape
+    rows = _rows(mesh, b)
+    abstract = api.abstract_params(cfg)
+    specs = (sharding.replicated_pspecs(abstract) if layout == "replicated"
+             else sharding.param_pspecs(abstract, cfg, mesh, fsdp=True))
+    use_model = layout != "replicated"
+    local = sharding.shard_tree(params, specs, mesh)
+    whole = api.init_cache(cfg, b, 16, device="cpu")
+    want_prefill, _ = api.prefill(params, {"tokens": tokens}, cfg, 16, cache=whole)
+    want_decode, _ = api.decode_step(params, whole, tokens[:, -1], s, cfg)
+    out = {"rows": [rows.start, rows.stop]}
+    for name, length in (("prefill", s), ("decode", 16)):
+        abs_cache = api.init_cache(cfg, b, length, device="meta")
+        cache_sp = sharding.cache_pspecs(abs_cache, cfg, mesh, batch=b, use_model=use_model)
+        shardctx.reset_counts()
+        if name == "prefill":
+            step = steps.make_prefill_step(cfg, mesh=mesh, param_pspecs=specs,
+                                           cache_pspecs=cache_sp)
+            cache = sharding.local_zeros(abs_cache, cache_sp, mesh)
+            got, _ = step(local, {"tokens": tokens[rows]}, cache)
+            want = want_prefill[rows]
+        else:
+            # the single device's cache after its prefill, this rank's shard of it
+            step = steps.make_serve_step(cfg, mesh=mesh, param_pspecs=specs,
+                                         cache_pspecs=cache_sp)
+            single = api.init_cache(cfg, b, 16, device="cpu")
+            api.prefill(params, {"tokens": tokens}, cfg, 16, cache=single)
+            cache = sharding.shard_tree(single, cache_sp, mesh)
+            got, _ = step(local, cache, tokens[rows, -1], s)
+            want = want_decode[rows]
+        out[name] = {"rel": _rel(got, want), "counts": shardctx.counts(),
+                     "cut": sum(1 for sp in sharding.spec_leaves(specs)
+                                if sharding.fsdp_cuts(sp, mesh))}
+    return out
+
+
 def _params(cfg):
     p = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     if cfg.family == "ssm":
@@ -431,6 +478,9 @@ def world4(rank: int, out: str, moe_dir: str, ckpt: str) -> None:
     for arch in MODELS:
         c.run(f"{arch} 2x2", models_check, mesh, arch)
     c.run("refusals 2x2", refusals, mesh)
+    for arch in ("deepseek-7b", "rwkv6-1.6b"):
+        for layout in ("fsdp", "replicated"):
+            c.run(f"serving {layout} {arch} 2x2", serving_steps_check, mesh, arch, layout)
     c.run("checkpoint save 2x2", checkpoint_save, mesh, ckpt)
     tp = make_local_mesh(1, 4, device="cpu")
     c.run("decode counts 1x4", decode_counts, tp)

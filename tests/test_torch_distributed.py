@@ -216,6 +216,24 @@ def test_sharded_train_step_matches_one_device(runs, name):
             assert res["local_moments"] < res["params"]
 
 
+@pytest.mark.parametrize("arch", ["deepseek-7b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("layout", ["fsdp", "replicated"])
+def test_serving_steps_on_a_mesh_match_one_device(runs, layout, arch):
+    """The dry-run's serving steps (``launch/steps.py``) on real data at
+    (2, 2): FSDP's weights gathered by the step, or weights replicated under
+    the model axis (``sharding.replicated``), give the single device's
+    logits; the FSDP steps gather every cut leaf once, the replicated ones
+    move nothing."""
+    for res in _result(runs, "4", f"serving {layout} {arch} 2x2"):
+        for step in ("prefill", "decode"):
+            got = res[step]
+            assert got["rel"] <= LOGITS_TOL, (step, got["rel"])
+            if layout == "replicated":
+                assert got["counts"] == {} and got["cut"] == 0
+            else:
+                assert got["cut"] > 0 and got["counts"]["all-gather"][0] >= got["cut"]
+
+
 def test_a_sharded_checkpoint_restores_on_other_meshes(runs):
     """Saved at (2, 2) with FSDP specs; restored at (1, 2) (the rank's
     shards, gathered again) and on one device, both equal to the seeded

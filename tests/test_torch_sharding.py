@@ -141,6 +141,28 @@ def test_param_opt_and_cache_specs_equal_the_reference(arch, size, mesh):
             assert tuple(spec) == tuple(want[path]), (batch, path)
 
 
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_replicated_cache_specs_equal_the_reference(arch):
+    """``cache_pspecs(use_model=False)``, the replicated-weights prefill's
+    cache (whole over "model"), leaf by leaf against the reference's."""
+    for size in ("smoke", "full"):
+        ref_cfg, cfg = _cfgs(arch, size)
+        for mesh in ("2x2", "1x4", "2x4", "16x16", "2x16x16"):
+            m = _mesh(mesh)
+            for batch in (1, 2, 32):
+                ref_cache = _unambiguous(jax.eval_shape(
+                    lambda b=batch: ref_api.init_cache(ref_cfg, b, 64)))
+                want = _ref_flat(ref_sharding.cache_pspecs(ref_cache, ref_cfg, m, batch=batch,
+                                                           use_model=False))
+                got = list(_port_flat(sharding.cache_pspecs(
+                    api.init_cache(cfg, batch, 64, device="meta"), cfg, m, batch=batch,
+                    use_model=False)))
+                assert len(got) == len(want)
+                for path, spec, _ in got:
+                    assert tuple(spec) == tuple(want[path]), (mesh, batch, path)
+                    assert "model" not in str(spec), (mesh, batch, path)
+
+
 def _unambiguous(cache):
     """The reference cache's shapes with each stacked leaf's layer axis
     resized to a prime no batch or axis equals: the reference finds the
