@@ -153,15 +153,26 @@ failure exits non-zero:
      tokens of both (and where they part, the step and the sharded
      engine's logit margin there), K1 and K2 counted per rank (layers x
      prefills, layers x steps) and one decode step's collectives per rank
-     held to ``plan_shards``' formula; the float32 gates at 2 layers and
+     held to ``plan_shards``' formula; then the same ranks' prefill with the
+     reference's sequence parallelism (``use_mesh(mesh, seq_parallel=True)``,
+     ``seq_parallel_prefills``) against their prefill without it (logits row
+     by row and the cache shards, and whether bit-equal), its collectives
+     against ``launch/comms.py``'s prefill plan, K1 counted per rank; the
+     float32 gates at 2 layers and
      full width (deepseek-7b on (1, 2) and (2, 1), granite-moe-3b-a800m on
      (1, 2), its experts split two ways, rwkv6-1.6b on (1, 2), K3 on the
      local heads, ``tmix.wo`` redrawn): equal tokens and prefill logits
-     within ``SHARDED_REL_TOL``; one AdamW step of deepseek-7b at 2 layers
-     in float32 on (2, 1) data parallel, (2, 1) FSDP and (1, 2) tensor
-     parallel, loss, grad norm and every param within
-     ``SHARDED_REL_TOL`` of the single card's step, K4 and K5 counted per
-     rank; then the layouts that cut a KV sequence or heads inside
+     within ``SHARDED_REL_TOL``; the sequence-parallel float32 gates on
+     (1, 2) (``seq_parallel_gates``: deepseek-7b, granite-moe-3b-a800m and
+     rwkv6-1.6b at 2 layers, recurrentgemma-9b at one pattern unit,
+     whisper-tiny whole): the cut prefill's logits within
+     ``SHARDED_REL_TOL`` of the single card's; one AdamW step of
+     deepseek-7b at 2 layers in float32 on (2, 1) data parallel, (2, 1)
+     FSDP, (1, 2) tensor parallel and (1, 2) sequence parallel, loss, grad
+     norm and every param within ``SHARDED_REL_TOL`` of the single card's
+     step (the sequence-parallel step's params also of the tensor parallel
+     step's), K1-bwd, K4 and K5 counted per rank; then the layouts that
+     cut a KV sequence or heads inside
      (``new_layouts_rank``): deepseek-7b at batch 1 on (2, 1), its
      16,384-position cache cut over "data", an 8,176-token prompt and 32 new
      tokens, unwindowed and with a 4,096-position window, every step's
@@ -2867,13 +2878,16 @@ def mesh_prefill(eng, prompts, n_new: int = SHARDED_NEW) -> torch.Tensor:
         return eng._all_rows(logits.float(), 0)
 
 
-def split_rows(p: dict, key: str, x: torch.Tensor, full_in: int) -> torch.Tensor:
+def split_rows(p: dict, key: str, x: torch.Tensor, full_in: int, *,
+               cut_seq: bool = False) -> torch.Tensor:
     """``models.layers.row_dense`` on one card as ``SHARDED_WORLD`` ranks of a
     model axis compute it: the input dim cut into their equal slices, each
     slice's products in float32 (``float32_products``, at a rank's
     shapes), the partial sums added in rank order and rounded once.  Phase
-    11's single-card oracle of the sharded bf16 arithmetic."""
+    11's single-card oracle of the sharded bf16 arithmetic (one card, no
+    mesh: ``cut_seq`` is never set)."""
     from repro_torch.models.common import float32_products
+    assert not cut_seq
     q = p[key]
     parts = [float32_products(xs.contiguous(), ws) for xs, ws in
              zip(x.chunk(SHARDED_WORLD, -1), q["w"].chunk(SHARDED_WORLD, 0))]
@@ -3052,7 +3066,8 @@ def parting_margins(eng, prompts, toks, ref, parts) -> list:
 
 def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict,
                         kernels=("flash_attention", "flash_attention_bwd", "grad_sumsq",
-                                 "adamw_update")) -> dict:
+                                 "adamw_update"), *, seq_parallel: bool = False,
+                        keep: bool = False, against: list | None = None) -> dict:
     """One AdamW step of ``cfg`` (float32) on ``mesh`` (FSDP specs with
     ``fsdp``), K4 and K5 counted, against the single card's step in
     ``want`` (rank 0's): loss, grad norm and every param leaf (gathered).
@@ -3061,7 +3076,12 @@ def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict,
     gradients, the params are held as phase 10's gate holds them: over the
     elements whose gradient is at least ``GATE_NOISE`` of its leaf's rms
     (AdamW's first step takes the sign of the gradient, which rounding
-    decides below that), the rest each within 2 lr."""
+    decides below that), the rest each within 2 lr.  With ``seq_parallel``
+    the step runs under ``use_mesh(mesh, seq_parallel=True)``; with
+    ``keep`` rank 0 returns the params after the step (host, ``params``);
+    ``against``, such params of another layout's step, which rank 0 holds
+    these to as well."""
+    from repro_torch import shardctx
     from repro_torch.kernels.attention import flash, flash_bwd
     from repro_torch.kernels.optim import adamw
     from repro_torch.launch import sharding
@@ -3084,7 +3104,8 @@ def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict,
         m.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, metrics = step(params, state, sharding.shard_batch(batch, mesh))
+    with shardctx.use_mesh(mesh, seq_parallel=seq_parallel):
+        _, _, metrics = step(params, state, sharding.shard_batch(batch, mesh))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash.launches, "flash_attention_bwd": flash_bwd.launches,
@@ -3100,8 +3121,14 @@ def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict,
     # part), each held on rank 0 against the single card's: on the host,
     # or, with the gradients' noise floor, on the card a slice at a time
     rels, sure_rels, floor, apart = [], [], 0, False
+    kept, other = [], []
     for local, spec, i in zip(tensor_leaves(params), sharding.spec_leaves(pspecs), count()):
         a = sharding.gather(local.detach(), spec, mesh)
+        if mesh.rank == 0 and keep:
+            kept.append(a.cpu())
+        if mesh.rank == 0 and against is not None:
+            b = against[i]
+            other.append(((a.cpu() - b).norm() / b.norm().clamp_min(1e-30)).item())
         if mesh.rank == 0 and "grads" not in want:
             a, b = a.cpu(), want["params"][i]
             rels.append(((a - b).norm() / b.norm().clamp_min(1e-30)).item())
@@ -3148,6 +3175,15 @@ def sharded_train_check(cfg, mesh, name: str, fsdp: bool, want: dict,
         if not ok:
             raise SystemExit(f"train {name}: the sharded step disagrees with the single card")
         out.update(loss_rel=rl, gnorm_rel=rg, param_rel=worst)
+        if against is not None:
+            out["other_param_rel"] = max(other)
+            log(f"[sharded] train {name}: params after the step against the tensor parallel "
+                f"step's: worst leaf rel_l2 {max(other):.3e} (tol {SHARDED_REL_TOL:g})")
+            if max(other) > SHARDED_REL_TOL:
+                raise SystemExit(f"train {name}: the step disagrees with the tensor parallel "
+                                 "step")
+        if keep:
+            out["params"] = kept
     del params, state
     torch.cuda.empty_cache()
     return out
@@ -3395,6 +3431,131 @@ def gate_run(cfg, mesh, name: str, params_fn, local_fn=None) -> dict:
     return out
 
 
+def seq_parallel_prefills(cfg, mesh, params, inputs: dict, name: str) -> dict:
+    """One prefill of ``inputs`` (every row; the mesh cuts none over "data")
+    through ``steps.make_prefill_step`` on this rank's shards ``params``
+    (the rules' specs), without the flag and then with the reference's
+    sequence parallelism (``use_mesh(mesh, seq_parallel=True)``): each
+    run's collectives against ``launch/comms.py``'s plan of it, K1 and K3
+    counted, and the cut run's logits and this rank's cache shards against
+    the flag-less run's (whether bit-equal: under gloo the cut layout sums
+    the same float32 partials).  -> the cut run's logits (host) and what
+    was measured."""
+    from repro_torch import shardctx
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.rwkv import wkv
+    from repro_torch.launch import comms, sharding, steps
+    from repro_torch.models import api
+    from repro_torch.models.common import tensor_leaves
+
+    b, s = inputs["tokens"].shape
+    pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh)
+    abs_cache = api.init_cache(cfg, b, s, device="meta")
+    cache_sp = sharding.cache_pspecs(abs_cache, cfg, mesh, batch=b)
+    step = steps.make_prefill_step(cfg, mesh=mesh, param_pspecs=pspecs, cache_pspecs=cache_sp)
+    runs = {}
+    for flag in (False, True):
+        cache = sharding.local_zeros(abs_cache, cache_sp, mesh)
+        flash.launches = wkv.launches = 0
+        shardctx.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with shardctx.use_mesh(mesh, seq_parallel=flag):
+            logits, cache = step(params, inputs, cache)
+        torch.cuda.synchronize()
+        got = shardctx.counts()
+        plan = {k: (n, float(v)) for k, (n, v) in comms.prefill(
+            cfg, mesh.shape, batch=b, seq=s, seq_parallel=flag,
+            model_index=mesh.coords["model"]).items()}
+        runs[flag] = {"logits": logits.float(), "cache": list(tensor_leaves(cache)),
+                      "counted": got, "plan": plan, "s": time.perf_counter() - t0,
+                      "launches": {"flash_attention": flash.launches, "wkv6": wkv.launches}}
+        if got != plan:
+            raise SystemExit(f"rank {mesh.rank} {name}: the prefill's collectives {got} "
+                             f"(sequence parallel: {flag}) differ from the plan {plan}")
+    cut, whole = runs[True], runs[False]
+    rows = row_rel(cut["logits"], whole["logits"])
+    cache_rel = max(((a.float() - c.float()).norm() / c.float().norm().clamp_min(1e-30)).item()
+                    for a, c in zip(cut["cache"], whole["cache"]))
+    out = {"bit_equal": bool(torch.equal(cut["logits"], whole["logits"])),
+           "cache_bit_equal": all(torch.equal(a, c) for a, c in zip(cut["cache"],
+                                                                      whole["cache"])),
+           "worst_row": rows.max().item(), "cache_rel": cache_rel,
+           "launches": cut["launches"], "counted": cut["counted"],
+           "flagless_counted": whole["counted"], "s": cut["s"], "flagless_s": whole["s"]}
+    ratio = (sum(v[1] for v in cut["counted"].values())
+             / max(sum(v[1] for v in whole["counted"].values()), 1e-30))
+    log(f"[sharded] rank {mesh.rank} {name} sequence parallel: prefill "
+        f"{tuple(inputs['tokens'].shape)} "
+        f"moves {cut['counted']} (the plan's, launch/comms.py); without the flag "
+        f"{whole['counted']}; link bytes {ratio:.4f} of the flag-less; launches "
+        f"{cut['launches']}; logits bit-equal to the flag-less run's: {out['bit_equal']} "
+        f"(worst row {out['worst_row']:.3e}), cache shards bit-equal: "
+        f"{out['cache_bit_equal']} (worst leaf rel_l2 {cache_rel:.3e}); "
+        f"{cut['s']:.3f} s, flag-less {whole['s']:.3f} s")
+    out["link_ratio"] = ratio
+    return {"logits": cut["logits"].cpu(), **out}
+
+
+def seq_parallel_gates(rank: int, tp) -> tuple[dict, dict]:
+    """The float32 gates of sequence parallelism on (1, 2), 2 layers at full
+    width (recurrentgemma-9b one pattern unit, whisper-tiny whole): the
+    cut prefill's last logits within ``SHARDED_REL_TOL`` of the single
+    card's (rank 0), its collectives the plan's, and against the
+    flag-less mesh run (``seq_parallel_prefills``); K1 (dense, MoE) and K3
+    (RWKV-6) launched.  -> (rank 0's readings, the launches)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import sharding
+    from repro_torch.models import api
+
+    dev = tp.device
+    report, launches = {}, {}
+    for arch in ("deepseek-7b", "granite-moe-3b-a800m", "rwkv6-1.6b", "recurrentgemma-9b",
+                 "whisper-tiny"):
+        full = get(arch).config
+        layers = (len(full.pattern) if full.pattern else
+                  full.num_layers if full.family == "audio" else 2)
+        gcfg = f32(full, layers)
+        name = f"{arch} (1, 2) float32, {layers} layers"
+        inputs = {"tokens": deepseek_inputs(gcfg)[0].to(dev)}
+        if gcfg.family == "audio":
+            inputs["frame_embeds"] = torch.randn(
+                (4, gcfg.encoder_seq, gcfg.d_model), generator=torch.Generator().manual_seed(5)
+            ).to(dev)
+        params = api.init_params(gcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        if gcfg.family == "ssm":
+            redraw_wo(params, gcfg, dev)
+        want = api.prefill(params, inputs, gcfg)[0].float().cpu() if rank == 0 else None
+        dist.barrier()
+        local = sharding.shard_tree(params, sharding.param_pspecs(
+            api.abstract_params(gcfg), gcfg, tp), tp)
+        del params
+        torch.cuda.empty_cache()
+        r = seq_parallel_prefills(gcfg, tp, local, inputs, name)
+        del local
+        torch.cuda.empty_cache()
+        kernel = {"dense": "flash_attention", "moe": "flash_attention",
+                  "ssm": "wkv6"}.get(gcfg.family)
+        if kernel and r["launches"][kernel] != layers:
+            raise SystemExit(f"rank {rank} {name}: {kernel} launched {r['launches'][kernel]} "
+                             f"times in the cut prefill, not once a layer ({layers})")
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        got = r.pop("logits")
+        if rank == 0:
+            rel = ((got - want).norm() / want.norm()).item()
+            ok = bool(torch.isfinite(got).all()) and rel <= SHARDED_REL_TOL
+            log(f"[sharded] {name} sequence parallel: prefill logits {tuple(got.shape)} "
+                f"against the single card: rel_l2 {rel:.3e} (tol {SHARDED_REL_TOL:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{name}: the cut prefill disagrees with the single card")
+            report[name] = {"rel": rel, **r}
+    return report, launches
+
+
 def f32(cfg, layers: int | None = None):
     """``cfg`` in float32, at ``layers`` layers where given."""
     cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
@@ -3590,6 +3751,20 @@ def sharded_rank(rank: int, out_dir: str) -> None:
     if rank == 0 and margins:
         log(f"[sharded] {cfg.name}: where the tokens part (row, step, the sharded engine's "
             f"logit of its token less that of the single card's): {margins}")
+    # the same ranks' prefill with the reference's sequence parallelism
+    t0 = time.perf_counter()
+    sp = seq_parallel_prefills(cfg, tp, eng.params, {"tokens": prompts.to(dev)},
+                               f"{cfg.name} (1, 2) bf16")
+    sp.pop("logits")
+    if sp["launches"]["flash_attention"] != cfg.num_layers:
+        raise SystemExit(f"rank {rank}: K1 launched {sp['launches']['flash_attention']} times "
+                         f"in the cut prefill, not {cfg.num_layers}")
+    if sp["worst_row"] > ROW_REL_TOL:
+        raise SystemExit(f"rank {rank}: the cut prefill's logits part from the flag-less "
+                         f"run's: worst row {sp['worst_row']:.3e}")
+    add(sp["launches"])
+    sp["wall_s"] = time.perf_counter() - t0
+    report["deepseek_sp"] = sp
     del eng, run
     torch.cuda.empty_cache()
 
@@ -3623,6 +3798,10 @@ def sharded_rank(rank: int, out_dir: str) -> None:
         del run
         torch.cuda.empty_cache()
     report["gates"] = gates
+    t0 = time.perf_counter()
+    report["sp_gates"], more = seq_parallel_gates(rank, tp)
+    add(more)
+    report["sp_gates_s"] = time.perf_counter() - t0
 
     # one AdamW step of deepseek-7b at 2 layers, float32
     tcfg = get("deepseek-7b").config.replace(num_layers=2, param_dtype="float32",
@@ -3632,8 +3811,16 @@ def sharded_rank(rank: int, out_dir: str) -> None:
     trains = {}
     for name, mesh, fsdp in (("(2, 1) data parallel", dp, False), ("(2, 1) FSDP", dp, True),
                              ("(1, 2) tensor parallel", tp, False)):
-        trains[name] = r = sharded_train_check(tcfg, mesh, name, fsdp, want)
+        trains[name] = r = sharded_train_check(tcfg, mesh, name, fsdp, want,
+                                               keep=mesh is tp)
         add(r["launches"])
+    t0 = time.perf_counter()
+    name = "(1, 2) sequence parallel"
+    trains[name] = r = sharded_train_check(
+        tcfg, tp, name, False, want, seq_parallel=True,
+        against=trains["(1, 2) tensor parallel"].pop("params", None))
+    add(r["launches"])
+    r["wall_s"] = time.perf_counter() - t0
     report["train"] = trains
     report["f1_s"] = time.perf_counter() - t_start
     del want
@@ -3683,6 +3870,14 @@ def sharded_phase() -> dict:
                 if "wall_s" in entry:
                     log(f"[sharded] {name}: {entry['wall_s']:.1f} s of the phase")
             log(f"[sharded] the F1 runs before them: {ranks[0]['f1_s']:.1f} s")
+            r0 = ranks[0]
+            log(f"[sharded] sequence parallelism: deepseek-7b bf16 prefills "
+                f"{r0['deepseek_sp']['wall_s']:.1f} s, the float32 gates "
+                f"{r0['sp_gates_s']:.1f} s, the AdamW step "
+                f"{r0['train']['(1, 2) sequence parallel']['wall_s']:.1f} s; deepseek-7b's "
+                f"cut prefill bit-equal to the flag-less run's: "
+                f"{r0['deepseek_sp']['bit_equal']}, link bytes "
+                f"{r0['deepseek_sp']['link_ratio']:.4f} of the flag-less")
         reports[world] = ranks[0]
         log(f"[sharded] phase 11, {world} ranks: {walls[world]:.1f} s, spawned and joined")
     log(f"[sharded] phase 11: {sum(walls.values()):.1f} s")

@@ -2,8 +2,9 @@
 on meta tensors, on the reference's production meshes.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
-        --shape train_4k [--multi-pod] [--rank R] [--out artifacts/dryrun_torch]
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
+        --shape train_4k [--multi-pod] [--seq-parallel] [--rank R] \\
+        [--out artifacts/dryrun_torch]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--seq-parallel]
 
 The port's counterpart of ``repro/launch/dryrun.py``.  The reference lowers
 and compiles each step for 256 or 512 host placeholder devices and reads
@@ -31,9 +32,13 @@ torch does.  ``lower_s`` is the step's wall time here; ``compile_s`` is
 ``loop_trips`` is the reference's and is only recorded: the port runs every
 layer and every microbatch, so every collective is counted as it runs.
 
-Each run writes ``<out>/<arch>__<shape>__<single|multi>[_int8].json``,
-which ``analysis/report.py`` reads.  The reference's sequence parallelism
-(``--seq-parallel``) is not ported: asking for it exits with a message.
+Each run writes ``<out>/<arch>__<shape>__<single|multi>[_int8][_sp].json``,
+which ``analysis/report.py`` reads.  ``--seq-parallel`` runs each step
+under ``shardctx.use_mesh(mesh, seq_parallel=True)``, the reference's
+Megatron sequence parallelism (``shardctx``): the residual stream cut over
+"model" between blocks where the length divides it (a decode step's
+length of 1 never does, so its counts are the flag-less run's), its
+record tagged ``"seq_parallel": true`` and ``_sp``.
 """
 from __future__ import annotations
 
@@ -59,12 +64,6 @@ from repro_torch.launch.steps import (choose_microbatch, make_prefill_step, make
                                       make_train_step)
 from repro_torch.models import api
 from repro_torch.train.optimizer import AdamW
-
-SEQ_PARALLEL = ("--seq-parallel: the reference's sequence parallelism between blocks "
-                "(src/repro/shardctx.py:60-80, the sequence of the activations sharded "
-                "over 'model') is not ported; the port's shardctx.constrain_batch is the "
-                "identity")
-
 
 def production_world(multi_pod: bool) -> int:
     return 512 if multi_pod else 256
@@ -293,9 +292,8 @@ def run_pair(arch_id: str, shape_id: str, *, multi_pod: bool, out_dir: str,
     over a fake group of its world made here (as rank ``rank``) and
     destroyed after, or over the group that exists.  ``batch`` and ``seq``
     replace the shape's global batch and length (the record keeps the
-    shape's name; its ``model_flops`` is the run's)."""
-    if seq_parallel:
-        raise SystemExit(SEQ_PARALLEL)
+    shape's name; its ``model_flops`` is the run's).  ``seq_parallel``:
+    the step runs with the reference's sequence parallelism."""
     with _production(mesh, multi_pod, rank) as mesh:
         t0 = time.perf_counter()
         lowered, meta, cfg = lower_pair(arch_id, shape_id, multi_pod=multi_pod, mesh=mesh,
@@ -303,7 +301,7 @@ def run_pair(arch_id: str, shape_id: str, *, multi_pod: bool, out_dir: str,
         setup = time.perf_counter() - t0
         shardctx.reset_counts()
         t0 = time.perf_counter()
-        with shardctx.use_mesh(mesh):
+        with shardctx.use_mesh(mesh, seq_parallel=seq_parallel):
             _, counted = count.count_step(lowered.step, lowered.args)
         wall = time.perf_counter() - t0
         colls = shardctx.counts()
@@ -320,6 +318,8 @@ def run_pair(arch_id: str, shape_id: str, *, multi_pod: bool, out_dir: str,
     coll = _collectives(colls)
     trips = loop_trips(cfg, meta["kind"], SHAPES[shape_id].seq_len, meta.get("num_micro", 1))
     terms = roofline_terms(cfg, meta, counted, coll["total"], batch=batch, seq=seq)
+    if seq_parallel:
+        meta["seq_parallel"] = True
     rec = {**meta, "multi_pod": multi_pod, "loop_trips": list(trips),
            "lower_s": round(wall, 2), "compile_s": 0.0,
            "memory": mem, "cost": cost, "collectives": coll,
@@ -337,19 +337,21 @@ def run_pair(arch_id: str, shape_id: str, *, multi_pod: bool, out_dir: str,
         print("  roofline:", json.dumps(terms))
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, record_name(arch_id, shape_id, multi_pod, int8)),
-                  "w") as f:
+        with open(os.path.join(out_dir, record_name(arch_id, shape_id, multi_pod, int8,
+                                                    seq_parallel)), "w") as f:
             json.dump(rec, f, indent=1)
     return rec
 
 
-def record_name(arch_id: str, shape_id: str, multi_pod: bool, int8: bool) -> str:
-    tag = ("multi" if multi_pod else "single") + ("_int8" if int8 else "")
+def record_name(arch_id: str, shape_id: str, multi_pod: bool, int8: bool,
+                seq_parallel: bool = False) -> str:
+    tag = (("multi" if multi_pod else "single") + ("_int8" if int8 else "")
+           + ("_sp" if seq_parallel else ""))
     return f"{arch_id}__{shape_id}__{tag}.json"
 
 
 def comms_summary(arch_id: str, shape_id: str, *, multi_pod: bool = False,
-                  mesh=None, rank: int = 0) -> dict:
+                  mesh=None, rank: int = 0, seq_parallel: bool = False) -> dict:
     """A stable view of one pair's collectives on a rank: what its step
     moves, by kind, counted as it runs (``shardctx``).  The calibration
     target of the reference's ``repro.core.distributed.plan_shards``
@@ -364,7 +366,7 @@ def comms_summary(arch_id: str, shape_id: str, *, multi_pod: bool = False,
     with _production(mesh, multi_pod, rank) as mesh:
         lowered, meta, cfg = lower_pair(arch_id, shape_id, multi_pod=multi_pod, mesh=mesh)
         shardctx.reset_counts()
-        with shardctx.use_mesh(mesh):
+        with shardctx.use_mesh(mesh, seq_parallel=seq_parallel):
             lowered.step(*lowered.args)
         colls = shardctx.counts()
         msz = axis_size(mesh, model_axis(mesh))
@@ -391,10 +393,9 @@ def main(argv=None):
     ap.add_argument("--int8", action="store_true",
                     help="weight-only int8 ablation (prefill/decode kinds)")
     ap.add_argument("--seq-parallel", action="store_true",
-                    help="the reference's sequence parallelism: not ported, refused")
+                    help="shard the sequence dim of activations over 'model' "
+                         "between blocks (Megatron sequence parallelism)")
     args = ap.parse_args(argv)
-    if args.seq_parallel:
-        raise SystemExit(SEQ_PARALLEL)
     if args.all:
         todo = registry.pairs()
     elif args.arch and args.shape:
@@ -406,13 +407,14 @@ def main(argv=None):
     with fake_group(production_world(args.multi_pod), args.rank):
         mesh = make_production_mesh(multi_pod=args.multi_pod)
         for aid, sid in todo:
-            path = os.path.join(args.out, record_name(aid, sid, args.multi_pod, args.int8))
+            path = os.path.join(args.out, record_name(aid, sid, args.multi_pod, args.int8,
+                                                      args.seq_parallel))
             if args.skip_existing and os.path.exists(path):
                 print(f"[dryrun] skip existing {path}")
                 continue
             try:
                 run_pair(aid, sid, multi_pod=args.multi_pod, out_dir=args.out, mesh=mesh,
-                         int8=args.int8)
+                         int8=args.int8, seq_parallel=args.seq_parallel)
             except Exception as e:
                 traceback.print_exc()
                 failures.append((aid, sid, repr(e)))
@@ -422,7 +424,8 @@ def main(argv=None):
             print(" ", f)
         raise SystemExit(1)
     print(f"[dryrun] all {len(todo)} pair(s) ran OK "
-          f"({'multi' if args.multi_pod else 'single'}-pod mesh) in "
+          f"({'multi' if args.multi_pod else 'single'}-pod mesh"
+          f"{', sequence parallel' if args.seq_parallel else ''}) in "
           f"{time.perf_counter() - t0:.1f} s")
 
 

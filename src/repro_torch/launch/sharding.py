@@ -366,7 +366,7 @@ def shard(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 def gather(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """The whole tensor from every rank's local shard ``x`` (every rank of
     the mesh calls)."""
-    with shardctx.use_mesh(mesh):
+    with shardctx.use_mesh(mesh, seq_parallel=shardctx.seq_parallel()):
         for dim, axes in reversed(list(spec_cuts(spec))):
             x = shardctx.all_gather(x, axes, dim)
     return x

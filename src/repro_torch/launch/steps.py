@@ -15,6 +15,16 @@ data axes, the data ranks' mean taken; the loss is the data ranks' mean.
 The float32 accumulators of ``num_micro`` > 1 are the local shards' own,
 so they are cut like the params.
 
+Every step keeps the ambient sequence-parallel flag when it installs its
+mesh (``shardctx.use_mesh(mesh, seq_parallel=True)`` around a call, the
+way the reference's dry-run sets it around lowering).  Under it the train
+step also sums over "model" the gradients of the leaves whole on every
+model rank that the cut stream leaves as a rank's share
+(``api.seq_partial_leaves``: the norms, the biases added after a
+reduce-scatter, every such weight inside a block), as Megatron's
+sequence parallelism does; tensor parallelism's ``copy_to`` makes them
+whole without it.
+
 The serving steps take a mesh too (``make_prefill_step``,
 ``make_serve_step``): the rank's shards of the params and the cache, FSDP's
 leaves gathered over the data axes before the step, and weights that no
@@ -115,6 +125,7 @@ def _sharded_train_step(cfg: ModelConfig, opt: AdamW, num_micro: int, mesh, pspe
     shards = [tuple(a for _, axes in c for a in axes) for c in cuts]
     fsdp = [sharding.fsdp_cuts(spec, mesh) for spec in specs]
     over = [tuple(a for a in dax if a not in cut) for cut in shards]
+    whole_over_model = ["model" not in cut and mesh.size("model") > 1 for cut in shards]
 
     def grads_of(leaves, params, batch):
         full = _rebuild(params, iter([sharding.gather_fsdp(p, g) for p, g in zip(leaves, fsdp)]))
@@ -125,8 +136,11 @@ def _sharded_train_step(cfg: ModelConfig, opt: AdamW, num_micro: int, mesh, pspe
         return shardctx.all_reduce(x.detach().float(), axes) / ranks if ranks > 1 else x
 
     def train_step(params, opt_state, batch):
-        with shardctx.use_mesh(mesh):
+        with shardctx.use_mesh(mesh, seq_parallel=shardctx.seq_parallel()):
             leaves = [p.requires_grad_() for p in tensor_leaves(params)]
+            # the leaves whose gradient the cut stream leaves as a rank's share
+            summed = [w and s for w, s in zip(
+                whole_over_model, api.seq_partial_leaves(cfg, params, batch))]
             if num_micro == 1:
                 loss, metrics, grads = grads_of(leaves, params, batch)
                 metrics = {k: mean(v) for k, v in metrics.items()}
@@ -145,8 +159,9 @@ def _sharded_train_step(cfg: ModelConfig, opt: AdamW, num_micro: int, mesh, pspe
                 metrics = {"xent": mean(loss), "aux": torch.zeros((), device=loss.device)}
             # the data ranks' mean gradient: summed by the FSDP gathers'
             # reduce-scatters over the axes that cut a leaf, by an all-reduce
-            # over the others
-            grads = [mean(g, axes) for g, axes in zip(grads, over)]
+            # over the others; a rank's share over "model" summed too
+            grads = [mean(shardctx.all_reduce(g, "model") if s else g, axes)
+                     for g, axes, s in zip(grads, over, summed)]
             params, opt_state, om = opt.update(params, grads, opt_state, shards=shards)
             return params, opt_state, {**metrics, **om, "loss": mean(loss)}
 
@@ -197,7 +212,8 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None, param_pspecs=None, cache_p
         if cache is None:
             raise ValueError("a prefill step on a mesh writes the rank's shard of the "
                              "cache: pass it (sharding.local_zeros)")
-        with shardctx.use_mesh(on), sharding.use_cache_layout(cache, cache_pspecs):
+        with shardctx.use_mesh(on, seq_parallel=shardctx.seq_parallel()), \
+                sharding.use_cache_layout(cache, cache_pspecs):
             return api.prefill(_whole_params(params, fsdp), inputs, cfg,
                                inputs["tokens"].shape[1], cache=cache)
     return prefill_step
@@ -215,6 +231,7 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None, param_pspecs=None, cache_psp
         return serve_step
 
     def serve_step(params, cache, token, pos):
-        with shardctx.use_mesh(on), sharding.use_cache_layout(cache, cache_pspecs):
+        with shardctx.use_mesh(on, seq_parallel=shardctx.seq_parallel()), \
+                sharding.use_cache_layout(cache, cache_pspecs):
             return api.decode_step(_whole_params(params, fsdp), cache, token, pos, cfg)
     return serve_step

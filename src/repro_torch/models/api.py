@@ -15,10 +15,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, shardctx
 
 from . import cnn, encdec, hybrid, ssm, transformer, vlm
-from .common import ModelConfig
+from .common import ModelConfig, leaf_paths
 
 _FAMILIES = {
     "dense": transformer,
@@ -64,6 +64,24 @@ def train_loss(params, batch, cfg: ModelConfig, **kw):
     """-> (loss, {"xent", "aux"}) of ``batch`` (``tokens``, ``labels``, and
     the audio and vlm families' ``frame_embeds`` or ``patch_embeds``)."""
     return _lm_module(cfg).train_loss(params, batch, cfg, **kw)
+
+
+def seq_partial_leaves(cfg: ModelConfig, params, batch) -> list:
+    """Per leaf of ``params`` (``tensor_leaves`` order): whether sequence
+    parallelism on the ambient mesh leaves a rank with its share of the
+    leaf's gradient over "model" for ``batch``, so that the train step must
+    sum it (what the rules cut over "model" is a rank's own whatever this
+    says).  Each stack whose stream ``shardctx.seq_cut`` cuts applies every
+    leaf to a rank's tokens or inside a block whose gradients are shares
+    (the audio family's encoder by its frames, its decoder and positions
+    by its tokens, every other family by its tokens), except the
+    embedding and unembedding tables: where the rules leave one whole on
+    the model axis, every model rank applies it to the whole sequence
+    (``layers.embed``, ``unembed``), so its gradient is whole."""
+    cut = shardctx.seq_cut(batch["tokens"], 1)
+    enc = cfg.family == "audio" and shardctx.seq_cut(batch["frame_embeds"], 1)
+    return [False if keys[0] == "embed" else enc if keys[0] in ("enc_layers", "enc_ln_post")
+            else cut for keys in leaf_paths(params)]
 
 
 def prefill(params, inputs, cfg: ModelConfig, cache_len: int | None = None,

@@ -25,6 +25,16 @@ their row log-sum-exp through the plain ``sdpa``); the MLP is ``wi``
 column-parallel, ``wo`` row-parallel, whose bias is added once, after the
 all-reduce; the vocabulary is cut only where it divides the axis
 (``layers.embed``/``unembed`` ask the rules).
+
+Under sequence parallelism each stack cuts its own residual stream where
+its length divides the model axis (``shardctx.seq_cut``: the frames' for
+the encoder, the prompt's for the decoder; 1500 frames divide a model
+axis of 2 or 4, not 8 or 16, and there the encoder runs uncut while the
+decoder may be cut).  The encoder's frames are cut to the rank's chunk
+(``shardctx.seq_scatter``), and its output is gathered whole before the
+decoder's cross-attention takes it; each block gathers its normed input
+along the sequence and reduce-scatters its ``wo`` partial sums back
+(``layers.py``); the decoder's learned positions are the chunk's.
 """
 from __future__ import annotations
 
@@ -35,8 +45,8 @@ from repro_torch import resolve_device, shardctx
 from .common import ModelConfig, apply_norm, dense, dense_init, norm_init, row_positions
 from .layers import (CHUNK_THRESHOLD, Q_CHUNK, attend_decode, attend_full, attention_chunked,
                      attn_init, cache_positions, chunk_positions, embed, embed_init,
-                     first_heads, project_heads, prompt_span, row_dense, sdpa, unembed,
-                     write_prompt, write_token)
+                     enter_block, first_heads, project_heads, prompt_span, row_dense, sdpa,
+                     unembed, write_prompt, write_token)
 from .transformer import softmax_xent
 
 MAX_DEC_POS = 32768
@@ -58,12 +68,14 @@ def _kv(p, xkv, cfg: ModelConfig):
             project_heads(p, "wv", xkv, cfg.num_kv_heads, cfg))
 
 
-def _attn(p, xq, kv, attend, cfg: ModelConfig):
+def _attn(p, xq, kv, attend, cfg: ModelConfig, cut_seq: bool = False):
     """Attention of xq (B,S,d) over ``kv`` (``_kv``) by ``attend(q, k, v)``
-    on this rank's heads, then ``wo``."""
+    on this rank's heads, then ``wo`` (to this rank's chunk of the
+    sequence with ``cut_seq``)."""
     q0, k0 = first_heads(cfg)
     q = project_heads(p, "wq", xq, cfg.num_heads, cfg)
-    return row_dense(p, "wo", attend_full(q, q0, kv[0], kv[1], k0, cfg, attend), cfg.q_dim)
+    return row_dense(p, "wo", attend_full(q, q0, kv[0], kv[1], k0, cfg, attend), cfg.q_dim,
+                     cut_seq=cut_seq)
 
 
 def _mlp_init(generator, cfg: ModelConfig, device) -> dict:
@@ -71,9 +83,10 @@ def _mlp_init(generator, cfg: ModelConfig, device) -> dict:
             "wo": dense_init(generator, cfg.d_ff, cfg.d_model, cfg.pdt, device, bias=True)}
 
 
-def _mlp(p, x, cfg: ModelConfig):
-    x = shardctx.copy_to(x)
-    return row_dense(p, "wo", F.gelu(dense(p["wi"], x), approximate="tanh"), cfg.d_ff)
+def _mlp(p, x, cfg: ModelConfig, cut_seq: bool = False):
+    x = enter_block(x, cut_seq)
+    return row_dense(p, "wo", F.gelu(dense(p["wi"], x), approximate="tanh"), cfg.d_ff,
+                     cut_seq=cut_seq)
 
 
 def _ln(cfg: ModelConfig, device) -> dict:
@@ -115,44 +128,58 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
 # ----------------------------------------------------------------------
 
 def encode(params, frame_embeds, cfg: ModelConfig) -> torch.Tensor:
-    """frame_embeds: (B, Se, d), the stubbed frontend's output.  -> (B, Se, d)."""
+    """frame_embeds: (B, Se, d), the stubbed frontend's output.  -> (B, Se,
+    d), whole, as the decoder's cross-attention keys and values take it
+    (``copy_to``, or gathered along the sequence where sequence
+    parallelism cut the encoder)."""
     se = frame_embeds.shape[1]
+    cut = shardctx.seq_cut(frame_embeds, 1)
     x = frame_embeds.to(cfg.cdt) + _sinusoid(se, cfg.d_model, frame_embeds.device).to(cfg.cdt)
+    if cut:
+        x = shardctx.seq_scatter(x)
     full = torch.ones((se, se), dtype=torch.bool, device=x.device)
     for lp in params["enc_layers"]:
         x = shardctx.constrain_batch(x, seq_dim=1)
-        h = shardctx.copy_to(apply_norm(lp["ln1"], x, "layernorm"))
+        h = enter_block(apply_norm(lp["ln1"], x, "layernorm"), cut)
         x = x + _attn(lp["attn"], h, _kv(lp["attn"], h, cfg),
-                      lambda q, k, v: sdpa(q, k, v, full), cfg)
+                      lambda q, k, v: sdpa(q, k, v, full), cfg, cut)
         h = apply_norm(lp["ln2"], x, "layernorm")
-        x = x + _mlp(lp["mlp"], h, cfg)
-    return apply_norm(params["enc_ln_post"], x, "layernorm")
+        x = x + _mlp(lp["mlp"], h, cfg, cut)
+    return enter_block(apply_norm(params["enc_ln_post"], x, "layernorm"), cut)
 
 
 # ----------------------------------------------------------------------
 # decoder
 # ----------------------------------------------------------------------
 
-def _dec_embed(params, tokens, pos, cfg: ModelConfig) -> torch.Tensor:
+def _dec_embed(params, tokens, pos, cfg: ModelConfig, cut_seq: bool = False) -> torch.Tensor:
     """Token embeddings plus learned positions: positions 0..S-1 over a
     prompt (``pos`` None), or each row's position (a (B,) tensor, gathered
-    on the device) for one token."""
-    x = embed(params["embed"], tokens, cfg).to(cfg.cdt)
+    on the device) for one token; this rank's chunk of the prompt's with
+    ``cut_seq``."""
+    x = embed(params["embed"], tokens, cfg, cut_seq=cut_seq).to(cfg.cdt)
     table = params["dec_pos"]
-    rows = table[:tokens.shape[1]][None] if pos is None else table[pos][:, None]
+    if pos is None:
+        rows = table[:tokens.shape[1]][None]
+        rows = shardctx.seq_slice(rows) if cut_seq else rows
+    else:
+        rows = table[pos][:, None]
     return x + rows.to(cfg.cdt)
 
 
 def decode_full(params, tokens, enc_out, cfg: ModelConfig, on_kv=None) -> torch.Tensor:
-    """The decoder over the whole prompt; calls ``on_kv(layer, k, v, xk, xv)``
-    with each layer's self- and cross-attention keys and values.  -> the
-    final hidden states before the norm (B,S,d)."""
+    """The decoder over the whole prompt, ``enc_out`` the encoder's whole
+    output (``encode``); calls ``on_kv(layer, k, v, xk, xv)`` with each
+    layer's self- and cross-attention keys and values.  -> the final
+    hidden states before the norm (B,S,d): this rank's chunk of the
+    sequence where sequence parallelism cuts it (``shardctx.seq_cut`` of
+    the tokens)."""
     b, s = tokens.shape
-    x = _dec_embed(params, tokens, None, cfg)
+    cut = shardctx.seq_cut(tokens, 1)
+    x = _dec_embed(params, tokens, None, cfg, cut)
     pos = torch.arange(s, device=x.device)
     causal = pos[None, :] <= pos[:, None]
     xfull = torch.ones((s, enc_out.shape[1]), dtype=torch.bool, device=x.device)
-    enc_out = shardctx.copy_to(enc_out)
 
     def self_attend(q, k, v):
         if s > CHUNK_THRESHOLD and s % Q_CHUNK == 0:
@@ -162,14 +189,14 @@ def decode_full(params, tokens, enc_out, cfg: ModelConfig, on_kv=None) -> torch.
 
     for i, lp in enumerate(params["dec_layers"]):
         x = shardctx.constrain_batch(x, seq_dim=1)
-        h = shardctx.copy_to(apply_norm(lp["ln1"], x, "layernorm"))
+        h = enter_block(apply_norm(lp["ln1"], x, "layernorm"), cut)
         kv = _kv(lp["attn"], h, cfg)
-        x = x + _attn(lp["attn"], h, kv, self_attend, cfg)
-        h = shardctx.copy_to(apply_norm(lp["ln2"], x, "layernorm"))
+        x = x + _attn(lp["attn"], h, kv, self_attend, cfg, cut)
+        h = enter_block(apply_norm(lp["ln2"], x, "layernorm"), cut)
         xkv = _kv(lp["xattn"], enc_out, cfg)
-        x = x + _attn(lp["xattn"], h, xkv, lambda q, k, v: sdpa(q, k, v, xfull), cfg)
+        x = x + _attn(lp["xattn"], h, xkv, lambda q, k, v: sdpa(q, k, v, xfull), cfg, cut)
         h = apply_norm(lp["ln3"], x, "layernorm")
-        x = x + _mlp(lp["mlp"], h, cfg)
+        x = x + _mlp(lp["mlp"], h, cfg, cut)
         if on_kv is not None:
             on_kv(i, *kv, *xkv)
     return x
@@ -193,7 +220,8 @@ def forward(params, inputs: dict, cfg: ModelConfig):
     enc_out = encode(params, _frames(inputs, cfg), cfg)
     x = decode_full(params, inputs["tokens"], enc_out, cfg)
     x = apply_norm(params["final_norm"], x, "layernorm")
-    return unembed(params["embed"], x, cfg), torch.zeros((), device=x.device)
+    return (unembed(params["embed"], x, cfg, cut_seq=shardctx.seq_cut(inputs["tokens"], 1)),
+            torch.zeros((), device=x.device))
 
 
 def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
@@ -241,6 +269,8 @@ def prefill(params, inputs: dict, cfg: ModelConfig, cache_len: int | None = None
             write_prompt(cache[name][i], t, name)
 
     x = decode_full(params, tokens, enc_out, cfg, on_kv)
+    if shardctx.seq_cut(tokens, 1):     # the last position is the last model rank's
+        x = shardctx.seq_gather(x)
     m = prompt_span("k", cache["k"].shape[2], s)
     cache["k"][:, :, m:] = 0
     cache["v"][:, :, m:] = 0

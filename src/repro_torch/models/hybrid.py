@@ -36,6 +36,15 @@ that does not divide the data axes.
 ``train_loss`` runs functional copies of the blocks (``_train_block``),
 from the zero state and writing none, so that autograd sees no in-place
 write.
+
+Under sequence parallelism (``shardctx.seq_cut`` of the tokens) the
+residual stream is the rank's chunk of the positions: the recurrent
+block's causal conv and RG-LRU scan, and the local attention, need the
+whole sequence, so each block gathers its normed input along it (the
+states a prefill writes are then the whole sequence's), and ``w_out``,
+the attention's ``wo`` and the MLP's ``wd`` reduce-scatter their partial
+sums back to the chunk.  Inside a block every ``copy_to``,
+``gather_from`` and ``scatter_to`` takes ``partial`` (``shardctx``).
 """
 from __future__ import annotations
 
@@ -48,8 +57,8 @@ from .common import (ModelConfig, apply_norm, apply_rope, dense, dense_init,
                      norm_init, remat as checkpointed, row_positions, tensor_leaves)
 from .layers import (CHUNK_THRESHOLD, Q_CHUNK, attend_decode, attend_full, attention_chunked,
                      attn_init, cache_offset, causal_window_mask, chunk_positions, embed,
-                     embed_init, first_heads, mlp_apply, mlp_init, project_heads, row_dense,
-                     sdpa, unembed, write_token)
+                     embed_init, enter_block, first_heads, mlp_apply, mlp_init,
+                     project_heads, row_dense, sdpa, unembed, write_token)
 from .transformer import softmax_xent
 
 LRU_C = 8.0
@@ -127,22 +136,23 @@ def _channels_cut(p) -> bool:
     return model_cut(("conv_w",), (p["conv_w"].shape[0], _width(p))) is not None
 
 
-def _gates(p, xf):
+def _gates(p, xf, cut_seq: bool = False):
     """-> (a, the gated input sqrt(1 - a^2) * (i * x)), float32.  Under a
     cut of the channels, ``wa`` and ``wx`` (whole on every rank) take the
     whole input, gathered, and each rank keeps its channels of the gates."""
-    xin = shardctx.gather_from(xf, "model", -1) if _channels_cut(p) else xf
+    cut = _channels_cut(p)
+    xin = shardctx.gather_from(xf, "model", -1, partial=cut_seq) if cut else xf
     r = torch.sigmoid(dense(p["wa"], xin, dtype=torch.float32))
     i = torch.sigmoid(dense(p["wx"], xin, dtype=torch.float32))
-    if _channels_cut(p):
-        r, i = shardctx.scatter_to(r, "model", -1), shardctx.scatter_to(i, "model", -1)
+    if cut:
+        r, i = (shardctx.scatter_to(z, "model", -1, partial=cut_seq) for z in (r, i))
     a = torch.exp(-LRU_C * F.softplus(p["lam"].float()) * r)
     return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * xf)
 
 
-def _rglru(p, x, h0):
+def _rglru(p, x, h0, cut_seq: bool = False):
     """x: (B,T,dr), h0: (B,dr) float32 -> (y (B,T,dr) in x's dtype, h_T)."""
-    a, gated = _gates(p, x.float())
+    a, gated = _gates(p, x.float(), cut_seq)
     # the initial state is absorbed into the first step's b
     b = torch.cat([gated[:, :1] + (a[:, 0] * h0)[:, None], gated[:, 1:]], dim=1)
     _, h = _scan(a, b)
@@ -157,7 +167,7 @@ def _rglru_step(p, x, h):
     return h.to(x.dtype)[:, None], h
 
 
-def _split_in(p, x):
+def _split_in(p, x, cut_seq: bool = False):
     """(xb, gate): the input projection's two halves, each rank's channels
     of both where the rules cut them.  ``w_in``'s columns are cut over the
     concatenation, so they are gathered first (the gradient reduce-scattered
@@ -166,25 +176,28 @@ def _split_in(p, x):
     if model_cut(("w_in", "w"), (_width(p), 2 * _width(p))) is None:
         return y.chunk(2, dim=-1)
     if not _channels_cut(p):
-        return shardctx.gather_from(y, "model", -1).chunk(2, dim=-1)
+        return shardctx.gather_from(y, "model", -1, partial=cut_seq).chunk(2, dim=-1)
     xb, gate = shardctx.gather_shards(y, "model", -1).chunk(2, dim=-1)
     return shardctx.local_slice(xb, "model", -1), shardctx.local_slice(gate, "model", -1)
 
 
-def _rec(p, x, conv, lru, *, step: bool):
+def _rec(p, x, conv, lru, *, step: bool, cut_seq: bool = False):
     """The recurrent block on x (B,T,d) from the states ``conv`` (B,W-1,dr)
     and ``lru`` (B,dr) float32 (a rank's channels of them under a cut).
-    -> (y, the new conv state, the new lru state)."""
-    xb, gate = _split_in(p, shardctx.copy_to(x))
+    With ``cut_seq`` x and y are this rank's chunk of the sequence, the
+    states the whole sequence's.  -> (y, the new conv state, the new lru
+    state)."""
+    xb, gate = _split_in(p, enter_block(x, cut_seq), cut_seq)
     xc, conv = _causal_conv(p["conv_w"], p["conv_b"], xb, conv)
-    y, lru = (_rglru_step if step else _rglru)(p, xc, lru)
-    return row_dense(p, "w_out", y * F.gelu(gate, approximate="tanh"), _width(p)), conv, lru
+    y, lru = _rglru_step(p, xc, lru) if step else _rglru(p, xc, lru, cut_seq)
+    return (row_dense(p, "w_out", y * F.gelu(gate, approximate="tanh"), _width(p),
+                      cut_seq=cut_seq), conv, lru)
 
 
-def rec_block_apply(p, x, state, cfg: ModelConfig, *, step: bool):
+def rec_block_apply(p, x, state, cfg: ModelConfig, *, step: bool, cut_seq: bool = False):
     """x: (B,T,d); state {"conv": (B,W-1,dr), "lru": (B,dr) float32},
     updated in place."""
-    y, conv, lru = _rec(p, x, state["conv"], state["lru"], step=step)
+    y, conv, lru = _rec(p, x, state["conv"], state["lru"], step=step, cut_seq=cut_seq)
     state["conv"].copy_(conv)
     state["lru"].copy_(lru)
     return y
@@ -207,10 +220,11 @@ def attn_state_init(cfg: ModelConfig, batch: int, dtype, device) -> dict:
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _qkv(p, x, positions, cfg: ModelConfig):
+def _qkv(p, x, positions, cfg: ModelConfig, cut_seq: bool = False):
     """-> (q, k, v), whole heads (``layers.project_heads``; the first of
-    each is ``layers.first_heads``'), q and k roped."""
-    x = shardctx.copy_to(x)
+    each is ``layers.first_heads``'), q and k roped; over the whole
+    sequence (gathered) with ``cut_seq``."""
+    x = enter_block(x, cut_seq)
     q = project_heads(p, "wq", x, cfg.num_heads, cfg)
     k = project_heads(p, "wk", x, cfg.num_kv_heads, cfg)
     v = project_heads(p, "wv", x, cfg.num_kv_heads, cfg)
@@ -218,10 +232,11 @@ def _qkv(p, x, positions, cfg: ModelConfig):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _local_attn(p, x, positions, cfg: ModelConfig):
-    """Windowed attention over the whole prompt.  -> (y, k, v)."""
-    s, win = x.shape[1], cfg.attention_window
-    q, k, v = _qkv(p, x, positions[None], cfg)
+def _local_attn(p, x, positions, cfg: ModelConfig, cut_seq: bool = False):
+    """Windowed attention over the whole prompt.  -> (y, k, v); y this
+    rank's chunk of the sequence with ``cut_seq``, k and v whole."""
+    s, win = positions.shape[0], cfg.attention_window
+    q, k, v = _qkv(p, x, positions[None], cfg, cut_seq)
     q0, k0 = first_heads(cfg)
 
     def attend(qa, ka, va):
@@ -230,16 +245,16 @@ def _local_attn(p, x, positions, cfg: ModelConfig):
         return sdpa(qa, ka, va, causal_window_mask(positions, positions, win))
 
     out = attend_full(q, q0, k, v, k0, cfg, attend)
-    return row_dense(p, "wo", out, cfg.q_dim), k, v
+    return row_dense(p, "wo", out, cfg.q_dim, cut_seq=cut_seq), k, v
 
 
-def local_attn_full(p, x, positions, state, cfg: ModelConfig):
+def local_attn_full(p, x, positions, state, cfg: ModelConfig, cut_seq: bool = False):
     """Attention over the whole prompt; its ring buffer is written into
     ``state`` in place: slot ``p % window`` holds position ``p`` when the
     prompt fills the window, else the prompt's positions lead and the rest
     is zero (a rank's slots of it where the rules cut the ring)."""
-    s, win = x.shape[1], cfg.attention_window
-    y, k, v = _local_attn(p, x, positions, cfg)
+    s, win = positions.shape[0], cfg.attention_window
+    y, k, v = _local_attn(p, x, positions, cfg, cut_seq)
     for name, t in (("k", k), ("v", v)):
         ring = state[name]
         if s >= win:
@@ -285,41 +300,43 @@ def block_init(generator, kind: str, cfg: ModelConfig, device) -> dict:
     return p
 
 
-def block_apply(p, kind: str, x, positions, state, cfg: ModelConfig, *, step: bool):
+def block_apply(p, kind: str, x, positions, state, cfg: ModelConfig, *, step: bool,
+                cut_seq: bool = False):
     """One layer; its ``state`` is updated in place.  positions: (S,) over a
-    prompt, (B,) at a decode step."""
+    prompt, (B,) at a decode step.  With ``cut_seq`` x is this rank's
+    chunk of the prompt."""
     x = shardctx.constrain_batch(x, seq_dim=1)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "rglru":
-        a = rec_block_apply(p["rec"], h, state, cfg, step=step)
+        a = rec_block_apply(p["rec"], h, state, cfg, step=step, cut_seq=cut_seq)
     elif step:
         a = local_attn_step(p["attn"], h, positions, state, cfg)
     else:
-        a = local_attn_full(p["attn"], h, positions, state, cfg)
+        a = local_attn_full(p["attn"], h, positions, state, cfg, cut_seq)
     x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + mlp_apply(p["mlp"], h, cfg)
+    return x + mlp_apply(p["mlp"], h, cfg, cut_seq=cut_seq)
 
 
-def _train_block(p, kind: str, x, positions, cfg: ModelConfig):
+def _train_block(p, kind: str, x, positions, cfg: ModelConfig, cut_seq: bool = False):
     """One layer for training, from the zero state and writing none."""
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "rglru":
         b, dr = x.shape[0], p["rec"]["conv_w"].shape[-1]    # a rank's channels
         conv = torch.zeros((b, cfg.rglru_conv_width - 1, dr), dtype=cfg.cdt, device=x.device)
         lru = torch.zeros((b, dr), dtype=torch.float32, device=x.device)
-        a = _rec(p["rec"], h, conv, lru, step=False)[0]
+        a = _rec(p["rec"], h, conv, lru, step=False, cut_seq=cut_seq)[0]
     else:
-        a = _local_attn(p["attn"], h, positions, cfg)[0]
+        a = _local_attn(p["attn"], h, positions, cfg, cut_seq)[0]
     x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + mlp_apply(p["mlp"], h, cfg)
+    return x + mlp_apply(p["mlp"], h, cfg, cut_seq=cut_seq)
 
 
-def _train_unit(x, unit, positions, cfg: ModelConfig):
+def _train_unit(x, unit, positions, cfg: ModelConfig, cut_seq: bool = False):
     """One pattern unit (``b0``..) of ``_train_block``s."""
     for i, kind in enumerate(cfg.pattern or ("attn",)):
-        x = _train_block(unit[f"b{i}"], kind, x, positions, cfg)
+        x = _train_block(unit[f"b{i}"], kind, x, positions, cfg, cut_seq)
     return x
 
 
@@ -378,23 +395,26 @@ def cache_batch(cache: dict) -> int:
 # forward
 # ----------------------------------------------------------------------
 
-def _apply_stack(params, x, positions, cache, cfg: ModelConfig, *, step: bool):
+def _apply_stack(params, x, positions, cache, cfg: ModelConfig, *, step: bool,
+                 cut_seq: bool = False):
     pat, _, rem = _split_layers(cfg)
     for u, unit in enumerate(params["units"]):
         for i, kind in enumerate(pat):
             state = {n: t[u] for n, t in cache["units"][f"b{i}"].items()}
-            x = block_apply(unit[f"b{i}"], kind, x, positions, state, cfg, step=step)
+            x = block_apply(unit[f"b{i}"], kind, x, positions, state, cfg, step=step,
+                            cut_seq=cut_seq)
     for j, kind in enumerate(rem):
         x = block_apply(params["extra"][j], kind, x, positions, cache["extra"][j], cfg,
-                        step=step)
+                        step=step, cut_seq=cut_seq)
     return x
 
 
-def _embed(params, tokens, cfg: ModelConfig):
+def _embed(params, tokens, cfg: ModelConfig, cut_seq: bool = False):
     """The token embeddings times sqrt(d_model), the factor rounded to the
-    compute dtype first (gemma-style, as the reference)."""
+    compute dtype first (gemma-style, as the reference); this rank's chunk
+    of the sequence with ``cut_seq``."""
     scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdt))
-    return embed(params["embed"], tokens, cfg).to(cfg.cdt) * scale
+    return embed(params["embed"], tokens, cfg, cut_seq=cut_seq).to(cfg.cdt) * scale
 
 
 def forward(params, tokens, cfg: ModelConfig, *, cache=None, return_state: bool = False):
@@ -402,11 +422,14 @@ def forward(params, tokens, cfg: ModelConfig, *, cache=None, return_state: bool 
     with ``return_state``; a given ``cache`` is the initial state, updated
     in place."""
     b, s = tokens.shape
-    x = _embed(params, tokens, cfg)
+    cut = shardctx.seq_cut(tokens, 1)
+    x = _embed(params, tokens, cfg, cut)
     if cache is None:
         cache = init_cache(cfg, b, device=x.device)
-    x = _apply_stack(params, x, torch.arange(s, device=x.device), cache, cfg, step=False)
-    logits = unembed(params["embed"], apply_norm(params["final_norm"], x, cfg.norm), cfg)
+    x = _apply_stack(params, x, torch.arange(s, device=x.device), cache, cfg, step=False,
+                     cut_seq=cut)
+    logits = unembed(params["embed"], apply_norm(params["final_norm"], x, cfg.norm), cfg,
+                     cut_seq=cut)
     if return_state:
         return logits, cache
     return logits, torch.zeros((), device=x.device)
@@ -419,15 +442,16 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
     layers do not, as in the reference).  -> (loss, {"xent", "aux": 0})."""
     tokens = batch["tokens"]
     _, _, rem = _split_layers(cfg)
-    x = _embed(params, tokens, cfg)
+    cut = shardctx.seq_cut(tokens, 1)
+    x = _embed(params, tokens, cfg, cut)
     positions = torch.arange(tokens.shape[1], device=x.device)
     unit = checkpointed(_train_unit, remat)
     for up in params["units"]:
-        x = unit(x, up, positions, cfg)
+        x = unit(x, up, positions, cfg, cut)
     for j, kind in enumerate(rem):
-        x = _train_block(params["extra"][j], kind, x, positions, cfg)
+        x = _train_block(params["extra"][j], kind, x, positions, cfg, cut)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    loss = softmax_xent(unembed(params["embed"], x, cfg), batch["labels"])
+    loss = softmax_xent(unembed(params["embed"], x, cfg, cut_seq=cut), batch["labels"])
     return loss, {"xent": loss, "aux": torch.zeros((), device=x.device)}
 
 
@@ -450,8 +474,12 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None, *,
             raise ValueError(f"the state holds {cache_batch(cache)} rows, the prompt {b}")
         for t in tensor_leaves(cache):
             t.zero_()
-    x = _embed(params, tokens, cfg)
-    x = _apply_stack(params, x, torch.arange(s, device=x.device), cache, cfg, step=False)
+    cut = shardctx.seq_cut(tokens, 1)
+    x = _embed(params, tokens, cfg, cut)
+    x = _apply_stack(params, x, torch.arange(s, device=x.device), cache, cfg, step=False,
+                     cut_seq=cut)
+    if cut:     # the last position is the last model rank's
+        x = shardctx.seq_gather(x)
     last = apply_norm(params["final_norm"], x[:, -1], cfg.norm)
     return unembed(params["embed"], last, cfg), cache
 

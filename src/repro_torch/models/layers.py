@@ -33,6 +33,18 @@ all-gathered).  What a rank holds is the rules' answer alone
   (``shardctx.combine_softmax``); prefill attention is over the whole
   prompt as without a cut.
 
+Under sequence parallelism (``shardctx.seq_cut``: the ambient mesh asks
+for it and the prompt's length divides the model axis) the callers hand
+these blocks a rank's chunk of the positions and say so (``cut_seq``):
+``attention_full`` and ``mlp_apply`` gather the normed input along the
+sequence where tensor parallelism has ``copy_to`` (so the attention sees
+every position: K1 and the prefill's cache writes are unchanged), and
+``row_dense`` reduce-scatters its float32 partial sums along the
+sequence where it all-reduces them, its bias added after, on the rank's
+tokens; ``embed`` reduce-scatters the vocabulary's partial sums (or, with
+the vocabulary whole, cuts its whole lookup to the chunk) and ``unembed``
+gathers the rank's normed tokens before its product.
+
 Without a mesh every collective is the identity.
 """
 from __future__ import annotations
@@ -78,16 +90,23 @@ def _heads(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x.reshape(b, s, -1, cfg.resolved_head_dim)
 
 
-def row_dense(p: dict, key: str, x: torch.Tensor, full_in: int) -> torch.Tensor:
+def row_dense(p: dict, key: str, x: torch.Tensor, full_in: int, *,
+              cut_seq: bool = False) -> torch.Tensor:
     """``dense`` of the row-parallel weight ``p[key]`` (``wo``, ``wd``), whose
     input dim of ``full_in`` the rules may cut over the model axis: then the
     partial products in float32 (``float32_products``), all-reduced, cast
     back, then the bias (the reference's GSPMD reduces its float32
-    accumulators the same way)."""
+    accumulators the same way).  With ``cut_seq`` (x over the whole
+    sequence inside a sequence-parallel block) the output is this rank's
+    chunk of the sequence: the partial sums reduce-scattered along it, or,
+    with the weight whole, the product's chunk."""
     q = p[key]
     if model_cut((key, "w"), (full_in, q["w"].shape[1])) is None:
-        return dense(q, x)
-    y = shardctx.reduce_from(float32_products(x, q["w"])).to(x.dtype)
+        y = dense(q, x)
+        return shardctx.seq_slice(y) if cut_seq else y
+    y = float32_products(x, q["w"])
+    y = (shardctx.seq_reduce_scatter(y, x.dtype) if cut_seq
+         else shardctx.reduce_from(y).to(x.dtype))
     if "b" in q:
         y = y + q["b"].to(y.dtype)
     return y
@@ -322,16 +341,25 @@ def attend_decode(q, q0: int, k, v, k0: int, valid, cfg: ModelConfig, *, name: s
     return own_columns(o, lo, cfg)
 
 
+def enter_block(x: torch.Tensor, cut_seq: bool) -> torch.Tensor:
+    """A block's normed input as its column-parallel products take it:
+    under tensor parallelism as it is (``copy_to``: the gradient
+    all-reduced), under sequence parallelism the rank's chunk gathered
+    along the sequence (``seq_gather``: the gradient reduce-scattered)."""
+    return shardctx.seq_gather(x) if cut_seq else shardctx.copy_to(x)
+
+
 def attention_full(p: dict, x: torch.Tensor, positions: torch.Tensor,
                    cfg: ModelConfig, *, window: int | None = None,
-                   return_kv: bool = False):
+                   return_kv: bool = False, cut_seq: bool = False):
     """Full-sequence (prefill) attention.  positions: (S,) == arange(S).
     With ``return_kv`` also the keys and values (B,S,K',hd) of the kv heads
-    that this rank's cache holds."""
+    that this rank's cache holds.  With ``cut_seq`` x and the output are
+    this rank's chunk of the sequence, the keys and values whole."""
     from repro_torch.kernels import dispatch
     win = cfg.attention_window if window is None else window
+    x = enter_block(x, cut_seq)
     s = x.shape[1]
-    x = shardctx.copy_to(x)
     q = project_heads(p, "wq", x, cfg.num_heads, cfg)
     k = project_heads(p, "wk", x, cfg.num_kv_heads, cfg)
     v = project_heads(p, "wv", x, cfg.num_kv_heads, cfg)
@@ -344,7 +372,8 @@ def attention_full(p: dict, x: torch.Tensor, positions: torch.Tensor,
             return attention_chunked(qa, ka, va, positions, positions, win)
         return dispatch.flash_attention(qa, ka, va, window=win)
 
-    y = row_dense(p, "wo", attend_full(q, q0, k, v, k0, cfg, attend), cfg.q_dim)
+    y = row_dense(p, "wo", attend_full(q, q0, k, v, k0, cfg, attend), cfg.q_dim,
+                  cut_seq=cut_seq)
     if return_kv:
         return y, (k, v)
     return y
@@ -426,10 +455,12 @@ def mlp_init(generator, cfg: ModelConfig, device, d_ff: int | None = None) -> di
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              cut_seq: bool = False) -> torch.Tensor:
     act = activation(cfg.act)
-    x = shardctx.copy_to(x)
-    return row_dense(p, "wd", act(dense(p["wi"], x)) * dense(p["wu"], x), cfg.d_ff)
+    x = enter_block(x, cut_seq)
+    return row_dense(p, "wd", act(dense(p["wi"], x)) * dense(p["wu"], x), cfg.d_ff,
+                     cut_seq=cut_seq)
 
 
 # ----------------------------------------------------------------------
@@ -446,31 +477,43 @@ def embed_init(generator, cfg: ModelConfig, device) -> dict:
     return p
 
 
-def embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+          cut_seq: bool = False) -> torch.Tensor:
+    """-> (B,S,d) in the compute dtype; with ``cut_seq`` this rank's chunk
+    of the sequence (B,S/M,d)."""
     # gather, then cast: the same values as the reference's cast-then-gather
     # without a compute-dtype copy of the whole table
     w = p["embedding"]
     if model_cut(("embedding",), (cfg.vocab_size, cfg.d_model)) is None:
-        return F.embedding(tokens, w).to(cfg.cdt)
+        x = F.embedding(tokens, w).to(cfg.cdt)
+        return shardctx.seq_scatter(x) if cut_seq else x
     # this rank's rows of the vocabulary: a masked lookup, summed over the
-    # model axis (exact: one rank holds each token's row)
+    # model axis (exact: one rank holds each token's row), or reduce-scattered
+    # along the sequence under sequence parallelism
     local = tokens - shardctx.index("model") * w.shape[0]
     hit = (local >= 0) & (local < w.shape[0])
     x = F.embedding(local.clamp(0, w.shape[0] - 1), w).float() * hit[..., None]
-    return shardctx.reduce_from(x).to(cfg.cdt)
+    return (shardctx.seq_reduce_scatter(x, cfg.cdt) if cut_seq
+            else shardctx.reduce_from(x).to(cfg.cdt))
 
 
-def unembed(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+            cut_seq: bool = False) -> torch.Tensor:
     """-> logits (..., V).  With the vocabulary cut over the model axis, a
     rank's logits columns are all-gathered (in float32, exact) into the
-    whole row on every rank."""
+    whole row on every rank.  With ``cut_seq`` x (B,S/M,d) is this rank's
+    chunk of the sequence and the logits (B,S,V) are whole: the chunks are
+    gathered before the product (before a vocabulary-parallel one with the
+    gradient reduce-scattered back; before one with the whole vocabulary,
+    which every model rank then computes alike, with the rank's chunk of
+    the gradient kept, as ``embed`` keeps such a table whole)."""
     w = p["embedding"] if cfg.tie_embeddings else p["unembed"]["w"]
     keys, shape = ((("embedding",), (cfg.vocab_size, cfg.d_model)) if cfg.tie_embeddings
                    else (("unembed", "w"), (cfg.d_model, cfg.vocab_size)))
     if model_cut(keys, shape) is None:
-        if cfg.tie_embeddings:
-            return x @ w.to(x.dtype).T
-        return dense(p["unembed"], x)
-    x = shardctx.copy_to(x)
+        if cut_seq:
+            x = shardctx.gather_from(x, "model", 1)
+        return x @ w.to(x.dtype).T if cfg.tie_embeddings else dense(p["unembed"], x)
+    x = enter_block(x, cut_seq)
     local = x @ w.to(x.dtype).T if cfg.tie_embeddings else dense(p["unembed"], x)
     return shardctx.gather_from(local.float(), "model", -1).to(local.dtype)

@@ -41,6 +41,15 @@ router is replicated and its gates enter the rank's combine through
 ``shardctx.copy_to``, so that its gradient is whole on every rank.  The
 load-balance loss is taken over the tokens of every data rank (the
 expert counts all-reduced over the data axes).
+
+Under sequence parallelism (``cut_seq``) the layer takes a rank's chunk
+of the sequence: the chunks are gathered before routing (so the groups
+and their capacity are the unsharded run's), the partial output is
+reduce-scattered back to the chunk, and the gates enter the rank's share
+without ``copy_to``: their gradient, and the router's, stay the rank's
+share, summed by the gather's reduce-scatter and by the train step.  The
+load-balance loss keeps its value, its gradient taken through the rank's
+own tokens' probabilities.
 """
 from __future__ import annotations
 
@@ -129,9 +138,11 @@ def _route_groups(xg, idx, gate, wi, wu, wd, cfg: ModelConfig, cap: int, *,
 
 
 def _dispatch_all_groups(xt, rw, wi, wu, wd, cfg: ModelConfig, group_size: int, *,
-                         e0: int = 0, partial: bool = False, ffn_cut: bool = False):
+                         e0: int = 0, partial: bool = False, ffn_cut: bool = False,
+                         cut_seq: bool = False):
     """xt: (T, d) -> (T, d) MoE output (with ``partial``, this rank's
-    float32 share of it: the experts or the ffn slice it holds)."""
+    float32 share of it: the experts or the ffn slice it holds; with
+    ``cut_seq`` the gates' gradient left as the rank's share)."""
     t, d = xt.shape
     gs = min(t, group_size)
     if t % gs:
@@ -145,13 +156,17 @@ def _dispatch_all_groups(xt, rw, wi, wu, wd, cfg: ModelConfig, group_size: int, 
     if partial:
         # the router and the tokens are replicated over the model axis and
         # enter this rank's share of the experts here
-        xg, gate = shardctx.copy_to(xg), shardctx.copy_to(gate)
+        xg = shardctx.copy_to(xg, partial=cut_seq)
+        gate = shardctx.copy_to(gate, partial=cut_seq)
     return _route_groups(xg, idx, gate, wi, wu, wd, cfg, cap, e0=e0,
                          partial=partial, ffn_cut=ffn_cut).reshape(t, d)
 
 
-def _aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Switch-style load-balance loss."""
+def _aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig, cut_seq: bool = False) -> torch.Tensor:
+    """Switch-style load-balance loss.  With ``cut_seq`` (x the whole
+    sequence, gathered) its gradient is taken through this rank's chunk of
+    the tokens alone, so that it is the rank's share as every gradient in
+    a sequence-parallel block; its value is the whole loss."""
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     t = x.shape[0] * x.shape[1]
     probs = torch.softmax(x.reshape(t, -1).float() @ p["router"]["w"], dim=-1)
@@ -168,13 +183,25 @@ def _aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     counts = shardctx.all_reduce(counts, dax)
     frac_tokens = counts / float(t_all * k)
     frac_probs = probs.mean(dim=0)
-    return e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_weight
+    loss = e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_weight
+    if not cut_seq:
+        return loss
+    mine = shardctx.local_slice(probs.view(*x.shape[:2], e), "model", 1).sum((0, 1)) / t
+    share = e * torch.sum(frac_tokens * mine) * cfg.router_aux_weight
+    return loss.detach() + (share - share.detach())
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
-            group_size: int = DEFAULT_GROUP) -> torch.Tensor:
+            group_size: int = DEFAULT_GROUP, *, cut_seq: bool = False) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d), the layer's output without its loss (what
-    the prefill and the decode step run)."""
+    the prefill and the decode step run).  With ``cut_seq`` x and the
+    output are this rank's chunk of the sequence."""
+    return _ffn(p, shardctx.seq_gather(x) if cut_seq else x, cfg, group_size, cut_seq)
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, group_size: int,
+         cut_seq: bool) -> torch.Tensor:
+    """``moe_ffn`` of x over the whole sequence."""
     b, s, d = x.shape
     wi = p["wi"]
     # the rules cut the experts (EP, dim 0) or each one's ffn (TP-f, dim 2)
@@ -183,13 +210,18 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     e0 = shardctx.index("model") * wi.shape[0] if cut == 0 else 0
     y = _dispatch_all_groups(x.reshape(b * s, d), p["router"]["w"], wi.to(cfg.cdt),
                              p["wu"].to(cfg.cdt), p["wd"].to(cfg.cdt), cfg, group_size,
-                             e0=e0, partial=sharded, ffn_cut=cut == 2)
+                             e0=e0, partial=sharded, ffn_cut=cut == 2, cut_seq=cut_seq)
+    y = y.reshape(b, s, d)
     if sharded:
-        y = shardctx.reduce_from(y)
-    return y.reshape(b, s, d).to(x.dtype)
+        y = shardctx.seq_reduce_scatter(y, x.dtype) if cut_seq else shardctx.reduce_from(y)
+    elif cut_seq:
+        y = shardctx.seq_slice(y)
+    return y.to(x.dtype)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              group_size: int = DEFAULT_GROUP):
-    """x: (B, S, d) -> (y, aux_loss)."""
-    return moe_ffn(p, x, cfg, group_size), _aux_loss(p, x, cfg)
+              group_size: int = DEFAULT_GROUP, *, cut_seq: bool = False):
+    """x: (B, S, d) -> (y, aux_loss); with ``cut_seq`` x and y are this
+    rank's chunk of the sequence."""
+    x = shardctx.seq_gather(x) if cut_seq else x
+    return _ffn(p, x, cfg, group_size, cut_seq), _aux_loss(p, x, cfg, cut_seq)

@@ -34,6 +34,17 @@ output after it).  The state's token shifts are cut over ``d`` by the
 cache rules: each layer gathers them and keeps its slice of the new ones.
 The decay and the group norm are computed whole and sliced to the rank's
 heads.
+
+Under sequence parallelism (``shardctx.seq_cut`` of the tokens) the
+residual stream is the rank's chunk of the positions and the norms run on
+the rank's tokens.  The token shift crosses the chunks' boundaries, so
+each mix gathers its normed input along the sequence (K3 and K3-bwd then
+run on the whole sequence, and a prefill's state, the shifts' last token
+included, is the whole sequence's); the time mix's ``wo`` reduce-scatters
+its partial sums to the chunk, and the channel mix's output, whole after
+its gather over columns, is cut to the chunk.  Inside a mix every
+``copy_to``, ``gather_from`` and ``scatter_to`` takes ``partial``
+(``shardctx``).
 """
 from __future__ import annotations
 
@@ -121,44 +132,50 @@ def _shift(x, prev):
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
 
 
-def _ddlerp(p, x, xprev, cfg):
+def _ddlerp(p, x, xprev, cfg, cut_seq: bool = False):
     """Data-dependent token-shift: returns dict of mixed inputs for r,k,v,w,g."""
     delta = xprev - x
     xx = x + delta * p["mu_x"].to(x.dtype)
     w1 = p["mix_w1"]
     cut = model_cut(("mix_w1",), (cfg.d_model, len(MIX_KEYS), cfg.rwkv_mix_lora)) is not None
     if cut:                                      # the LoRA width cut over "model"
-        xx = shardctx.copy_to(xx)
+        xx = shardctx.copy_to(xx, partial=cut_seq)
     stacked = torch.tanh(torch.einsum("btd,dfl->fbtl", xx, w1.to(x.dtype)))
     if cut:
-        stacked = shardctx.gather_from(stacked, "model", -1)
+        stacked = shardctx.gather_from(stacked, "model", -1, partial=cut_seq)
     adj = torch.einsum("fbtl,fld->fbtd", stacked, p["mix_w2"].to(x.dtype))
     return {key: x + delta * (p["mu"][i].to(x.dtype) + adj[i])
             for i, key in enumerate(MIX_KEYS)}
 
 
-def time_mix(p, x, state_wkv, shift_prev, cfg: ModelConfig, *, out_state=None):
+def time_mix(p, x, state_wkv, shift_prev, cfg: ModelConfig, *, out_state=None,
+             cut_seq: bool = False):
     """x: (B,T,d).  Returns (out, new_wkv_state, new_shift (B,d)); the new
     wkv state is written into ``out_state`` when given (it may be
-    ``state_wkv``: the kernel updates the state in place)."""
+    ``state_wkv``: the kernel updates the state in place).  With
+    ``cut_seq`` x and out are this rank's chunk of the sequence; the state
+    and the shift are the whole sequence's."""
+    if cut_seq:
+        x = shardctx.seq_gather(x)
     b, t, d = x.shape
     hd = d // cfg.num_heads
     xprev = _shift(x, shift_prev)
-    m = _ddlerp(p, x, xprev, cfg)
+    m = _ddlerp(p, x, xprev, cfg, cut_seq)
 
     def heads(key):
-        return dense(p[key], shardctx.copy_to(m[key[1]])).reshape(b, t, -1, hd)
+        return dense(p[key], shardctx.copy_to(m[key[1]], partial=cut_seq)).reshape(b, t, -1, hd)
 
     r, k, v = (heads(key).float() for key in ("wr", "wk", "wv"))
-    g = F.silu(dense(p["wg"], shardctx.copy_to(m["g"])))
+    g = F.silu(dense(p["wg"], shardctx.copy_to(m["g"], partial=cut_seq)))
     dec = p["w0"] + torch.tanh(m["w"].float() @ p["decay_w1"].float()) \
         @ p["decay_w2"].float()
     w = torch.exp(-torch.exp(dec))                               # (0,1) decay
     gn_scale, gn_bias = p["gn"]["scale"].float(), p["gn"]["bias"].float()
     if model_cut(("wr", "w"), (d, d)) is not None:
         # whole on every rank; this rank's heads of them
-        w, gn_scale, gn_bias = (shardctx.local_slice(shardctx.copy_to(z), "model", -1)
-                                for z in (w, gn_scale, gn_bias))
+        w, gn_scale, gn_bias = (
+            shardctx.local_slice(shardctx.copy_to(z, partial=cut_seq), "model", -1)
+            for z in (w, gn_scale, gn_bias))
     w = w.reshape(b, t, -1, hd).contiguous()
     o, state_wkv = dispatch.rwkv_scan(r, k, v, w, p["u"].float(), state_wkv,
                                       out_state=out_state)
@@ -167,35 +184,39 @@ def time_mix(p, x, state_wkv, shift_prev, cfg: ModelConfig, *, out_state=None):
     var = o.var(-1, keepdim=True, unbiased=False)
     o = (o - mu) * torch.rsqrt(var + GROUP_NORM_EPS)
     o = o.reshape(b, t, -1) * gn_scale + gn_bias
-    out = row_dense(p, "wo", o.to(x.dtype) * g, d)
+    out = row_dense(p, "wo", o.to(x.dtype) * g, d, cut_seq=cut_seq)
     return out, state_wkv, x[:, -1]
 
 
-def channel_mix(p, x, shift_prev, cfg: ModelConfig):
+def channel_mix(p, x, shift_prev, cfg: ModelConfig, cut_seq: bool = False):
+    """x: (B,T,d) -> (out, the new shift (B,d)); with ``cut_seq`` x and out
+    are this rank's chunk of the sequence, the shift the whole's."""
+    if cut_seq:
+        x = shardctx.seq_gather(x)
     xprev = _shift(x, shift_prev)
     xk = x + (xprev - x) * p["mu_k"].to(x.dtype)
     xr = x + (xprev - x) * p["mu_r"].to(x.dtype)
-    k = torch.square(F.relu(dense(p["wk"], shardctx.copy_to(xk))))
+    k = torch.square(F.relu(dense(p["wk"], shardctx.copy_to(xk, partial=cut_seq))))
     d = x.shape[-1]
     if model_cut(("wk", "w"), (d, cfg.d_ff)) is not None:
-        k = shardctx.gather_from(k, "model", -1)
-    kv = dense(p["wv"], shardctx.copy_to(k))
-    out = torch.sigmoid(dense(p["wr"], shardctx.copy_to(xr))) * kv
+        k = shardctx.gather_from(k, "model", -1, partial=cut_seq)
+    kv = dense(p["wv"], shardctx.copy_to(k, partial=cut_seq))
+    out = torch.sigmoid(dense(p["wr"], shardctx.copy_to(xr, partial=cut_seq))) * kv
     if model_cut(("wv", "w"), (cfg.d_ff, d)) is not None:   # and wr's, as wide
-        out = shardctx.gather_from(out, "model", -1)
-    return out, x[:, -1]
+        out = shardctx.gather_from(out, "model", -1, partial=cut_seq)
+    return (shardctx.seq_slice(out) if cut_seq else out), x[:, -1]
 
 
-def _layer(x, lp, state, cfg: ModelConfig):
+def _layer(x, lp, state, cfg: ModelConfig, cut_seq: bool = False):
     """One layer; ``state`` holds this layer's (B,...) views of the stacked
     state, which are updated in place.  -> x."""
     x = shardctx.constrain_batch(x, seq_dim=1)
     h = apply_norm(lp["ln1"], x, "layernorm")
     a, _, sh_t = time_mix(lp["tmix"], h, state["wkv"], _whole(state, "shift_t", x), cfg,
-                          out_state=state["wkv"])
+                          out_state=state["wkv"], cut_seq=cut_seq)
     x = x + a
     h = apply_norm(lp["ln2"], x, "layernorm")
-    c, sh_c = channel_mix(lp["cmix"], h, _whole(state, "shift_c", x), cfg)
+    c, sh_c = channel_mix(lp["cmix"], h, _whole(state, "shift_c", x), cfg, cut_seq)
     state["shift_t"].copy_(_mine(sh_t, "shift_t"))
     state["shift_c"].copy_(_mine(sh_c, "shift_c"))
     return x + c
@@ -219,7 +240,7 @@ def _mine(new, name: str):
     return shardctx.local_slice(new, "model", -1) if _shift_cut(name, new.shape[-1]) else new
 
 
-def _train_layer(x, lp, cfg: ModelConfig):
+def _train_layer(x, lp, cfg: ModelConfig, cut_seq: bool = False):
     """One layer for training, from the zero state (the reference's
     ``forward`` with no state given) and writing none.  -> x."""
     b, _, d = x.shape
@@ -228,10 +249,10 @@ def _train_layer(x, lp, cfg: ModelConfig):
     heads = lp["tmix"]["u"].shape[0]             # this rank's heads
     wkv0 = torch.zeros((b, heads, hd, hd), dtype=torch.float32, device=x.device)
     h = apply_norm(lp["ln1"], x, "layernorm")
-    a, _, _ = time_mix(lp["tmix"], h, wkv0, shift, cfg)
+    a, _, _ = time_mix(lp["tmix"], h, wkv0, shift, cfg, cut_seq=cut_seq)
     x = x + a
     h = apply_norm(lp["ln2"], x, "layernorm")
-    c, _ = channel_mix(lp["cmix"], h, shift, cfg)
+    c, _ = channel_mix(lp["cmix"], h, shift, cfg, cut_seq)
     return x + c
 
 
@@ -239,13 +260,14 @@ def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
     """The cross-entropy of the logits over ``batch["tokens"]`` against
     ``batch["labels"]``, each layer under activation checkpointing with
     ``remat``.  -> (loss, {"xent", "aux": 0})."""
-    x = embed(params["embed"], batch["tokens"], cfg).to(cfg.cdt)
+    cut = shardctx.seq_cut(batch["tokens"], 1)
+    x = embed(params["embed"], batch["tokens"], cfg, cut_seq=cut).to(cfg.cdt)
     x = apply_norm(params["ln_in"], x, "layernorm")
     layer = checkpointed(_train_layer, remat)
     for lp in params["layers"]:
-        x = layer(x, lp, cfg)
+        x = layer(x, lp, cfg, cut)
     x = apply_norm(params["final_norm"], x, "layernorm")
-    loss = softmax_xent(unembed(params["embed"], x, cfg), batch["labels"])
+    loss = softmax_xent(unembed(params["embed"], x, cfg, cut_seq=cut), batch["labels"])
     return loss, {"xent": loss, "aux": torch.zeros((), device=x.device)}
 
 
@@ -281,12 +303,14 @@ def _fresh_state(cfg: ModelConfig, batch: int, device) -> dict:
 
 def _hidden(params, tokens, cfg: ModelConfig, state: dict):
     """The layer stack over tokens (B,T), carrying ``state`` in place.
-    -> final hidden states before the norm."""
-    x = embed(params["embed"], tokens, cfg).to(cfg.cdt)
+    -> (final hidden states before the norm, whether sequence parallelism
+    cut them: then this rank's chunk of the sequence)."""
+    cut = shardctx.seq_cut(tokens, 1)
+    x = embed(params["embed"], tokens, cfg, cut_seq=cut).to(cfg.cdt)
     x = apply_norm(params["ln_in"], x, "layernorm")
     for i, lp in enumerate(params["layers"]):
-        x = _layer(x, lp, {n: s[i] for n, s in state.items()}, cfg)
-    return x
+        x = _layer(x, lp, {n: s[i] for n, s in state.items()}, cfg, cut)
+    return x, cut
 
 
 def forward(params, tokens, cfg: ModelConfig, *, state=None, return_state: bool = False):
@@ -294,9 +318,9 @@ def forward(params, tokens, cfg: ModelConfig, *, state=None, return_state: bool 
     with ``return_state``.  A given ``state`` is updated in place."""
     if state is None:
         state = _fresh_state(cfg, tokens.shape[0], tokens.device)
-    x = _hidden(params, tokens, cfg, state)
+    x, cut = _hidden(params, tokens, cfg, state)
     x = apply_norm(params["final_norm"], x, "layernorm")
-    logits = unembed(params["embed"], x, cfg)
+    logits = unembed(params["embed"], x, cfg, cut_seq=cut)
     if return_state:
         return logits, state
     return logits, torch.zeros((), device=x.device)
@@ -330,7 +354,9 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None, *,
             t.zero_()
     pieces = tokens.split(chunk, dim=1) if s > chunk and s % chunk == 0 else (tokens,)
     for piece in pieces:
-        x = _hidden(params, piece, cfg, cache)
+        x, cut = _hidden(params, piece, cfg, cache)
+    if cut:     # the last position is the last model rank's
+        x = shardctx.seq_gather(x)
     last = apply_norm(params["final_norm"], x[:, -1], "layernorm")
     return unembed(params["embed"], last, cfg), cache
 
@@ -338,6 +364,6 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int | None = None, *,
 def decode_step(params, cache, token, pos, cfg: ModelConfig):
     """token: (B,) int.  ``pos`` is ignored (stateful recurrence); kept for
     interface parity.  -> (logits (B,V), cache), updated in place."""
-    x = _hidden(params, token[:, None], cfg, cache)
+    x, _ = _hidden(params, token[:, None], cfg, cache)
     x = apply_norm(params["final_norm"], x, "layernorm")
     return unembed(params["embed"], x, cfg)[:, 0], cache

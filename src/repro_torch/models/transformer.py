@@ -13,7 +13,14 @@ rank's local shards and the batch its local rows; the tensor-parallel
 collectives are in ``layers.py`` and ``moe.py``.  Where the rules cut the
 cache's sequence (``launch.sharding.seq_cut``), a rank's cache holds its
 chunk of the positions, and the prefill writes the prompt's keys and
-values only where the rank owns them (``layers.write_prompt``).
+values only where the rank owns them (``layers.write_prompt``).  Under
+sequence parallelism (``shardctx.seq_cut`` of the tokens) the residual
+stream between blocks is the rank's chunk of the positions: the
+embedding's partial sums reduce-scattered to it (a whole ``input_embeds``
+cut to it by ``shardctx.seq_scatter``), each block's input gathered along
+the sequence and its output reduce-scattered back (``layers.py``,
+``moe.py``), the final norm on the rank's tokens, and the prefill's last
+positions read after one gather of the stream.
 """
 from __future__ import annotations
 
@@ -59,46 +66,61 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
 # forward (prefill)
 # ----------------------------------------------------------------------
 
-def _ffn(lp, h, cfg: ModelConfig, aux: list | None = None):
+def _ffn(lp, h, cfg: ModelConfig, aux: list | None = None, cut_seq: bool = False):
     """The block's feed-forward: the MLP, or the MoE layer, whose
     load-balance loss is appended to ``aux`` when one is given."""
     if not cfg.is_moe:
-        return mlp_apply(lp["mlp"], h, cfg)
+        return mlp_apply(lp["mlp"], h, cfg, cut_seq=cut_seq)
     if aux is None:
-        return moe.moe_ffn(lp["moe"], h, cfg)
-    y, loss = moe.moe_apply(lp["moe"], h, cfg)
+        return moe.moe_ffn(lp["moe"], h, cfg, cut_seq=cut_seq)
+    y, loss = moe.moe_apply(lp["moe"], h, cfg, cut_seq=cut_seq)
     aux.append(loss)
     return y
 
 
-def _block(x, lp, positions, cfg: ModelConfig, aux: list | None = None):
+def _block(x, lp, positions, cfg: ModelConfig, aux: list | None = None,
+           cut_seq: bool = False):
     x = shardctx.constrain_batch(x, seq_dim=1)
     h = apply_norm(lp["ln1"], x, cfg.norm)
-    a, kv = attention_full(lp["attn"], h, positions, cfg, return_kv=True)
+    a, kv = attention_full(lp["attn"], h, positions, cfg, return_kv=True, cut_seq=cut_seq)
     x = x + a
     h = apply_norm(lp["ln2"], x, cfg.norm)
-    return x + _ffn(lp, h, cfg, aux), kv
+    return x + _ffn(lp, h, cfg, aux, cut_seq), kv
+
+
+def _stream(params, tokens, cfg: ModelConfig, input_embeds=None):
+    """-> (the stack's input: the tokens' embeddings, or ``input_embeds``
+    (B,S,d) when given, in the compute dtype; the positions (S,); whether
+    sequence parallelism cuts the stream, which the input then is this
+    rank's chunk of)."""
+    whole = tokens if input_embeds is None else input_embeds
+    cut = shardctx.seq_cut(whole, 1)
+    if input_embeds is None:
+        x = embed(params["embed"], tokens, cfg, cut_seq=cut)
+    else:
+        x = input_embeds.to(cfg.cdt)
+        x = shardctx.seq_scatter(x) if cut else x
+    return x, torch.arange(whole.shape[1], device=x.device), cut
 
 
 def _hidden(params, tokens, cfg: ModelConfig, on_kv=None, input_embeds=None):
     """The layer stack over the tokens' embeddings, or over ``input_embeds``
     (B,S,d) when given; calls ``on_kv(layer, k, v)`` with each layer's
-    (B,S,K,hd) keys and values.  -> final hidden states before the norm."""
-    x = (embed(params["embed"], tokens, cfg) if input_embeds is None
-         else input_embeds).to(cfg.cdt)
-    positions = torch.arange(x.shape[1], device=x.device)
+    (B,S,K,hd) keys and values.  -> final hidden states before the norm,
+    whole (gathered where sequence parallelism cut them)."""
+    x, positions, cut = _stream(params, tokens, cfg, input_embeds)
     for i, lp in enumerate(params["layers"]):
-        x, (k, v) = _block(x, lp, positions, cfg)
+        x, (k, v) = _block(x, lp, positions, cfg, cut_seq=cut)
         if on_kv is not None:
             on_kv(i, k, v)
-    return x
+    return shardctx.seq_gather(x) if cut else x
 
 
-def _layer(x, lp, positions, cfg: ModelConfig):
+def _layer(x, lp, positions, cfg: ModelConfig, cut_seq: bool = False):
     """One layer of ``forward``.  -> (x, the MoE layer's load-balance loss,
     or None for dense)."""
     aux = []
-    x, _ = _block(x, lp, positions, cfg, aux)
+    x, _ = _block(x, lp, positions, cfg, aux, cut_seq)
     return x, (aux[0] if aux else None)
 
 
@@ -106,17 +128,15 @@ def forward(params, tokens, cfg: ModelConfig, *, input_embeds=None, remat: bool 
     """tokens: (B,S) int (or input_embeds (B,S,d)).  -> (logits (B,S,V),
     aux): the MoE layers' load-balance losses summed (0 for dense).  With
     ``remat`` each layer runs under activation checkpointing."""
-    x = (embed(params["embed"], tokens, cfg) if input_embeds is None
-         else input_embeds).to(cfg.cdt)
-    positions = torch.arange(x.shape[1], device=x.device)
+    x, positions, cut = _stream(params, tokens, cfg, input_embeds)
     layer, aux = checkpointed(_layer, remat), []
     for lp in params["layers"]:
-        x, loss = layer(x, lp, positions, cfg)
+        x, loss = layer(x, lp, positions, cfg, cut)
         if loss is not None:
             aux.append(loss)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     total = torch.stack(aux).sum() if aux else torch.zeros((), device=x.device)
-    return unembed(params["embed"], x, cfg), total
+    return unembed(params["embed"], x, cfg, cut_seq=cut), total
 
 
 # ----------------------------------------------------------------------

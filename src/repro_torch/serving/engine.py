@@ -188,7 +188,9 @@ class InferenceEngine:
         abs_cache = api.init_cache(self.cfg, batch, self.max_cache, device="meta")
         self._layout = (abs_cache, sharding.cache_pspecs(abs_cache, self.cfg, self.mesh,
                                                          batch=batch))
-        with shardctx.use_mesh(self.mesh), sharding.use_cache_layout(*self._layout):
+        # the reference's engine has no sequence parallelism, nor has this one
+        with shardctx.use_mesh(self.mesh, seq_parallel=False), \
+                sharding.use_cache_layout(*self._layout):
             yield
 
     def _local_rows(self, tokens):

@@ -31,9 +31,31 @@ bytes being what one rank's link moves in a ring, as the reference's
 ``2 * S * (N-1)/N``, an all-gather to a whole of S bytes ``S * (N-1)/N``, a
 reduce-scatter of S bytes ``S * (N-1)/N``.
 
+Sequence parallelism (the reference's ``seq_parallel`` flag beside the
+mesh, ``use_mesh(mesh, seq_parallel=True)``) is Megatron's: where
+``seq_cut`` holds (a mesh, a "model" axis over 1, and a whole length
+that divides it: the reference's rule for pinning the sequence to
+"model") the residual stream between blocks is a rank's chunk of the
+positions, (B, S/M, d), and the norms run on the rank's tokens.  A block
+gathers its normed input along the sequence where tensor parallelism has
+``copy_to`` (``seq_gather``: the gradient reduce-scattered back) and
+reduce-scatters its row-parallel float32 partial sums where tensor
+parallelism all-reduces them (``seq_reduce_scatter``: the gradient
+all-gathered back).  Between the two every tensor that all model ranks
+hold alike carries a rank's share of its gradient, which the gather's
+reduce-scatter sums: so inside such a block ``copy_to``, ``gather_from``
+and ``scatter_to`` take ``partial=True``, and a weight whole on every
+model rank gets a partial gradient too, which the train step sums over
+"model" (``launch/steps.py``).  A whole activation that enters the
+stream (the vlm family's merged embeddings, whisper's frames) is cut to
+the rank's chunk by ``seq_scatter``.
+
 ``constrain_batch`` keeps the reference's call sites: there it pins the
-batch dim of an activation to the data axes; here the entry points split
-the batch before the model runs, so it is the identity on local tensors.
+batch dim of an activation to the data axes, and with sequence
+parallelism its sequence dim to "model", leaving the collectives to
+GSPMD.  Here the entry points split the batch before the model runs and
+the model code cuts the sequence with the collectives above, so it is
+the identity on local tensors.
 """
 from __future__ import annotations
 
@@ -42,28 +64,34 @@ from contextlib import contextmanager
 import torch
 import torch.distributed as dist
 
-_CTX = {"mesh": None, "seq_cuts": {}}
+_CTX = {"mesh": None, "seq_parallel": False, "seq_cuts": {}}
 
 # kind -> [count, bytes per rank]
 COUNTS: dict[str, list] = {}
 
 
-def set_mesh(mesh) -> None:
+def set_mesh(mesh, *, seq_parallel: bool = False) -> None:
     _CTX["mesh"] = mesh
+    _CTX["seq_parallel"] = seq_parallel
 
 
 def get_mesh():
     return _CTX["mesh"]
 
 
+def seq_parallel() -> bool:
+    """Whether the ambient mesh asks for sequence parallelism."""
+    return bool(_CTX["seq_parallel"]) and _CTX["mesh"] is not None
+
+
 @contextmanager
-def use_mesh(mesh):
-    prev = _CTX["mesh"]
-    set_mesh(mesh)
+def use_mesh(mesh, *, seq_parallel: bool = False):
+    prev = (_CTX["mesh"], _CTX["seq_parallel"])
+    set_mesh(mesh, seq_parallel=seq_parallel)
     try:
         yield
     finally:
-        _CTX["mesh"] = prev
+        _CTX["mesh"], _CTX["seq_parallel"] = prev
 
 
 def get_seq_cuts() -> dict:
@@ -83,10 +111,24 @@ def use_seq_cuts(cuts: dict):
 
 
 def constrain_batch(x, *, batch_dim: int = 0, seq_dim: int | None = None):
-    """The reference pins ``x``'s batch dim over the data axes here; the
-    port's entry points split the batch before the model runs (every
-    tensor here is a rank's local rows), so this is the identity."""
+    """The reference pins ``x``'s batch dim over the data axes here (and
+    its sequence over "model" under sequence parallelism); the port's entry
+    points split the batch before the model runs and its model code cuts
+    the sequence itself (``seq_cut``), so this is the identity."""
     return x
+
+
+def seq_cut(x, seq_dim: int = 1) -> bool:
+    """Whether sequence parallelism cuts the whole sequence dim ``seq_dim``
+    of ``x`` over "model": the ambient mesh asks for it, has a "model" axis
+    over 1, and the length divides that axis (the reference's rule; else
+    the layout is tensor parallelism's, unchanged).  A decode step's length
+    of 1 never divides it."""
+    mesh = _CTX["mesh"]
+    if not seq_parallel() or "model" not in mesh.axis_names:
+        return False
+    m = mesh.shape["model"]
+    return m > 1 and x.dim() > seq_dim and x.shape[seq_dim] % m == 0
 
 
 def reset_counts() -> None:
@@ -233,9 +275,32 @@ class _GatherShards(torch.autograd.Function):
         return reduce_scatter(g.float(), ctx.axes, ctx.dim).to(ctx.dtype), None, None
 
 
-def copy_to(x: torch.Tensor, axes="model") -> torch.Tensor:
-    """Identity forward; the gradient all-reduced over ``axes`` backward."""
-    return x if size(axes) == 1 else _CopyTo.apply(x, axes)
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return all_gather(x, "model", 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, "model", 1)
+
+
+class _SeqReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = x.dtype
+        return reduce_scatter(x, "model", 1).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, "model", 1).to(ctx.dtype), None
+
+
+def copy_to(x: torch.Tensor, axes="model", *, partial: bool = False) -> torch.Tensor:
+    """Identity forward; the gradient all-reduced over ``axes`` backward.
+    With ``partial`` (inside a sequence-parallel block, whose gather at
+    its entry sums the ranks' shares) the identity both ways."""
+    return x if partial or size(axes) == 1 else _CopyTo.apply(x, axes)
 
 
 def reduce_from(x: torch.Tensor, axes="model") -> torch.Tensor:
@@ -243,16 +308,54 @@ def reduce_from(x: torch.Tensor, axes="model") -> torch.Tensor:
     return x if size(axes) == 1 else _ReduceFrom.apply(x, axes)
 
 
-def gather_from(x: torch.Tensor, axes="model", dim: int = -1) -> torch.Tensor:
+def gather_from(x: torch.Tensor, axes="model", dim: int = -1, *,
+                partial: bool = False) -> torch.Tensor:
     """All-gather along ``dim`` over ``axes`` forward; the rank's slice of the
-    gradient backward."""
+    gradient backward, or with ``partial`` (a gradient that is each rank's
+    share of the sum) its sum reduce-scattered (``gather_shards``)."""
+    if partial:
+        return gather_shards(x, axes, dim)
     return x if size(axes) == 1 else _GatherFrom.apply(x, axes, dim % x.dim())
 
 
-def scatter_to(x: torch.Tensor, axes="model", dim: int = -1) -> torch.Tensor:
+def scatter_to(x: torch.Tensor, axes="model", dim: int = -1, *,
+               partial: bool = False) -> torch.Tensor:
     """The rank's slice along ``dim`` over ``axes`` forward; the gradient
-    all-gathered backward."""
+    all-gathered backward, or with ``partial`` left as this rank's share
+    (zeros outside its slice: a plain slice)."""
+    if partial:
+        return local_slice(x, axes, dim)
     return x if size(axes) == 1 else _ScatterTo.apply(x, axes, dim % x.dim())
+
+
+def seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """A rank's chunk of the sequence (dim 1) all-gathered over "model" into
+    the whole; the gradient, each rank's share of the sum, reduce-scattered
+    back in its own dtype (as ``copy_to`` all-reduces it).  A
+    sequence-parallel block's input."""
+    return x if size("model") == 1 else _SeqGather.apply(x)
+
+
+def seq_reduce_scatter(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Float32 partial sums (B, S, ...) over "model" -> this rank's chunk of
+    the sequence of their sum, cast to ``dtype``; the gradient (of that
+    dtype) all-gathered back.  A sequence-parallel block's row-parallel
+    output."""
+    return x.to(dtype) if size("model") == 1 else _SeqReduceScatter.apply(x, dtype)
+
+
+def seq_scatter(x: torch.Tensor) -> torch.Tensor:
+    """A whole activation (B, S, ...), alike on every model rank, cut to
+    this rank's chunk of the sequence; the gradient all-gathered back (the
+    whole gradient on every rank, as the activation's producer expects)."""
+    return scatter_to(x, "model", 1)
+
+
+def seq_slice(x: torch.Tensor) -> torch.Tensor:
+    """This rank's chunk of the sequence of a whole (B, S, ...) that the
+    model ranks computed alike inside a sequence-parallel block; the
+    gradient left as this rank's share (``scatter_to(partial=True)``)."""
+    return local_slice(x, "model", 1)
 
 
 def gather_shards(x: torch.Tensor, axes, dim: int) -> torch.Tensor:

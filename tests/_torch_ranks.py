@@ -163,9 +163,10 @@ def layout_name(arch: str, mesh: str, batch: int, window: int) -> str:
     return f"layout {arch} {mesh} b{batch}" + (f" w{window}" if window else "")
 
 
-def _smoke(arch: str, window: int = 0) -> ModelConfig:
+def _smoke(arch: str, window: int = 0, vocab: int = 0) -> ModelConfig:
     cfg = registry.get(arch).smoke
-    return cfg.replace(attention_window=window) if window else cfg
+    cfg = cfg.replace(attention_window=window) if window else cfg
+    return cfg.replace(vocab_size=vocab) if vocab else cfg
 
 
 def _engine_logits(eng, tokens, steps: list) -> list:
@@ -319,7 +320,7 @@ def _params(cfg):
 
 
 def train_check(mesh, fsdp: bool, num_micro: int, arch: str = "deepseek-7b",
-                window: int = 0) -> dict:
+                window: int = 0, seq_parallel: bool = False, vocab: int = 0) -> dict:
     """One AdamW step of ``arch``'s smoke config (float32) on this mesh
     against the single-device step: loss, grad norm, and the params after
     it (gathered).  rwkv's ``tmix.wo`` is redrawn (its init 0 cuts the WKV
@@ -329,8 +330,10 @@ def train_check(mesh, fsdp: bool, num_micro: int, arch: str = "deepseek-7b",
     gradients it averages as the data ranks' are averaged; its load-balance
     loss is then weighted 0, since the microbatches' loss counts each one's
     own experts while the data ranks' counts the whole batch's, as the
-    reference's (``moe_case`` holds that loss)."""
-    cfg = _smoke(arch, window)
+    reference's (``moe_case`` holds that loss).  With ``seq_parallel`` the
+    step runs under ``use_mesh(mesh, seq_parallel=True)``, and the tensor
+    parallel step's params are compared too (``tp_param_rel``)."""
+    cfg = _smoke(arch, window, vocab)
     if cfg.is_moe and mesh.size(data_axes(mesh)) > 1:
         cfg = cfg.replace(router_aux_weight=0.0)
     batch = batch_on({**LMBatches(cfg.vocab_size, 4, 16, seed=0)(0), **modal_extras(cfg, 4)},
@@ -345,8 +348,18 @@ def train_check(mesh, fsdp: bool, num_micro: int, arch: str = "deepseek-7b",
     local = sharding.shard_tree(params, pspecs, mesh)
     state = opt.init(local)
     step = steps.make_train_step(cfg, opt, num_micro=num_micro, mesh=mesh, param_pspecs=pspecs)
+    rows = sharding.shard_batch(batch, mesh)
+    if seq_parallel:
+        tp = sharding.shard_tree(_params(cfg), pspecs, mesh)
+        shardctx.reset_counts()
+        step(tp, opt.init(tp), rows)
+        extra = {"tp_counts": shardctx.counts()}
+        tp = [t.detach() for t in tensor_leaves(sharding.gather_tree(tp, pspecs, mesh))]
+    else:
+        extra = {}
     shardctx.reset_counts()
-    _, state, got = step(local, state, sharding.shard_batch(batch, mesh))
+    with shardctx.use_mesh(mesh, seq_parallel=seq_parallel):
+        _, state, got = step(local, state, rows)
     counts = shardctx.counts()
     whole = sharding.gather_tree(local, pspecs, mesh)
     # a key projection's bias has a zero gradient in exact arithmetic (it
@@ -357,10 +370,112 @@ def train_check(mesh, fsdp: bool, num_micro: int, arch: str = "deepseek-7b",
     rels = [_rel(a.detach(), b.detach()) for a, b, skip in
             zip(tensor_leaves(whole), want_params, key_bias) if not skip]
     moments = sum(t.numel() for t in state["mu"])
-    return {"loss": float(got["loss"]), "want_loss": float(want["loss"]),
+    if seq_parallel:
+        extra["tp_param_rel"] = max(_rel(a.detach(), b) for a, b, skip in
+                                    zip(tensor_leaves(whole), tp, key_bias) if not skip)
+    return {**extra, "loss": float(got["loss"]), "want_loss": float(want["loss"]),
             "gnorm": float(got["grad_norm"]), "want_gnorm": float(want["grad_norm"]),
             "param_rel": max(rels), "key_bias_leaves": sum(key_bias), "counts": counts,
             "local_moments": moments, "params": sum(t.numel() for t in want_params)}
+
+
+# the families under sequence parallelism: dense, moe, vlm, ssm, hybrid, audio
+SEQ_ARCHS = ("deepseek-7b", "granite-moe-3b-a800m", "llava-next-mistral-7b", "rwkv6-1.6b",
+             "recurrentgemma-9b", "whisper-tiny")
+SEQ_TRAIN = ("deepseek-7b", "rwkv6-1.6b", "granite-moe-3b-a800m")
+
+
+def seq_frames(cfg: ModelConfig, b: int = 4) -> torch.Tensor:
+    """Seeded N(0, 1) frame embeddings of the audio family's prompts."""
+    return torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+
+
+def seq_inputs(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
+    """A prefill's whole inputs: the tokens, and the audio family's
+    ``seq_frames`` or the vlm family's ``_patches``."""
+    inputs = {"tokens": tokens}
+    if cfg.family == "audio":
+        inputs["frame_embeds"] = seq_frames(cfg, tokens.shape[0])
+    if cfg.family == "vlm":
+        inputs["patch_embeds"] = _patches(cfg, tokens.shape[0])
+    return inputs
+
+
+def _flat(tree) -> list:
+    return [t.detach().double().reshape(-1) for t in tensor_leaves(tree)]
+
+
+def seq_parallel_check(mesh, arch: str, s: int = 8, vocab: int = 0) -> dict:
+    """``arch``'s smoke prefill through ``steps.make_prefill_step`` on this
+    mesh with and without sequence parallelism (``use_mesh(mesh,
+    seq_parallel=...)``), a (4, ``s``) prompt: this rank's last logits and
+    the whole cache (its shards gathered) against the single device's on
+    the same seeded weights and against each other bit for bit, and each
+    run's collectives beside ``comms.prefill``'s plans.  A MoE under a data
+    axis routes each data rank's rows in groups of its own, so its single
+    device runs each rank's rows apart.  ``vocab``, where given, replaces
+    the smoke vocabulary (one that the model axis does not divide keeps
+    the tables whole)."""
+    cfg = _smoke(arch, vocab=vocab)
+    params = _params(cfg)
+    tokens = _prompts(cfg, 4, s)
+    b, n = tokens.shape
+    rows = _rows(mesh, b)
+    inputs = seq_inputs(cfg, tokens)
+    per_shard = cfg.is_moe and rows != slice(0, b)
+    if per_shard:
+        k = mesh.size(data_axes(mesh))
+        parts = [api.prefill(params, {key: v.chunk(k)[i] for key, v in inputs.items()}, cfg, n)
+                 for i in range(k)]
+        want = torch.cat([p[0] for p in parts])
+        want_cache = [torch.cat(leaves, dim=1) for leaves in
+                      zip(*(list(tensor_leaves(p[1])) for p in parts))]
+    else:
+        want, whole = api.prefill(params, inputs, cfg, n)
+        want_cache = list(tensor_leaves(whole))
+    pspecs = sharding.param_pspecs(api.abstract_params(cfg), cfg, mesh)
+    local = sharding.shard_tree(params, pspecs, mesh)
+    abs_cache = api.init_cache(cfg, b, n, device="meta")
+    cache_sp = sharding.cache_pspecs(abs_cache, cfg, mesh, batch=b)
+    step = steps.make_prefill_step(cfg, mesh=mesh, param_pspecs=pspecs, cache_pspecs=cache_sp)
+    mine = {key: v[rows] for key, v in inputs.items()}
+    runs = {}
+    for flag in (False, True):
+        cache = sharding.local_zeros(abs_cache, cache_sp, mesh)
+        shardctx.reset_counts()
+        with shardctx.use_mesh(mesh, seq_parallel=flag):
+            logits, cache = step(local, mine, cache)
+        counts = shardctx.counts()
+        runs[flag] = (logits, list(tensor_leaves(sharding.gather_tree(cache, cache_sp, mesh))),
+                      counts)
+    (tp, tp_cache, tp_counts), (sp, sp_cache, sp_counts) = runs[False], runs[True]
+    plan = {flag: comms.prefill(cfg, mesh.shape, batch=b, seq=n, seq_parallel=flag,
+                                model_index=mesh.coords["model"]) for flag in (False, True)}
+    return {"rows": [rows.start, rows.stop], "per_shard": per_shard, "seq": n, "text": s,
+            "last": sp.tolist(), "logits_rel": _rel(sp, want[rows]),
+            "cache_rel": max(_rel(g, w) for g, w in zip(sp_cache, want_cache)
+                             if w.abs().max() > 0),
+            "cache": [t.tolist() for t in sp_cache],
+            "logits_equal_tp": torch.equal(sp, tp),
+            "cache_equal_tp": all(torch.equal(a, c) for a, c in zip(sp_cache, tp_cache)),
+            "counts": sp_counts, "tp_counts": tp_counts,
+            "plan": plan[True], "tp_plan": plan[False]}
+
+
+def seq_parallel(c: Checks, mesh, name: str) -> None:
+    """The sequence-parallel cells of ``mesh``: every family's prefill at a
+    length that divides the model axis and at one that does not, whisper's
+    with a vocabulary that the axis does not divide, and the cut AdamW
+    steps of ``SEQ_TRAIN``."""
+    for arch in SEQ_ARCHS:
+        c.run(f"sp {arch} {name}", seq_parallel_check, mesh, arch)
+        c.run(f"sp {arch} {name} s7", seq_parallel_check, mesh, arch, 7)
+    c.run(f"sp whisper-tiny {name} v511", seq_parallel_check, mesh, "whisper-tiny", 8, 511)
+    for arch in SEQ_TRAIN:
+        c.run(f"sp train {arch} {name}", train_check, mesh, False, 1, arch, 0, True)
+    c.run(f"sp train whisper-tiny {name} v511", train_check, mesh, False, 1, "whisper-tiny",
+          0, True, 511)
 
 
 def refusals(mesh) -> dict:
@@ -488,6 +603,7 @@ def world4(rank: int, out: str, moe_dir: str, ckpt: str) -> None:
     layouts(c, "4", {"2x2": mesh, "1x4": tp})
     c.run("checkpoint whisper-tiny 1x4", checkpoint_roundtrip, tp, "whisper-tiny",
           ckpt + "-whisper")
+    seq_parallel(c, mesh, "2x2")
     c.write(out)
 
 
@@ -512,4 +628,5 @@ def world2(rank: int, out: str, ckpt: str) -> None:
     layouts(c, "2", meshes)
     c.run("checkpoint recurrentgemma-9b 1x2", checkpoint_roundtrip, tp, "recurrentgemma-9b",
           ckpt + "-hybrid")
+    seq_parallel(c, tp, "1x2")
     c.write(out)

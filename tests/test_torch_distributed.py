@@ -6,7 +6,11 @@ so that a hung collective fails instead of running the suite out of time.
 Three spawns do all the work, each with its own time limit (its ranks are
 killed when one fails): four ranks on the (2, 2) and (1, 4) meshes, two
 ranks on (1, 2) and (2, 1), then eight on (1, 8) (``tests/_torch_ranks.py``).  Every rank writes
-what it measured; the tests below read it.  The oracles: the reference's
+what it measured; the tests below, and those of
+``tests/test_torch_seq_parallel.py``, read it.  The spawns run once a
+session (``spawned``): under xdist the first worker to ask runs them under
+a lock in the session's shared temporary directory, the others read what
+it wrote.  The oracles: the reference's
 ``moe_apply`` (its own cases from ``tests/test_distributed.py``, weights from
 its ``moe_init`` through numpy), the reference's single-device ``prefill``
 and the port's single-device path on the same seeded weights (the
@@ -16,8 +20,10 @@ the reference's checkpoint ``restore``.
 """
 from __future__ import annotations
 
+import fcntl
 import json
 import os
+import shutil
 import sys
 from types import SimpleNamespace
 
@@ -75,11 +81,9 @@ def _read(prefix: str, world: int) -> list:
     return out
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both spawns, the four ranks first (they write the checkpoint that
-    the two restore).  -> {"4": [per rank], "2": [per rank], paths}."""
-    d = tmp_path_factory.mktemp("dist")
+def _spawn_all(d) -> None:
+    """The three spawns into directory ``d``, the four ranks first (they
+    write the checkpoint that the two restore)."""
     _moe_case(str(d / "ep.npz"), 4, 0, 4)
     _moe_case(str(d / "tpf.npz"), 3, 1, 2)
     ckpt = str(d / "ckpt" / "sharded")
@@ -89,8 +93,35 @@ def runs(tmp_path_factory):
           pg_timeout_s=PG_TIMEOUT_S)
     spawn(ranks.world8, 8, (str(d / "w8"),), device="cpu", timeout_s=SPAWN_S,
           pg_timeout_s=PG_TIMEOUT_S)
+
+
+def spawned(tmp_path_factory) -> dict:
+    """The spawns' results, run once a session.  -> {"4": [per rank], "2":
+    [per rank], "8": [per rank], paths}.  Under xdist every worker shares
+    the session's base temporary directory (its own's parent): the first
+    to take the lock there runs the spawns and marks them done; a run that
+    failed left no mark, so the next worker runs them anew."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    d = root / "torch-spawns"
+    with open(root / "torch-spawns.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not (d / "done").exists():
+                shutil.rmtree(d, ignore_errors=True)
+                d.mkdir()
+                _spawn_all(d)
+                (d / "done").touch()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
     return {"4": _read(str(d / "w4"), 4), "2": _read(str(d / "w2"), 2),
-            "8": _read(str(d / "w8"), 8), "dir": d, "ckpt": ckpt}
+            "8": _read(str(d / "w8"), 8), "dir": d, "ckpt": str(d / "ckpt" / "sharded")}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return spawned(tmp_path_factory)
 
 
 def _result(runs, world: str, name: str) -> list:

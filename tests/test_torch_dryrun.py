@@ -317,13 +317,84 @@ def test_the_cli_writes_records_the_report_reads(tmp_path, capsys):
     assert "whisper-tiny" in roofline.table(roofline.load_records(str(tmp_path)))
 
 
-def test_seq_parallel_is_refused_by_name():
-    with pytest.raises(SystemExit, match="sequence parallelism"):
-        dryrun.run_pair("deepseek-7b", "train_4k", multi_pod=False, out_dir="",
-                        seq_parallel=True)
-    with pytest.raises(SystemExit, match="src/repro/shardctx.py"):
-        dryrun.main(["--all", "--seq-parallel"])
+def _counts(rec) -> dict:
+    """A record's collectives as {kind: (count, a rank's bytes)}."""
+    coll = rec["collectives"]
+    return {k: (n, coll[k]) for k, n in coll["counts"].items()}
+
+
+def _minus(a: dict, b: dict) -> dict:
+    out = {}
+    for k in set(a) | set(b):
+        n = a.get(k, (0, 0.0))[0] - b.get(k, (0, 0.0))[0]
+        nbytes = a.get(k, (0, 0.0))[1] - b.get(k, (0, 0.0))[1]
+        if n or nbytes:
+            out[k] = (n, nbytes)
+    return out
+
+
+# (arch, shape, batch, seq): every shape kind, the dense, moe, ssm and hybrid
+# families; prefills and train steps at a reduced batch and length
+SP_PAIRS = [("deepseek-7b", "prefill_32k", 4, 256), ("granite-moe-3b-a800m", "prefill_32k", 4, 256),
+            ("recurrentgemma-9b", "prefill_32k", 4, 256), ("deepseek-7b", "train_4k", 4, 256),
+            ("rwkv6-1.6b", "train_4k", 4, 256), ("recurrentgemma-9b", "train_4k", 4, 96),
+            ("deepseek-7b", "decode_32k", None, None), ("rwkv6-1.6b", "decode_32k", None, None),
+            ("recurrentgemma-9b", "long_500k", None, None)]
+
+
+@pytest.mark.parametrize("arch,shape,batch,seq", SP_PAIRS)
+def test_seq_parallel_dryrun_counts_equal_the_plan(arch, shape, batch, seq):
+    """A ``--seq-parallel`` step on the reduced (2, 2) mesh against the same
+    step without the flag: a decode step counts exactly the same; a
+    prefill's and a train step's collectives move as ``comms``' plans with
+    and without the flag differ (FSDP's gathers and reduce-scatters, the
+    data means and the grad norm are the flag's to leave alone), and a
+    prefill whose weights FSDP does not cut counts its plan exactly."""
+    with _mesh(2, 2) as mesh:
+        tp = dryrun.run_pair(arch, shape, multi_pod=False, out_dir="", verbose=False,
+                             mesh=mesh, batch=batch, seq=seq)
+        sp = dryrun.run_pair(arch, shape, multi_pod=False, out_dir="", verbose=False,
+                             mesh=mesh, batch=batch, seq=seq, seq_parallel=True)
+    assert sp["seq_parallel"] is True and "seq_parallel" not in tp
+    cfg = registry.get(arch).config
+    if sp["kind"] == "decode":
+        assert _counts(sp) == _counts(tp) and _counts(sp)
+        return
+    if sp["kind"] == "train":
+        want = [comms.train_step(cfg, mesh.shape, batch=batch, seq=seq, seq_parallel=f,
+                                 fsdp=sp["fsdp"]) for f in (True, False)]
+    else:
+        want = [comms.prefill(cfg, mesh.shape, batch=batch, seq=seq, seq_parallel=f)
+                for f in (True, False)]
+    assert sp.get("num_micro", 1) == 1
+    assert _minus(_counts(sp), _counts(tp)) == _minus(*want)
+    assert _counts(sp)["reduce-scatter"][0] > _counts(tp).get("reduce-scatter", (0,))[0]
+    if not sp["fsdp"]:
+        assert _counts(sp) == want[0] and _counts(tp) == want[1]
+
+
+def test_the_cli_writes_seq_parallel_records_the_report_reads(tmp_path, capsys):
+    """``main --seq-parallel`` on the production (16, 16) mesh writes a
+    ``_sp`` record beside the flag-less one; the report grids each apart
+    and sets them side by side (HBM a rank and ``collective_s``)."""
+    out = ["--arch", "deepseek-7b", "--shape", "prefill_32k", "--out", str(tmp_path)]
+    dryrun.main(out)
+    dryrun.main(out + ["--seq-parallel"])
+    assert "sequence parallel" in capsys.readouterr().out
     assert not torch.distributed.is_initialized()
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "deepseek-7b__prefill_32k__single.json", "deepseek-7b__prefill_32k__single_sp.json"]
+    recs = {bool(r.get("seq_parallel")): r for r in roofline.load_records(str(tmp_path))}
+    assert recs[True]["collectives"]["total"] < recs[False]["collectives"]["total"]
+    assert recs[True]["roofline"]["collective_s"] < recs[False]["roofline"]["collective_s"]
+    for flag in (False, True):
+        grid = report.meshes_md(str(tmp_path), seq_parallel=flag).splitlines()
+        assert grid[0] == "| arch | prefill_32k |" and len(grid) == 3
+    rows = report.seq_parallel_md(str(tmp_path)).splitlines()
+    assert rows[0] == "| arch | prefill_32k |" and rows[2].startswith("| deepseek-7b | ")
+    assert "→" in rows[2] and " GB " in rows[2] and rows[2].endswith(" / - |")
+    assert "**1** pairs" in report.dryrun_md(str(tmp_path))
+    assert "**1** pairs" in report.dryrun_md(str(tmp_path), seq_parallel=True)
 
 
 # ----------------------------------------------------------------------
