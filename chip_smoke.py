@@ -121,7 +121,13 @@ failure exits non-zero:
      is, the handlers built from the cache, the peak memory (this phase
      follows 6 and 7 because it frees the engines they use); llava is not
      calibrated (the reference's vlm calibration fails, and the port's
-     follows it);
+     follows it); then, on that cache file, the port's serverless platform
+     (``platform_step``, host time only, nothing measured): the three CNNs
+     on ``lambda`` at 1024 MB and deepseek-7b on ``modal_gpu`` at 16384 MB
+     (refused on ``lambda``), the paper's cold, warm and scalability
+     experiments for each and one shared fleet, every report printed with
+     its SLA, and deepseek-7b's zero-jitter cold response held to its
+     cold-start breakdown plus its warm response;
   10. (after 8, every engine freed) phase 6's K4/K5 timings, then training
      (``train_phase``): deepseek-7b at full width and 20 of its 30 layers
      and rwkv6-1.6b at full width and depth (``tmix.wo`` redrawn), batch 4,
@@ -144,12 +150,13 @@ failure exits non-zero:
      four and eight, on
      the cards present, NCCL with a card each when there are two, gloo when
      they share one (the backend and card count printed): deepseek-7b at
-     full width and depth, bf16, on the (1, 2) mesh (tensor parallel),
+     full width and ``SHARDED_LAYERS`` layers, bf16, on the (1, 2) mesh
+     (tensor parallel),
      batch 4, prompt 100, 32 new, greedy, uncaptured: its prefill logits
      row by row (``ROW_REL_TOL``) against the single card's engine with its
      row-parallel products split as the two ranks split them
-     (``split_rows``), and against the plain single card (the 30 bf16
-     layers' reordering bar, ``LOGITS_REL_TOL``), the
+     (``split_rows``), and against the plain single card (the bf16
+     reordering bar, ``LOGITS_REL_TOL``), the
      tokens of both (and where they part, the step and the sharded
      engine's logit margin there), K1 and K2 counted per rank (layers x
      prefills, layers x steps) and one decode step's collectives per rank
@@ -173,14 +180,16 @@ failure exits non-zero:
      step (the sequence-parallel step's params also of the tensor parallel
      step's), K1-bwd, K4 and K5 counted per rank; then the layouts that
      cut a KV sequence or heads inside
-     (``new_layouts_rank``): deepseek-7b at batch 1 on (2, 1), its
+     (``new_layouts_rank``): deepseek-7b (``SHARDED_LAYERS`` layers) at
+     batch 1 on (2, 1), its
      16,384-position cache cut over "data", an 8,176-token prompt and 32 new
      tokens, unwindowed and with a 4,096-position window, every step's
      logits held to the bit (``ROW_REL_TOL``) to one card that splits its
      cache at 8,192 and combines the halves as the ranks do
      (``split_decode``), the tokens to that card's and printed beside the
-     plain card's; recurrentgemma-9b at full width and depth in bf16 on
-     (1, 2), held row by row to one card that splits its row products and
+     plain card's; recurrentgemma-9b at full width and ``SHARDED_LAYERS``
+     layers (two pattern units and the remainder) in bf16 on (1, 2), held
+     row by row to one card that splits its row products and
      its projections' columns as the ranks do (``split_rows``,
      ``split_project``), its float32 gate at one pattern unit and one float32
      TP step (over the elements above the gradient noise, as phase 10's
@@ -2860,7 +2869,13 @@ QWEN3_LAYERS = 2
 # order, about 1e-7 a layer
 SHARDED_REL_TOL = 1e-4
 SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ = 4, 128
-# phase 11's deepseek-7b at 30 bf16 layers: the sharded prefill logits are
+# phase 11's bf16 runs at full width (deepseek-7b on (1, 2) and its long-KV
+# decode on (2, 1), recurrentgemma-9b on (1, 2)) take this many layers of
+# their 30 and 38: their time goes to gloo's copies through host memory,
+# which grow with the depth, and the script's 1200 s left no room for the
+# whole depth on a slower host (1133-1164 s of the script's time with it)
+SHARDED_LAYERS = 8
+# phase 11's deepseek-7b in bf16: the sharded prefill logits are
 # held row by row to ROW_REL_TOL against the single card computing the
 # sharded arithmetic (``split_rows``).  Against the plain single card they
 # are held to LOGITS_REL_TOL: any change of summation order moves this
@@ -3275,7 +3290,7 @@ def stepped_logits(eng, prompts, toks) -> list:
 
 
 def long_kv_run(cfg, mesh, window: int) -> dict:
-    """deepseek-7b (``cfg``, full depth, bf16) at batch 1 over
+    """deepseek-7b (``cfg``, ``SHARDED_LAYERS`` layers, bf16) at batch 1 over
     ``LONG_CACHE`` positions on ``mesh``, its cache's sequence cut over
     "data": on rank 0 first, uncaptured, the plain single card's greedy
     tokens and teacher-forced logits, and the same with the cache split
@@ -3565,7 +3580,7 @@ def f32(cfg, layers: int | None = None):
 def new_layouts_rank(rank: int, tp, dp) -> tuple[dict, dict]:
     """Phase 11's layouts that cut a KV sequence or heads inside, on the
     two ranks: deepseek-7b's long-KV decode over "data", unwindowed and
-    windowed; recurrentgemma-9b on (1, 2) at full width and depth in bf16
+    windowed; recurrentgemma-9b on (1, 2) at full width in bf16
     (held row by row to the single card with its row products split as the
     ranks split them, ``split_rows``), its float32 gate at one pattern unit
     and one float32 train step there; whisper-tiny's float32 gate on
@@ -3582,7 +3597,7 @@ def new_layouts_rank(rank: int, tp, dp) -> tuple[dict, dict]:
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
 
-    cfg = get("deepseek-7b").config
+    cfg = get("deepseek-7b").config.replace(num_layers=SHARDED_LAYERS)
     for window in (0, LONG_WINDOW):
         t0 = time.perf_counter()
         run = long_kv_run(cfg, dp, window)
@@ -3594,7 +3609,7 @@ def new_layouts_rank(rank: int, tp, dp) -> tuple[dict, dict]:
         report[run["name"]] = entry
         del run
 
-    hcfg = get("recurrentgemma-9b").config
+    hcfg = get("recurrentgemma-9b").config.replace(num_layers=SHARDED_LAYERS)
     prompts = deepseek_inputs(hcfg)[0]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3699,8 +3714,8 @@ def sharded_rank(rank: int, out_dir: str) -> None:
         for k, n in counts.items():
             launches[k] += n
 
-    # deepseek-7b at full width and depth, bf16, (1, 2)
-    cfg = get("deepseek-7b").config
+    # deepseek-7b at full width and SHARDED_LAYERS layers, bf16, (1, 2)
+    cfg = get("deepseek-7b").config.replace(num_layers=SHARDED_LAYERS)
     prompts, _ = deepseek_inputs(cfg)
     torch.cuda.reset_peak_memory_stats()
     run = sharded_engine_run(cfg, tp, prompts, lambda: api.init_params(
@@ -3842,6 +3857,8 @@ def sharded_phase() -> dict:
     from repro_torch.launch.mesh import backend_for, spawn
 
     launches, reports, walls = {}, {}, {}
+    log(f"[sharded] the bf16 runs of deepseek-7b and recurrentgemma-9b at full width take "
+        f"{SHARDED_LAYERS} layers (SHARDED_LAYERS)")
     for world, fn, args in ((SHARDED_WORLD, sharded_rank, ()), (4, wide_rank, (4,)),
                             (8, wide_rank, (8,))):
         backend, _ = backend_for(world, "cuda")
@@ -4057,6 +4074,7 @@ def calibration_phase(dev) -> None:
         wall = time.perf_counter() - t0
         if calibration.load_cache(path) != cache:
             raise SystemExit("calibration: the cache file does not load back as written")
+        platform_step(path)
     log(f"[calibration] {len(cache['models'])} models in {wall:.1f} s; host "
         f"{json.dumps(cache['host'])}")
     for name in CALIBRATED:
@@ -4085,6 +4103,133 @@ def calibration_phase(dev) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# the platform step: the paper's CNNs on Lambda at its 1024 MB knee, and
+# deepseek-7b on a GPU-serverless host with the whole card's memory
+PLATFORM_CNN_MB, PLATFORM_LLM_MB = 1024, 16384
+PLATFORM_MAX_S = 15.0
+# the identity a zero-jitter cold start keeps, in seconds
+PLATFORM_TOL_S = 1e-9
+
+
+def _report_line(name: str, what: str, rep, sla_eval: dict) -> str:
+    def stats(s):
+        return (f"n {s.n} mean {s.mean_response_s:.4f} p95 {s.p95_s:.4f} "
+                f"p99 {s.p99_s:.4f} s")
+    return (f"[platform] {name} {what}: all {stats(rep.summary)}; warm {stats(rep.warm)}; "
+            f"cold {stats(rep.cold)}; cold starts {rep.cold_starts}; bimodality "
+            f"{json.dumps(rep.bimodality)}; SLA {sla_eval['sla']} ok={sla_eval['ok']} "
+            f"violations {sorted(k for k, v in sla_eval['violations'].items() if v)}")
+
+
+def platform_step(path: str) -> None:
+    """The port's serverless platform on the cache phase 8 just wrote: the
+    paper's question (cold against warm response, SLA percentiles) answered
+    from the card's own measurements.  ``measure_model`` is replaced by a
+    function that fails, so the step measures nothing and adds host time
+    only.  The paper's three experiments for each function
+    (``run_cold_experiment``, ``run_warm_experiment``,
+    ``run_scalability_experiment``) and one ``invoke_fleet`` of the four;
+    each report printed and graded by ``bimodality_report`` and an SLA
+    (``INTERACTIVE`` for the CNNs, ``GPU_INTERACTIVE`` for deepseek-7b).
+    On ``modal_gpu`` deepseek-7b's cold start outlasts the warm
+    experiment's 5 s priming gap, so that burst is served cold, as the
+    reference's platform serves it; its warm response is read from a burst
+    primed a minute ahead.  Checks: 5 cold starts in each cold experiment,
+    none in a CNN's warm burst or in deepseek-7b's primed burst, every time
+    finite, each cold mean above its warm mean, deepseek-7b refused on
+    ``lambda``, and at jitter 0 deepseek-7b's first cold response equal to
+    its cold-start breakdown plus its warm response."""
+    from repro_torch.core import calibration, container, sla, workload
+    from repro_torch.core.platform import ServerlessPlatform
+
+    def refuse(name, **kw):
+        raise SystemExit(f"platform: {name} was measured; the cache phase 8 wrote must hold it")
+
+    t0 = time.perf_counter()
+    with mock.patch.object(calibration, "measure_model", refuse):
+        plat = ServerlessPlatform(seed=0, device="cuda", calibration_path=path)
+        specs = {n: plat.deploy_model(n, PLATFORM_CNN_MB) for n in calibration.PAPER_MODELS}
+        try:
+            plat.deploy_model("deepseek-7b", 1536)
+        except ValueError as e:
+            log(f"[platform] deepseek-7b on lambda at 1536 MB refused: {e}")
+        else:
+            raise SystemExit("platform: deepseek-7b's package was deployed on lambda")
+        llm = "deepseek-7b"
+        specs[llm] = plat.deploy_model(llm, PLATFORM_LLM_MB, provider="modal_gpu")
+        primed = [workload.Request(0, 0.0, "prime")] + [
+            workload.Request(1 + i, 60.0 + i, "warm") for i in range(25)]
+        finite, ratios = [], {}
+        for name, spec in specs.items():
+            grade = sla.GPU_INTERACTIVE if name == llm else sla.INTERACTIVE
+            h = spec.handler
+            bd = container.cold_start_breakdown(spec)
+            log(f"[platform] {spec.name} on {spec.provider}: warm exec "
+                f"{h.base_cpu_seconds:.6f} s, package {h.package_mb:.1f} MB, load work "
+                f"{h.load_cpu_seconds:.3f} s, batch curve {list(h.batch_curve)}; cold start "
+                f"provision {bd.provision_s:.3f} + bootstrap {bd.bootstrap_s:.3f} + load "
+                f"{bd.load_s:.3f} = {bd.total_s:.3f} s")
+            reps = {}
+            for what, run, trace in (("cold", plat.run_cold_experiment, workload.cold_probe()),
+                                     ("warm", plat.run_warm_experiment, workload.warm_burst()),
+                                     ("scalability", plat.run_scalability_experiment,
+                                      workload.step_ramp())):
+                reps[what] = rep = run(spec)
+                recs, _ = plat.invoke(spec, trace)
+                log(_report_line(spec.name, what, rep, grade.evaluate(recs)))
+                finite += [rep.summary.mean_response_s, rep.summary.p95_s, rep.summary.p99_s]
+            if reps["cold"].cold_starts != 5 or reps["cold"].cold.n != 5:
+                raise SystemExit(f"platform: {spec.name}'s cold probe gave "
+                                 f"{reps['cold'].cold_starts} cold starts, not 5")
+            warm = reps["warm"]
+            if name == llm:
+                recs, sim = plat.invoke(spec, primed)
+                warm = plat.report(spec, recs, sim)
+                log(_report_line(spec.name, "warm, primed 60 s ahead", warm,
+                                 grade.evaluate(recs)))
+            if warm.summary.n_cold or not warm.warm.n:
+                raise SystemExit(f"platform: {spec.name}'s warm burst had "
+                                 f"{warm.summary.n_cold} cold responses")
+            cold_mean, warm_mean = reps["cold"].cold.mean_response_s, warm.warm.mean_response_s
+            if not cold_mean > warm_mean:
+                raise SystemExit(f"platform: {spec.name} cold mean {cold_mean} is not above "
+                                 f"its warm mean {warm_mean}")
+            ratios[spec.name] = cold_mean / warm_mean
+            log(f"[platform] {spec.name}: cold/warm mean response {cold_mean:.4f} / "
+                f"{warm_mean:.4f} s = x{ratios[spec.name]:.2f}")
+        names = sorted(s.name for s in specs.values())
+        fleet_trace = workload.multi_function_trace(
+            {n: (0.05 if n.startswith(llm) else 0.5) for n in names}, duration_s=1800.0,
+            seed=0)
+        recs, sim = plat.invoke_fleet(fleet_trace)
+        for spec in specs.values():
+            mine = [r for r in recs if r.fn == spec.name]
+            grade = sla.GPU_INTERACTIVE if spec.handler.name == llm else sla.INTERACTIVE
+            rep = plat.report(spec, mine, sim)
+            log(_report_line(spec.name, "in the fleet", rep, grade.evaluate(mine)))
+            finite += [rep.summary.mean_response_s, rep.summary.p95_s, rep.summary.p99_s]
+        if len(recs) != len(fleet_trace) or not all(math.isfinite(x) for x in finite):
+            raise SystemExit(f"platform: {len(recs)} of {len(fleet_trace)} fleet requests "
+                             f"served, or a time is not finite")
+        exact = ServerlessPlatform(seed=0, device="cuda", calibration_path=path)
+        spec = exact.deploy_model(llm, PLATFORM_LLM_MB, provider="modal_gpu")
+        cold = exact.invoke(spec, workload.cold_probe(), jitter=0.0)[0][0]
+        warm = exact.invoke(spec, primed, jitter=0.0)[0][0]
+        total = container.cold_start_breakdown(spec).total_s
+        err = abs(cold.response_s - (total + warm.response_s))
+        log(f"[platform] {spec.name} at jitter 0: first cold response {cold.response_s:.9f} s "
+            f"= cold start {total:.9f} + warm response {warm.response_s:.9f} s "
+            f"(off by {err:.3g} s)")
+        if not (cold.cold and not warm.cold and err <= PLATFORM_TOL_S):
+            raise SystemExit(f"platform: {spec.name}'s zero-jitter cold response is off its "
+                             f"breakdown plus its warm response by {err} s")
+    wall = time.perf_counter() - t0
+    log(f"[platform] step took {wall:.2f} s of host time; nothing measured; cold/warm "
+        f"{json.dumps(ratios)}")
+    if wall > PLATFORM_MAX_S:
+        raise SystemExit(f"platform: the step took {wall:.1f} s, over {PLATFORM_MAX_S} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU",
@@ -4099,6 +4244,15 @@ def main() -> int:
     from repro_torch.serving.engine import InferenceEngine
 
     dev = torch.device("cuda")
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        laps[what] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"[phase] {what}: {laps[what]:.1f} s")
+
     card = card_line()
     print(card, flush=True)
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4113,9 +4267,11 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
 
+    lap("1-2 card, bootstrap and build")
     main_err = kernel_checks(dev)
     main_err.update(bwd_kernel_checks(dev))
     optim_kernel_checks(dev)
+    lap("3 kernel checks")
 
     cfg = get("deepseek-7b").config
     t0 = time.perf_counter()
@@ -4130,6 +4286,7 @@ def main() -> int:
     flash.launches = fd.launches = wkv.launches = 0
     e2e = {cfg.name: main_path(eng, cfg, want, prompts, reqs)}
     launches = kernel_counts(cfg, e2e[cfg.name])
+    lap("4 deepseek-7b")
 
     rcfg = get("rwkv6-1.6b").config
     reng = rwkv_engine(rcfg, dev)
@@ -4150,6 +4307,7 @@ def main() -> int:
     if wkv.launches != k3_want:
         raise SystemExit(f"K3 launched {wkv.launches} times, not layers x (prefills + "
                          f"steps) {k3_want}")
+    lap("4 rwkv6-1.6b")
 
     gcfg = get("granite-moe-3b-a800m").config
     geng = granite_engine(gcfg, dev)
@@ -4164,10 +4322,13 @@ def main() -> int:
     for name, n in kernel_counts(gcfg, e2e[gcfg.name]).items():
         launches[name] += n
     log(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    lap("4 granite-moe-3b-a800m")
 
     cnns = cnn_phase(dev)
+    lap("5 CNNs")
     times = timings(dev)
     times.update(bwd_timings(dev))
+    lap("6 kernel timings")
     plans = times.pop("wkv6 plans")
     log("[time] wkv6 device / event ms by split plan (CTAs per head, columns, lanes), the "
         "first split_plan's: " + "; ".join(f"{k} {fmt_ms(d)} / {e:.4f}"
@@ -4193,24 +4354,32 @@ def main() -> int:
     del reng
     prefills[gcfg.name], steps[gcfg.name] = moe_breakdown(geng, gcfg, dev)
     del geng
+    lap("7 breakdowns of deepseek-7b, rwkv6-1.6b, granite")
     mcfg = get("mistral-nemo-12b").config
     e2e[mcfg.name], mlaunches, prefills[mcfg.name], steps[mcfg.name] = mistral_phase(mcfg, dev)
     for name, n in mlaunches.items():
         launches[name] += n
+    lap("4+7 mistral-nemo-12b")
     lcfg = get("llava-next-mistral-7b").config
     e2e[lcfg.name], llaunches, prefills[lcfg.name], steps[lcfg.name] = llava_phase(lcfg, dev)
     for name, n in llaunches.items():
         launches[name] += n
+    lap("4+7 llava-next-mistral-7b")
     hcfg = get("recurrentgemma-9b").config
     hruns, prefills[hcfg.name], steps[hcfg.name] = hybrid_phase(hcfg, dev)
     e2e.update(hruns)
+    lap("4+7 recurrentgemma-9b")
     wcfg = get("whisper-tiny").config
     e2e[wcfg.name], prefills[wcfg.name], steps[wcfg.name] = whisper_phase(wcfg, dev)
+    lap("4+7 whisper-tiny")
     calibration_phase(dev)
+    lap("8 calibration and platform")
     train_runs, tlaunches, otimes, oerrs = train_phase(dev)
+    lap("10 training")
     for name, n in tlaunches.items():
         launches[name] = launches.get(name, 0) + n
     sharded = sharded_phase()
+    lap("11 sharded")
     for name, n in sharded["launches"].items():
         launches[name] = launches.get(name, 0) + n
     times.update(otimes)
@@ -4306,6 +4475,8 @@ def main() -> int:
                 f"uncaptured {r[b]['warm_ms']:.3f} ms (device {r[b]['device_ms']:.4f}, "
                 f"{r[b]['calls']:.1f} calls), bound {r[b]['bound_ms']:.4f}" for b in (1, 4))
             + f" ({card})")
+    log(f"[phase] seconds by phase, this process ({card}): {json.dumps(laps)}; "
+        f"{sum(laps.values()):.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

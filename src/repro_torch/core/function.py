@@ -1,15 +1,13 @@
-"""The serverless simulator's unit of deployment, as the calibration and
-``launch/serve.py --serverless`` need it: the ``Handler`` profile, the
-batch-efficiency curve helpers, and the ``FunctionSpec`` with its memory
-tiers.
+"""The serverless platform's unit of deployment: the ``Handler`` profile,
+the batch-efficiency curve helpers, and the ``FunctionSpec`` with its
+memory tiers and provider.
 
-A copy of ``repro.core.function``'s ``MEMORY_TIERS``,
+A copy of ``repro.core.function``'s ``MEMORY_TIERS``, ``PAPER_TIERS``,
 ``normalize_batch_curve``, ``batch_rel_cost``, ``Handler`` and
-``FunctionSpec`` (same fields, same arithmetic, same checks), so that the
-port imports nothing of the reference.  Of the providers only the
-``lambda`` profile is copied (``core/simulator.py``), the one the serve
-CLI deploys on; a ``Handler`` built here carries the same numbers as one
-the reference builds from the same calibration.
+``FunctionSpec`` (same fields, same arithmetic, same checks, the
+provider-dependent ones included), so that the port imports nothing of the
+reference; a ``Handler`` built here carries the same numbers as one the
+reference builds from the same calibration.
 """
 from __future__ import annotations
 
@@ -18,6 +16,8 @@ from typing import Callable, Optional
 
 # AWS Lambda memory tiers (paper Table 1): 128..1536 MB in 64 MB steps
 MEMORY_TIERS = tuple(range(128, 1537, 64))
+# the paper's figures sample every 128 MB
+PAPER_TIERS = (128, 256, 384, 512, 640, 768, 896, 1024, 1152, 1280, 1408, 1536)
 
 
 # ----------------------------------------------------- batch-efficiency curve
@@ -99,20 +99,27 @@ class Handler:
 
 @dataclasses.dataclass(frozen=True)
 class FunctionSpec:
-    """A deployed serverless function: handler + declared memory size, on
-    the reference's default provider, ``lambda`` (the only one the port
-    copies), whose memory tiers and package cap it checks."""
+    """A deployed serverless function: handler + declared memory size +
+    the provider substrate it runs on (``repro_torch.core.providers``).  A
+    provider with Lambda's limits checks its memory tiers and package
+    cap; any other takes any positive memory size."""
     handler: Handler
     memory_mb: int = 1024
+    provider: str = "lambda"
 
     def __post_init__(self):
-        if self.memory_mb not in MEMORY_TIERS:
-            raise ValueError(f"memory {self.memory_mb} not a Lambda "
-                             f"tier (128..1536 step 64)")
-        if self.handler.package_mb > 512.0:
-            raise ValueError("deployment package exceeds Lambda's 512 "
-                             "MB ephemeral storage (paper §3.5 "
-                             "limitation)")
+        from repro_torch.core import providers
+        prof = providers.get(self.provider)   # loud on unknown providers
+        if prof.lambda_limits:
+            if self.memory_mb not in MEMORY_TIERS:
+                raise ValueError(f"memory {self.memory_mb} not a Lambda "
+                                 f"tier (128..1536 step 64)")
+            if self.handler.package_mb > 512.0:
+                raise ValueError("deployment package exceeds Lambda's 512 "
+                                 "MB ephemeral storage (paper §3.5 "
+                                 "limitation)")
+        elif self.memory_mb <= 0:
+            raise ValueError(f"memory {self.memory_mb} must be positive")
         if self.memory_mb < self.handler.peak_memory_mb:
             raise ValueError(
                 f"{self.handler.name}: peak working set "

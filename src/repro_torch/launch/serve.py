@@ -18,7 +18,7 @@ paper's question on the measured engine, as the reference's flag does: a
 fresh engine measured (``measure_engine`` at ``--max-batch``, ``--prompt``
 and ``--n-new``), wrapped as a 1536 MB function (``llm_handler``), and a
 zero-jitter single-function simulation of ``warm_burst(n=10)``
-(``core/simulator.py``) prints the cold and the warm response time and
+(``core/simulator.py``'s ``Simulator``, seed 0) prints the cold and the warm response time and
 their ratio.
 """
 from __future__ import annotations
@@ -87,12 +87,14 @@ def main(argv=None):
 
     if args.serverless:
         from repro_torch.core.function import FunctionSpec
-        from repro_torch.core.simulator import Simulator, warm_burst
+        from repro_torch.core.simulator import Simulator
+        from repro_torch.core.workload import warm_burst
         from repro_torch.serving.handler import llm_handler, measure_engine
         m = measure_engine(cfg, batch=args.max_batch, prompt=args.prompt,
                            n_new=args.n_new, device=args.device)
         fspec = FunctionSpec(handler=llm_handler(cfg, measured=m), memory_mb=1536)
-        recs = Simulator(fspec, jitter=0.0).run(warm_burst(n=10))
+        sim = Simulator(fspec, seed=0, jitter=0.0)
+        recs = sim.run(warm_burst(n=10))
         cold = [r for r in recs if r.cold][0]
         warm = [r for r in recs if not r.cold][0]
         print(f"[serve] serverless: cold={cold.response_s:.2f}s "

@@ -57,7 +57,13 @@ def test_scan_sees_the_whole_port():
                    "serving/kvcache.py", "serving/quantize.py", "train/optimizer.py",
                    "train/data.py", "train/loop.py", "train/checkpoint.py", "launch/steps.py",
                    "launch/train.py", "kernels/attention/flash_bwd.py",
-                   "kernels/rwkv/wkv_bwd.py"):
+                   "kernels/rwkv/wkv_bwd.py", "core/resources.py", "core/billing.py",
+                   "core/distributed.py", "core/providers.py", "core/container.py",
+                   "core/workload.py", "core/faults.py", "core/autoscaler.py",
+                   "core/cluster/__init__.py", "core/cluster/events.py",
+                   "core/cluster/policies.py", "core/cluster/router.py",
+                   "core/cluster/cluster.py", "core/stack.py", "core/metrics.py",
+                   "core/sla.py", "core/simulator.py", "core/platform.py"):
         assert module in names
     assert ROOT / "tools" / "replay_determinism.py" in PORT_FILES
     assert "torch" in _imported_roots(ROOT / "src" / "repro_torch" / "__init__.py")

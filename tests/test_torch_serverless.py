@@ -1,8 +1,10 @@
-"""The port's serverless run (``launch/serve.py --serverless``): its copy of
-the single-function simulation (``core/simulator.py``) and of
-``FunctionSpec`` against the reference's ``Simulator`` and ``FunctionSpec``
-on the same measured engine numbers, and the CLI on the CPU."""
+"""The port's serverless run (``launch/serve.py --serverless``): its
+single-function ``Simulator`` (``core/simulator.py``, the facade over the
+port's cluster) and ``FunctionSpec`` against the reference's ``Simulator``
+and ``FunctionSpec`` on the same measured engine numbers, at jitter 0 and at
+the default 0.03, and the CLI on the CPU."""
 import dataclasses
+import itertools
 import re
 from unittest import mock
 
@@ -16,7 +18,7 @@ from repro.core import simulator as ref_simulator
 from repro.core import workload as ref_workload
 from repro.serving import handler as ref_handler
 from repro_torch.configs import registry
-from repro_torch.core import function, simulator
+from repro_torch.core import container, function, simulator, workload
 from repro_torch.serving import handler
 
 # measured engine numbers (``measure_engine``'s keys): a warm request well
@@ -58,7 +60,7 @@ def test_records_equal_the_reference_simulator(m, memory_mb):
     float for float."""
     mine, ref = _specs(m, memory_mb)
     for n in (10, 25):
-        got = simulator.Simulator(mine, jitter=0.0).run(simulator.warm_burst(n=n))
+        got = simulator.Simulator(mine, jitter=0.0).run(workload.warm_burst(n=n))
         want = list(ref_simulator.Simulator(ref, seed=0, jitter=0.0).run(
             ref_workload.warm_burst(n=n)))
         assert len(got) == len(want) == n + 1
@@ -72,8 +74,8 @@ def test_the_measured_cases_take_the_paths_they_stand_for():
     """At 1536 MB: the quick engine serves the burst from one warm
     container; a cold start past the 5 s gap and a batch past the 1 s
     interval each start more containers."""
-    colds = [sum(r.cold for r in simulator.Simulator(_specs(m)[0]).run(
-        simulator.warm_burst(n=10))) for m in MEASURED]
+    colds = [sum(r.cold for r in simulator.Simulator(_specs(m)[0], jitter=0.0).run(
+        workload.warm_burst(n=10))) for m in MEASURED]
     assert colds[0] == 1 and colds[1] > 1 and colds[2] > 1 and colds[3] > 1
 
 
@@ -82,8 +84,8 @@ def test_records_follow_the_reference_across_a_keepalive_eviction():
     again, and a burst after them reuses the most recent container."""
     mine, ref = _specs(MEASURED[0])
     arrivals = [0.0, 700.0, 720.0, 721.0, 1500.0, 1530.0]
-    got = simulator.Simulator(mine).run([simulator.Request(i, t)
-                                         for i, t in enumerate(arrivals)])
+    got = simulator.Simulator(mine, jitter=0.0).run([workload.Request(i, t)
+                                                     for i, t in enumerate(arrivals)])
     want = list(ref_simulator.Simulator(ref, jitter=0.0).run(
         [ref_workload.Request(i, t) for i, t in enumerate(arrivals)]))
     assert [(r.cold, r.end_s) for r in got] == [(r.cold, r.end_s) for r in want]
@@ -94,12 +96,12 @@ def test_cold_start_breakdown_and_warm_burst_equal_the_reference():
     for m in MEASURED:
         for memory_mb in (128, 640, 1536):
             mine, ref = _specs(m, memory_mb)
-            a = simulator.cold_start_breakdown(mine)
+            a = container.cold_start_breakdown(mine)
             b = ref_container.cold_start_breakdown(ref)
             assert (a.provision_s, a.bootstrap_s, a.load_s, a.total_s) == \
                 (b.provision_s, b.bootstrap_s, b.load_s, b.total_s)
     for kw in ({}, {"n": 10}, {"n": 1}):
-        assert [(r.rid, r.arrival_s, r.tag) for r in simulator.warm_burst(**kw)] == \
+        assert [(r.rid, r.arrival_s, r.tag) for r in workload.warm_burst(**kw)] == \
             [(r.rid, r.arrival_s, r.tag) for r in ref_workload.warm_burst(**kw)]
 
 
@@ -123,10 +125,29 @@ def test_function_spec_refuses_what_the_reference_refuses():
             k: v for k, v in dataclasses.asdict(big).items()}), memory_mb=1536)
 
 
-def test_a_jitter_other_than_zero_raises():
-    mine, _ = _specs(MEASURED[0])
-    with pytest.raises(ValueError, match="jitter"):
-        simulator.Simulator(mine, jitter=0.03)
+@pytest.mark.parametrize("seed", [0, 5])
+def test_records_equal_the_reference_simulator_at_the_default_jitter(seed):
+    """At the reference's default jitter of 0.03 the lognormal draws come
+    from the same seeded numpy stream: every field of every record, the
+    container ids and the cold starts equal the reference's."""
+    for m in MEASURED:
+        mine, ref = _specs(m)
+        trace = workload.warm_burst(n=25) + [workload.Request(26 + i, 700.0 + 0.3 * i)
+                                             for i in range(8)]
+        ref_trace = ref_workload.warm_burst(n=25) + [
+            ref_workload.Request(26 + i, 700.0 + 0.3 * i) for i in range(8)]
+        container._ids = itertools.count()
+        sim = simulator.Simulator(mine, seed=seed)
+        got = [dataclasses.astuple(r) for r in sim.run(trace)]
+        ref_container._ids = itertools.count()
+        ref_sim = ref_simulator.Simulator(ref, seed=seed)
+        want = [dataclasses.astuple(r) for r in ref_sim.run(ref_trace)]
+        assert sim.jitter == ref_sim.jitter == 0.03
+        assert got == want and len(got) == 34
+        assert sim.cold_starts == ref_sim.cold_starts
+    # the jitter is drawn: another seed moves the times
+    assert got != [dataclasses.astuple(r) for r in simulator.Simulator(mine, seed=seed + 1).run(
+        trace)]
 
 
 def test_serve_cli_serverless_prints_the_reference_simulators_times(capsys):
