@@ -127,7 +127,18 @@ failure exits non-zero:
      (refused on ``lambda``), the paper's cold, warm and scalability
      experiments for each and one shared fleet, every report printed with
      its SLA, and deepseek-7b's zero-jitter cold response held to its
-     cold-start breakdown plus its warm response;
+     cold-start breakdown plus its warm response; then, on the same cache
+     (``scenario_step``, host time only, nothing measured), every named
+     scenario whose fleet the cache holds (all but ``sharded_110b``, whose
+     qwen1.5-110b no single card holds at full width; printed as not run,
+     with its size) at scale 1.0: ``ExperimentSpec(name, winner,
+     versus="baseline")`` and ``versus=rival`` on a platform built with
+     ``calibrated=`` the cache, each result's ``summary_line``, every
+     request recorded and every time finite, a repeat run and
+     ``run_specs`` with one and two workers giving equal rows, and
+     ``gpu_serverless``'s ``adaptive`` beating ``baseline`` on cold rate and
+     p95 on the card's deepseek-7b entry (the other verdicts printed, not
+     gated); then the memory advisor's tier for each CNN on its card entry;
   10. (after 8, every engine freed) phase 6's K4/K5 timings, then training
      (``train_phase``): deepseek-7b at full width and 20 of its 30 layers
      and rwkv6-1.6b at full width and depth (``tmix.wo`` redrawn), batch 4,
@@ -212,6 +223,7 @@ from itertools import count
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -4075,6 +4087,7 @@ def calibration_phase(dev) -> None:
         if calibration.load_cache(path) != cache:
             raise SystemExit("calibration: the cache file does not load back as written")
         platform_step(path)
+        scenario_step(path)
     log(f"[calibration] {len(cache['models'])} models in {wall:.1f} s; host "
         f"{json.dumps(cache['host'])}")
     for name in CALIBRATED:
@@ -4109,6 +4122,161 @@ PLATFORM_CNN_MB, PLATFORM_LLM_MB = 1024, 16384
 PLATFORM_MAX_S = 15.0
 # the identity a zero-jitter cold start keeps, in seconds
 PLATFORM_TOL_S = 1e-9
+
+
+# the scenario step: every named scenario whose fleet the card's cache holds,
+# at scale 1.0; host time only
+SCENARIO_MAX_S = 120.0
+# the one scenario whose model no single card holds, and its advisor's SLA
+SCENARIO_LEFT_OUT = "sharded_110b"
+ADVISOR_P95_S = 0.6
+
+
+def _row(result) -> dict:
+    """An ``ExperimentResult``'s ``run_stack`` row (its spec, fleet, trace
+    length, effective stack and verdict dropped)."""
+    drop = {"spec", "n_requests", "fleet", "effective_stack", "verdict"}
+    return {k: v for k, v in result.to_dict().items() if k not in drop}
+
+
+def scenario_step(path: str) -> None:
+    """The port's named scenarios on the cache phase 8 just wrote, at scale
+    1.0, each through ``ExperimentSpec(name, winner, versus="baseline")``
+    (and ``versus=rival`` where the scenario names one) on a platform built
+    with ``calibrated=`` that cache, so that nothing is read, measured or
+    estimated from anything but the card's entries (``measure_model`` fails
+    if called).  ``sharded_110b`` is not run: no single card holds
+    qwen1.5-110b at full width, so no cache holds its entry; the reason is
+    printed with the model's size.  Checks: every request of each trace has
+    a record and every time is finite; a second run of the same specs gives
+    equal rows; ``run_specs`` with two workers gives the rows of one worker
+    and of ``ExperimentSpec.run``; on ``gpu_serverless`` (deepseek-7b,
+    measured through K1 and K2) ``adaptive`` beats ``baseline`` on cold rate
+    and p95.  The other verdicts are findings, printed and not gated.  Then
+    the memory advisor for each CNN on its card entry, over a 25-request
+    warm burst against a 0.6 s p95 across the paper's tiers."""
+    from repro_torch.configs.registry import get
+    from repro_torch.core import advisor, calibration, scenarios, sla, workload
+    from repro_torch.core.cluster import policies
+    from repro_torch.core.function import PAPER_TIERS
+    from repro_torch.core.platform import ServerlessPlatform
+    from repro_torch.core.stack import ExperimentSpec, run_specs
+
+    def refuse(name, **kw):
+        raise SystemExit(f"scenario: {name} was measured; the step must measure nothing")
+
+    t0 = time.perf_counter()
+    with mock.patch.object(calibration, "measure_model", refuse):
+        cache = calibration.load_cache(path, device="cuda")
+        if cache is None:
+            raise SystemExit(f"scenario: the cache at {path} does not load")
+        default = Path(calibration.default_cal_path())
+        measured = policies._measured_models()
+        log(f"[scenario] the scaling estimates' measured entries: {sorted(measured)} from "
+            f"{default} ({'present' if default.exists() else 'absent'}); every handler "
+            f"comes from the cache phase 8 wrote")
+        held, specs, skipped = set(cache["models"]), {}, []
+        for name in scenarios.names():
+            sc = scenarios.get(name)
+            missing = sorted({f.model for f in sc.functions} - held)
+            if missing:
+                skipped.append(name)
+                cfg = get(missing[0]).config
+                n = cfg.param_count()
+                gb = n * torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size() / 1e9
+                card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+                log(f"[scenario] {name}: not run; its fleet needs {missing}, which the cache "
+                    f"does not hold: {missing[0]} at full width has {n / 1e9:.2f} B parameters, "
+                    f"{gb:.1f} GB in {cfg.param_dtype}, over this card's {card_gb:.1f} GB, so "
+                    f"no single card measures it")
+                continue
+            specs[name] = [ExperimentSpec(name, sc.expected_winner, versus=v)
+                           for v in ["baseline"] + ([sc.rival] if sc.rival else [])]
+        if skipped != [SCENARIO_LEFT_OUT]:
+            raise SystemExit(f"scenario: {skipped} not run; only {SCENARIO_LEFT_OUT} may be")
+
+        def run_all() -> dict:
+            out = {}
+            for name, runs in specs.items():
+                plat = ServerlessPlatform(seed=0, calibrated=cache)
+                out[name] = [spec.run(plat) for spec in runs]
+            return out
+
+        t1 = time.perf_counter()
+        results = run_all()
+        first_s = time.perf_counter() - t1
+        for name, runs in results.items():
+            for r in runs:
+                o = r.verdict["versus_row"]
+                log(f"[scenario] {r.summary_line()}; n_requests {r.n_requests}, fleet of "
+                    f"{len(r.fleet)}, SLA {r.sla} violations {r.sla_violations}; "
+                    f"unrounded: cold rate {r.cold_rate!r}, p95 {r.p95_s!r} s, $/1k "
+                    f"{r.cost_per_1k!r}; {r.verdict['versus']}: cold rate "
+                    f"{o['cold_rate']!r}, p95 {o['p95_s']!r} s, $/1k {o['cost_per_1k']!r}, "
+                    f"SLA {'ok' if o['sla_ok'] else 'FAIL'}")
+                for row in (_row(r), r.verdict["versus_row"]):
+                    times = [row[k] for k in ("p50_s", "p95_s", "p99_s", "cost_per_1k",
+                                              "mitigation_per_1k")]
+                    if row["n"] != r.n_requests or not all(math.isfinite(x) for x in times):
+                        raise SystemExit(f"scenario: {name} served {row['n']} of "
+                                         f"{r.n_requests} requests, or a time is not "
+                                         f"finite: {times}")
+        again = run_all()
+        if {n: [r.to_dict() for r in v] for n, v in again.items()} != \
+                {n: [r.to_dict() for r in v] for n, v in results.items()}:
+            raise SystemExit("scenario: a second run of the same specs gave other rows")
+        units, want = [], []
+        for name, runs in results.items():
+            units.append(ExperimentSpec(name, runs[0].spec.stack))
+            want.append(_row(runs[0]))
+            for r in runs:
+                units.append(ExperimentSpec(name, r.verdict["versus"]))
+                want.append(r.verdict["versus_row"])
+        t1 = time.perf_counter()
+        serial = run_specs(units, calibrated=cache)
+        serial_s = time.perf_counter() - t1
+        how = "forked" if threading.active_count() == 1 else "spawned"
+        t1 = time.perf_counter()
+        parallel = run_specs(units, jobs=2, calibrated=cache)
+        parallel_s = time.perf_counter() - t1
+        if serial != want:
+            raise SystemExit("scenario: run_specs gave other rows than ExperimentSpec.run")
+        if parallel != serial:
+            raise SystemExit("scenario: run_specs with two workers gave other rows than one")
+        log(f"[scenario] {len(units)} work units: run_specs serial {serial_s:.2f} s, two "
+            f"workers ({how}) {parallel_s:.2f} s, rows equal to each other, to "
+            f"ExperimentSpec.run's and to a repeat run's")
+        gpu = results["gpu_serverless"][0]
+        base = gpu.verdict["versus_row"]
+        log(f"[scenario] gpu_serverless on the card's deepseek-7b entry: adaptive cold rate "
+            f"{gpu.cold_rate!r} p95 {gpu.p95_s!r} s against baseline {base['cold_rate']!r} "
+            f"{base['p95_s']!r} s")
+        if not (gpu.cold_rate < base["cold_rate"] and gpu.p95_s < base["p95_s"]):
+            raise SystemExit("scenario: gpu_serverless' adaptive does not beat baseline on "
+                             "cold rate and p95 on the card's numbers")
+        verdicts = {f"{r.spec.scenario} vs {r.verdict['versus']}":
+                    "WIN" if r.verdict["win"] else "NO-WIN"
+                    for runs in results.values() for r in runs}
+        log(f"[scenario] verdicts (findings, not gated): {json.dumps(verdicts)}")
+        plat = ServerlessPlatform(seed=0, calibrated=cache)
+        grade = sla.SLA("x", p95_s=ADVISOR_P95_S)
+        for name in calibration.PAPER_MODELS:
+            h = plat.deploy_model(name, PLATFORM_CNN_MB).handler
+            best, reports, ok = advisor.recommend(h, workload.warm_burst(n=25), grade,
+                                                  tiers=PAPER_TIERS, seed=0)
+            if best is None:
+                raise SystemExit(f"scenario: the advisor found no feasible tier for {name}")
+            log(f"[advisor] {name} (warm exec {h.base_cpu_seconds!r} s, peak "
+                f"{h.peak_memory_mb} MB): recommends {best.memory_mb} MB, SLA p95 <= "
+                f"{ADVISOR_P95_S} s {'met' if ok else 'NOT met (lowest p99 instead)'}; "
+                f"mean {best.mean_response_s!r} s, p99 {best.p99_s!r} s, cost "
+                f"{best.total_cost!r}; {sum(r.feasible for r in reports)} of "
+                f"{len(reports)} tiers feasible, {sum(r.sla_ok for r in reports)} meet it")
+    wall = time.perf_counter() - t0
+    log(f"[scenario] step took {wall:.2f} s of host time ({len(specs)} scenarios, first "
+        f"pass {first_s:.2f} s); nothing measured")
+    if wall > SCENARIO_MAX_S:
+        raise SystemExit(f"scenario: the step took {wall:.1f} s, over {SCENARIO_MAX_S} s")
 
 
 def _report_line(name: str, what: str, rep, sla_eval: dict) -> str:

@@ -10,13 +10,15 @@ legacy per-axis kwargs, which are a thin shim that builds one — to move off
 the Lambda-2017 defaults, and use ``invoke_fleet`` to serve every deployed
 function from one shared cluster.
 
-The reference's named scenarios (``repro.core.scenarios``: sparse / bursty /
-diurnal / flash-crowd / multi-function) deploy their fleets through its copy
-of this facade; they are not ported here.
+For ready-made workload regimes (sparse / bursty / diurnal / flash-crowd /
+multi-function / multi-tenant / GPU-serverless / sharded / chaos) use
+``repro_torch.core.scenarios``: each named scenario deploys its fleet
+through this facade, and ``repro_torch.core.stack.ExperimentSpec`` and
+``run_specs`` run policy stacks over it.
 
 The port's counterpart of ``repro.core.platform``: the same arithmetic,
 in the same order, on the same explicitly seeded numpy streams, so
-that the two give equal results on equal inputs.  It differs in three
+that the two give equal results on equal inputs.  It differs in four
 ways, each because the port measures on its own engine:
 
   * no environment variable: the constructor takes ``device`` (the card
@@ -30,7 +32,15 @@ ways, each because the port measures on its own engine:
     measure;
   * deploying an unmeasured registry language model measures it through
     the port's engine (on the card, through its kernels) and persists the
-    entry to the cache.
+    entry to the cache;
+  * ``calibrated=`` takes an already loaded v2 cache dict in place of the
+    reference's pinned language-model numbers: the handlers are built from
+    its entries, the platform reads no file, measures nothing and touches
+    no device, a registry model the dict lacks raises ``KeyError``, and a
+    paper CNN it lacks takes the paper's figure.  This is how the named
+    scenarios of registry models (``gpu_serverless``, ``sharded_110b``)
+    run: on the card from the card's own cache, in the CPU tests from the
+    reference's pinned entries handed across as a dict.
 """
 from __future__ import annotations
 
@@ -118,7 +128,7 @@ class ServerlessPlatform:
     * ``max_containers`` — shared cluster-wide container cap (0 =
       unlimited); the contention knob in ``multi_function``.
 
-    The reference's ``repro.core.scenarios`` names the regimes these
+    See ``repro_torch.core.scenarios`` for the named regimes these
     expectations are graded in.
     """
 
@@ -126,6 +136,7 @@ class ServerlessPlatform:
                  use_fallback_calibration: bool = False,
                  device="cuda", smoke: bool = False,
                  calibration_path: Optional[str] = None,
+                 calibrated: Optional[dict] = None,
                  stack: Optional[PolicyStack] = None,
                  placement=_UNSET, keepalive=_UNSET, scaling=_UNSET,
                  coldstart=_UNSET, concurrency=_UNSET,
@@ -153,8 +164,16 @@ class ServerlessPlatform:
         self.functions: dict[str, FunctionSpec] = {}
         self.device, self.smoke = device, smoke
         self.calibration_path = calibration_path or calibration.default_cal_path()
-        self._cal = None if use_fallback_calibration else calibration.calibrate(
-            self.calibration_path, smoke=smoke, device=device)
+        if calibrated is not None and use_fallback_calibration:
+            raise ValueError("calibrated= and use_fallback_calibration=True "
+                             "conflict: give one source of handler numbers")
+        # a given cache is final: nothing is read, measured or persisted
+        self._frozen = calibrated is not None
+        if self._frozen:
+            self._cal = calibrated
+        else:
+            self._cal = None if use_fallback_calibration else calibration.calibrate(
+                self.calibration_path, smoke=smoke, device=device)
         self._fallback = use_fallback_calibration
 
     # ------------------------------------------------------------------
@@ -174,14 +193,20 @@ class ServerlessPlatform:
         engine handler (per-model phase costs + batch-efficiency curve
         from the calibration cache, measured first through the port's
         engine when absent; ``KeyError`` when the platform runs
-        fallback-calibrated).  ``provider`` picks the
+        fallback-calibrated, or when a ``calibrated=`` cache lacks the
+        model).  ``provider`` picks the
         ``repro_torch.core.providers`` profile the function runs on."""
         if model in calibration.PAPER_MODELS:
             h = calibration.paper_handler(model, calibrated=self._cal,
                                           use_fallback=self._fallback)
         else:
-            if not self._fallback and model not in (
-                    self._cal or {}).get("models", {}):
+            missing = model not in (self._cal or {}).get("models", {})
+            if self._frozen and missing:
+                raise KeyError(
+                    f"{model!r} is not in the calibration given as calibrated= "
+                    f"(it holds {sorted(self._cal.get('models', {}))}); this "
+                    f"platform measures nothing")
+            if not self._fallback and missing:
                 self._cal = calibration.ensure_measured(
                     self._cal, model, self.calibration_path, smoke=self.smoke,
                     device=self.device)

@@ -1,4 +1,4 @@
-"""First-class policy configuration: PolicyStack and run_stack.
+"""First-class policy configuration: PolicyStack and ExperimentSpec.
 
 The paper's follow-up question — which scheduling policies close the
 cold-start gap, in which regimes — made policy selection the repo's
@@ -20,20 +20,25 @@ policy configuration a *value*:
     between runs is guaranteed — no deep-copy rules at call sites),
     ``with_()`` derives variants, ``to_dict()/from_dict()`` give a JSON
     round-trip, and ``grid()`` expands sweep cross-products.
-  * ``run_stack`` runs one stack on one trace and summarizes it.  The
-    reference's ``ExperimentSpec``, ``ExperimentResult``, ``run_specs``
-    and ``pool_executor`` (``repro/core/stack.py``, from its
-    ``ExperimentSpec``) need its named scenarios and are not ported
-    here.
+  * ``ExperimentSpec`` names one reproducible experiment — scenario +
+    stack + seed + scale (+ an optional ``versus`` stack to grade
+    against) — and ``run()`` returns a structured ``ExperimentResult``.
+    ``ExperimentSpec.from_file`` loads a spec from a JSON file, so every
+    published number is reproducible from one artifact; ``run_specs``
+    fans specs out over a process pool (``pool_executor``).
 
 Stacks express the *registry* policies (the ones a sweep can name); a
 hand-written policy subclass can still be handed to ``ClusterSimulator``
 directly through its legacy kwargs, which remain supported.
 
-The port's counterpart of ``repro.core.stack`` up to and including
-``run_stack``: the same arithmetic, in the same order, on the same
-explicitly seeded numpy streams, so that the two give equal results on
-equal inputs.
+The port's counterpart of ``repro.core.stack``: the same arithmetic, in
+the same order, on the same explicitly seeded numpy streams, so that the
+two give equal results on equal inputs.  One difference: the port pins no
+language-model numbers, so ``run_specs`` and the scenario context take an
+already loaded calibration (``calibrated=``, a v2 cache dict) for the
+scenarios whose fleets hold a registry model, and a worker never touches
+the device (the parent resolves the measured scaling entries before the
+pool starts).
 """
 from __future__ import annotations
 
@@ -581,10 +586,10 @@ BASELINE = PolicyStack()
 # ------------------------------------------------------------------- running
 def run_stack(specs, trace, stack: PolicyStack, *, seed: int = 0, sla=None,
               scenario=None, faults=None) -> dict:
-    """Run one stack on one trace and summarize it (the reference's
-    scenario suite and ``ExperimentSpec.run`` run through its copy).
+    """Run one stack on one trace and summarize it — the single runner
+    behind ``ExperimentSpec.run`` and ``run_specs``.
 
-    ``scenario`` (a ``Scenario`` of the reference's named scenarios) applies its tuned
+    ``scenario`` (a ``repro_torch.core.scenarios.Scenario``) applies its tuned
     per-axis configs and shared container cap via ``Scenario.tune`` before
     materializing.  Policies are always materialized fresh, so repeated
     calls are bit-identical.
@@ -634,3 +639,291 @@ def run_stack(specs, trace, stack: PolicyStack, *, seed: int = 0, sla=None,
                                        if v)
     return row
 
+
+# ------------------------------------------------------------ ExperimentSpec
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    """One reproducible experiment: a scenario name, the stack to run on
+    it, the simulator seed, and the trace scale.  ``versus`` optionally
+    names a ``POLICY_STACKS`` entry to grade against (the suite's verdict
+    rule: win on both cold rate and p95), so a single JSON artifact can
+    reproduce a suite verdict end to end.
+
+    The scenario's own trace seed stays inside the scenario (that is what
+    makes two specs on the same scenario comparable); ``seed`` here is the
+    cluster's RNG seed (jitter draws).
+
+    ``tuned`` (default True) lets axes left at their default-for-kind form
+    pick up the scenario's tuned configs and shared cap (``Scenario.tune``
+    — the suite's semantics, and what makes a by-name stack reproduce a
+    suite verdict).  Set it False to run the stack verbatim — e.g. to
+    measure a tuned scenario *without* its provisioned floor.
+    """
+
+    scenario: str
+    stack: PolicyStack = BASELINE
+    seed: int = 0
+    scale: float = 1.0
+    versus: str = ""
+    tuned: bool = True
+
+    def __post_init__(self):
+        if isinstance(self.stack, str):
+            object.__setattr__(self, "stack", _named_stack(self.stack))
+        elif isinstance(self.stack, Mapping):
+            object.__setattr__(self, "stack",
+                               PolicyStack.from_dict(self.stack))
+        elif not isinstance(self.stack, PolicyStack):
+            raise TypeError(f"stack must be a PolicyStack, a POLICY_STACKS "
+                            f"name, or a stack dict, got {self.stack!r}")
+
+    # ---------------------------------------------------------- serialization
+    def to_dict(self) -> dict:
+        return {"scenario": self.scenario, "stack": self.stack.to_dict(),
+                "seed": self.seed, "scale": self.scale,
+                "versus": self.versus, "tuned": self.tuned}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "ExperimentSpec":
+        return cls(**dict(d))
+
+    @classmethod
+    def from_file(cls, path: str) -> "ExperimentSpec":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    # ------------------------------------------------------------------- run
+    def run(self, platform=None) -> "ExperimentResult":
+        """Deploy the scenario's fleet, build its trace at ``scale``, run
+        the stack (and the ``versus`` stack on the same trace, if named),
+        and return a structured result.
+
+        With ``tuned`` (the default), axes left at their default-for-kind
+        form pick up the scenario's tuned configs (``Scenario.tune``) and
+        non-default knobs always win; with ``tuned=False`` the stack runs
+        verbatim.  ``ExperimentResult.effective_stack`` records what
+        actually ran either way.
+
+        Without ``platform`` the fleet deploys on a fallback-calibrated
+        platform, where a registry language model raises ``KeyError``:
+        give a platform built with ``calibrated=`` for those scenarios."""
+        from repro_torch.core import scenarios
+        from repro_torch.core.platform import ServerlessPlatform
+        sc = scenarios.get(self.scenario)
+        platform = platform or ServerlessPlatform(
+            seed=0, use_fallback_calibration=True)
+        specs = sc.deploy(platform)
+        trace = sc.build_trace([s.name for s in specs], scale=self.scale)
+        # tune exactly once, run what was tuned: the report's
+        # effective_stack is by construction the stack that produced it
+        effective = sc.tune(self.stack) if self.tuned else self.stack
+        row = run_stack(specs, trace, effective, seed=self.seed, sla=sc.sla,
+                        faults=sc.faults)
+        verdict = None
+        if self.versus:
+            vs = _named_stack(self.versus)
+            other = run_stack(specs, trace,
+                              sc.tune(vs) if self.tuned else vs,
+                              seed=self.seed, sla=sc.sla, faults=sc.faults)
+            if sc.faults is not None:
+                # fault scenarios grade on what reliability buys: meet the
+                # SLA (availability floor included) and recover more
+                # availability than the rival under identical faults
+                win = bool(row["sla_ok"] and
+                           row["availability"] > other["availability"])
+            else:
+                win = bool(row["cold_rate"] < other["cold_rate"]
+                           and row["p95_s"] < other["p95_s"])
+            verdict = {"versus": self.versus, "versus_row": other,
+                       "win": win}
+        return ExperimentResult(
+            spec=self, n_requests=len(trace), fleet=[s.name for s in specs],
+            effective_stack=effective.to_dict(), verdict=verdict, **row)
+
+
+def _named_stack(name: str) -> PolicyStack:
+    """Resolve a ``POLICY_STACKS`` name (late import: ``scenarios`` imports
+    this module at load time)."""
+    from repro_torch.core.scenarios import POLICY_STACKS
+    try:
+        return POLICY_STACKS[name]
+    except KeyError:
+        raise KeyError(f"unknown policy stack {name!r}; "
+                       f"known: {sorted(POLICY_STACKS)}") from None
+
+
+@dataclasses.dataclass
+class ExperimentResult:
+    """Structured outcome of ``ExperimentSpec.run`` — the suite's per-combo
+    row plus provenance (the spec itself) and, when ``versus`` was set, a
+    verdict.  ``to_dict()`` is the report artifact."""
+
+    spec: ExperimentSpec
+    n: int
+    n_requests: int
+    fleet: list
+    cold_rate: float
+    cold_starts: int
+    p50_s: float
+    p95_s: float
+    p99_s: float
+    cost_per_1k: float
+    mitigation_per_1k: float
+    evictions: int
+    prewarms: int
+    availability: float = 1.0
+    failed: int = 0
+    attempts: float = 1.0
+    hedge_per_1k: float = 0.0
+    sla: str = ""
+    sla_ok: bool = True
+    sla_violations: list = dataclasses.field(default_factory=list)
+    # the stack that actually ran, after Scenario.tune substituted tuned
+    # axis configs / the shared cap — the report's audit trail when the
+    # spec's stack left a tuned axis at its default-for-kind form
+    effective_stack: Optional[dict] = None
+    verdict: Optional[dict] = None
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["spec"] = self.spec.to_dict()
+        return d
+
+    def summary_line(self) -> str:
+        line = (f"{self.spec.scenario}: n={self.n} "
+                f"cold={self.cold_rate:.2%} p95={self.p95_s:.3f}s "
+                f"$/1k={self.cost_per_1k:.4f} "
+                f"sla={'ok' if self.sla_ok else 'FAIL'}")
+        if self.failed or self.attempts > 1.0:
+            line += (f" avail={self.availability:.3%} "
+                     f"attempts={self.attempts:.2f}")
+        if self.verdict is not None:
+            o = self.verdict["versus_row"]
+            line += (f" | vs {self.verdict['versus']}: cold "
+                     f"{o['cold_rate']:.2%} -> {self.cold_rate:.2%}, p95 "
+                     f"{o['p95_s']:.3f}s -> {self.p95_s:.3f}s "
+                     f"[{'WIN' if self.verdict['win'] else 'NO-WIN'}]")
+        return line
+
+
+# ------------------------------------------------------ parallel sweep runner
+# Every ``run_stack`` call is an independent work unit by construction
+# (stacks are frozen canonical values, policies materialize fresh per run),
+# so a grid sweep fans out over a process pool.  The worker-side scenario
+# context — deployed fleet + generated trace — is built ONCE per (scenario,
+# scale, calibration) per worker and cached, so a grid shares one trace per
+# worker instead of regenerating it per point.  Traces are deterministic
+# functions of (scenario, scale), which is what makes the worker-built
+# context identical to the parent's and the merged rows identical to a
+# serial run.
+
+_WORKER_CTX: dict = {}
+
+
+def _scenario_ctx(name: str, scale: float, calibrated=None) -> tuple:
+    """(scenario, specs, trace) for one scenario at one trace scale on one
+    calibration, cached per process.  Without ``calibrated`` it uses the
+    default platform (seed 0, fallback calibration); with it, a seed-0
+    platform over that cache (``ServerlessPlatform(calibrated=...)``, which
+    reads no file and measures nothing) — the configurations a worker can
+    rebuild exactly.  The cache is part of the key, so two calibrations
+    never share a deployed fleet."""
+    key = (name, scale,
+           None if calibrated is None else json.dumps(calibrated, sort_keys=True))
+    ctx = _WORKER_CTX.get(key)
+    if ctx is None:
+        from repro_torch.core import scenarios
+        from repro_torch.core.platform import ServerlessPlatform
+        sc = scenarios.get(name)
+        if calibrated is None:
+            platform = ServerlessPlatform(seed=0, use_fallback_calibration=True)
+        else:
+            platform = ServerlessPlatform(seed=0, calibrated=calibrated)
+        fleet_specs = sc.deploy(platform)
+        trace = sc.build_trace([s.name for s in fleet_specs], scale=scale)
+        _WORKER_CTX[key] = ctx = (sc, fleet_specs, trace)
+    return ctx
+
+
+def _spec_row(spec: "ExperimentSpec", calibrated=None) -> dict:
+    """Process-pool work unit: one ExperimentSpec -> one run_stack row."""
+    sc, fleet_specs, trace = _scenario_ctx(spec.scenario, spec.scale, calibrated)
+    return run_stack(fleet_specs, trace, spec.stack, seed=spec.seed,
+                     sla=sc.sla, scenario=sc if spec.tuned else None,
+                     faults=sc.faults)
+
+
+def _worker_init(measured: dict) -> None:
+    """Hand a worker the parent's measured scaling entries, so that
+    ``warm_exec_estimate`` never reads a cache or asks for a card there."""
+    from repro_torch.core.cluster import policies
+    policies._MEASURED_MODELS = measured
+
+
+def run_specs(specs: Sequence, *, jobs: int = 1, calibrated=None) -> list:
+    """Run ``ExperimentSpec`` work units, optionally in parallel.
+
+    Returns one ``run_stack`` row per spec, in input order.  ``jobs <= 1``
+    runs in-process; ``jobs > 1`` fans the pickled specs out over a
+    process pool (``fork`` start method where available, so workers
+    inherit ``sys.path``).  A worker exception propagates to the caller
+    immediately — a raising spec fails the sweep instead of hanging it.
+
+    ``calibrated`` (a loaded v2 calibration cache) deploys each scenario's
+    fleet from that cache (``ServerlessPlatform(calibrated=...)``), as the
+    scenarios of registry language models need; the workers get it with
+    each spec.
+
+    Work units must name *registered* scenarios (workers resolve them via
+    ``repro_torch.core.scenarios.get``); results merge back positionally,
+    so callers key rows by the spec's canonical ``PolicyStack`` equality.
+    """
+    specs = [s if isinstance(s, ExperimentSpec) else ExperimentSpec.from_dict(s)
+             for s in specs]
+    if jobs <= 1:
+        return [_spec_row(s, calibrated) for s in specs]
+    with pool_executor(jobs) as pool:
+        return list(pool.map(_spec_row, specs, [calibrated] * len(specs)))
+
+
+def pool_executor(jobs: int):
+    """The repo's standard sweep pool — one definition so every ``--jobs``
+    surface builds it identically.
+
+    A worker never touches the device: a worker forked from a parent that
+    has initialised CUDA cannot, and a spawned one need not.  So the
+    measured entries that the scaling estimates read
+    (``policies._measured_models()``, which asks for a card) are resolved
+    here, in the parent, and handed to every worker as a plain dict.
+
+    Start method: ``fork`` while the parent is single-threaded (workers
+    inherit ``sys.path`` and loaded modules — the cheap, common case),
+    else ``spawn`` — forking a multithreaded parent can deadlock a child
+    on a lock the fork snapshotted mid-held.  Spawned workers re-import
+    this package, so the package root is propagated via ``PYTHONPATH``
+    for children launched outside the documented ``PYTHONPATH=src``
+    workflows."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import threading
+
+    from repro_torch.core.cluster import policies
+    measured = policies._measured_models()
+    method = "fork" if threading.active_count() == 1 else "spawn"
+    try:
+        mp_ctx = mp.get_context(method)
+    except ValueError:                      # platforms without fork at all
+        method = "spawn"                    # ... default to spawn semantics
+        mp_ctx = None
+    if method == "spawn":
+        # spawn workers are created lazily (after this returns), so the
+        # path must go through the parent's environ — a deliberately
+        # persistent, idempotent addition of the package root only
+        import os
+        import repro_torch
+        src = os.path.dirname(next(iter(repro_torch.__path__)))
+        pp = os.environ.get("PYTHONPATH", "")
+        if src not in pp.split(os.pathsep):
+            os.environ["PYTHONPATH"] = src + (os.pathsep + pp if pp else "")
+    return cf.ProcessPoolExecutor(max_workers=jobs, mp_context=mp_ctx,
+                                  initializer=_worker_init, initargs=(measured,))

@@ -63,7 +63,8 @@ def test_scan_sees_the_whole_port():
                    "core/cluster/__init__.py", "core/cluster/events.py",
                    "core/cluster/policies.py", "core/cluster/router.py",
                    "core/cluster/cluster.py", "core/stack.py", "core/metrics.py",
-                   "core/sla.py", "core/simulator.py", "core/platform.py"):
+                   "core/sla.py", "core/simulator.py", "core/platform.py",
+                   "core/scenarios.py", "core/keepalive.py", "core/advisor.py"):
         assert module in names
     assert ROOT / "tools" / "replay_determinism.py" in PORT_FILES
     assert "torch" in _imported_roots(ROOT / "src" / "repro_torch" / "__init__.py")
