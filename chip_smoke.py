@@ -7,16 +7,18 @@ Every serving family of the port at full width: deepseek-7b (the dense
 path, kernels K1 flash-attention and K2 flash-decode), granite-moe-3b-a800m
 (the MoE path: K1 and K2 at GQA 24/8 and head dim 64, exact-length
 prefills), mistral-nemo-12b (K1 and K2 at GQA 32/8 and head dim 128; the
-engine only), llava-next-mistral-7b (the vlm path: K1 over an image
-request's 2944 positions and K2 over a 3072 cache, GQA 32/8),
-rwkv6-1.6b (the RWKV-6 path, kernel K3 WKV-6), recurrentgemma-9b (the
-hybrid path: RG-LRU and ring-buffer local attention, no kernel) and
-whisper-tiny (the encoder-decoder, no kernel); the paper's three CNN
-payloads at 224 px; the calibration that turns eight of them into the
-serverless simulator's numbers; and training (deepseek-7b at 20 of its
-layers and rwkv6-1.6b, at full width, through K1 with its backward K1-bwd
-and K3 with K3-bwd, and AdamW through K4 grad_sumsq and K5 adamw_update,
-each step a replay of its captured CUDA graph).  Phases, in order; any
+engine only, at 20 of its 40 layers), llava-next-mistral-7b (the vlm path:
+K1 over an image request's 2944 positions and K2 over a 3072 cache, GQA
+32/8), rwkv6-1.6b (the RWKV-6 path, kernel K3 WKV-6), recurrentgemma-9b
+(the hybrid path: RG-LRU and ring-buffer local attention, no kernel; at 20
+of its 38 layers) and whisper-tiny (the encoder-decoder, no kernel); the
+paper's three CNN payloads at 224 px; the calibration that turns eight of
+them into the serverless simulator's numbers, and the replay of a winning
+policy stack on deepseek-7b's real server, held to the simulator; and
+training (deepseek-7b at 20 of its layers and rwkv6-1.6b, at full width,
+through K1 with its backward K1-bwd and K3 with K3-bwd, and AdamW through
+K4 grad_sumsq and K5 adamw_update, each step a replay of its captured CUDA
+graph).  Phases, in order; any
 failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), and the seconds of
      ``import torch`` and of the first CUDA context in a fresh process;
@@ -97,7 +99,8 @@ failure exits non-zero:
      and each one's bound; the prefill and the decode step each replayed
      (the trace must name K1's, K2's or K3's kernels, and a replayed prefill
      make one graph launch) and uncaptured, with the busy share of each;
-     then, with those engines freed, mistral-nemo-12b through the engine
+     then, with those engines freed, mistral-nemo-12b at full width and
+     ``MISTRAL_LAYERS`` of its 40 layers through the engine
      (batch 4, prompt 100 in bucket 128, 32 new): logits kernel against
      plain, replayed greedy and sampled tokens against the uncaptured ones,
      K1 and K2 counted, the peak memory, and its prefill and decode rows;
@@ -106,7 +109,8 @@ failure exits non-zero:
      seeded random patch embeddings, a float32 copy of the weights the gate;
      the engine at batch 2, prompt 2944 exact over the reference's zero
      patch embeddings, 32 new, replayed against uncaptured, K1 and K2
-     counted), recurrentgemma-9b (the engine at batch 1, prompt 3072, 16
+     counted), recurrentgemma-9b at full width and ``HYBRID_LAYERS`` of
+     its 38 layers (the engine at batch 1, prompt 3072, 16
      new, which wraps the ring and takes the chunked attention, and at
      batch 4, prompt 100, 32 new, replayed against uncaptured; a float32
      copy at 5 layers, the card against the CPU) and whisper-tiny (the
@@ -139,6 +143,16 @@ failure exits non-zero:
      ``gpu_serverless``'s ``adaptive`` beating ``baseline`` on cold rate and
      p95 on the card's deepseek-7b entry (the other verdicts printed, not
      gated); then the memory advisor's tier for each CNN on its card entry;
+     then, on the same cache (``replay_step``, nothing measured), the
+     sim-to-real replay (``repro_torch.core.replay_real``): gpu_serverless'
+     time-scaled trace under ``adaptive`` at scale 0.5 and ``baseline`` at
+     0.1, each warm request a real submit and run of deepseek-7b's
+     ``ContinuousServer`` at full width and each cold a real construction
+     and first serve (the graphs' capture), with K1 and K2 counted; each
+     metric's sim, real and error printed, both within the reference's
+     tolerances, every request served, and an evicted container's server
+     freed (the allocated memory after the last cold within one server of
+     that after the first);
   10. (after 8, every engine freed) phase 6's K4/K5 timings, then training
      (``train_phase``): deepseek-7b at full width and 20 of its 30 layers
      and rwkv6-1.6b at full width and depth (``tmix.wo`` redrawn), batch 4,
@@ -300,6 +314,14 @@ LLAVA_PROMPT, LLAVA_CACHE = 2944, 3072
 # during the prefill) and a multiple of 1024 past 2048 (the chunked attention)
 HYBRID_LONG = 3072
 ENGINE_CACHE = {"vlm": LLAVA_CACHE, "hybrid": HYBRID_LONG + 16}
+# phase 4+7's mistral-nemo-12b and recurrentgemma-9b run at full width and
+# this many of their 40 and 38 layers (recurrentgemma: six pattern units and
+# the 2-layer remainder, as at 38): with the replay step the script took
+# 1058 s of its 1200 on a slow host, these two phases 180.5 s of it at full
+# depth (an uncaptured step's launch calls grow with the depth);
+# llava-next-mistral-7b keeps K1 and K2 at mistral's GQA 32/8 and head dim
+# 128 at full depth
+MISTRAL_LAYERS = HYBRID_LAYERS = 20
 CALIBRATED = ["squeezenet", "resnet18", "resnext50", "deepseek-7b", "granite-moe-3b-a800m",
               "rwkv6-1.6b", "recurrentgemma-9b", "whisper-tiny"]
 # phase 10: deepseek-7b trains at 20 of its 30 layers (at 30 its bf16
@@ -4048,7 +4070,7 @@ def cnn_phase(dev) -> dict:
     return out
 
 
-def calibration_phase(dev) -> None:
+def calibration_phase(dev) -> dict:
     """Phase 8: the port's calibration of eight models at full width on the
     card, into a temporary cache file, every launch counter set to 0 before
     each model and read after it: K1 and K2 must launch while deepseek-7b
@@ -4056,7 +4078,9 @@ def calibration_phase(dev) -> None:
     while rwkv6-1.6b is; recurrentgemma-9b and whisper-tiny run no kernel
     and take no batch curve, as in the reference.  llava-next-mistral-7b is
     not calibrated: the reference's calibration of a vlm fails at its batch
-    curve, and the port's follows it."""
+    curve, and the port's follows it.  Then the platform, scenario and
+    replay steps on that cache; returns the kernels' launches in the
+    replay, a path of its own."""
     from repro_torch.core import calibration
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.decode import flash_decode as fd
@@ -4088,6 +4112,7 @@ def calibration_phase(dev) -> None:
             raise SystemExit("calibration: the cache file does not load back as written")
         platform_step(path)
         scenario_step(path)
+        replay = replay_step(path)
     log(f"[calibration] {len(cache['models'])} models in {wall:.1f} s; host "
         f"{json.dumps(cache['host'])}")
     for name in CALIBRATED:
@@ -4114,6 +4139,7 @@ def calibration_phase(dev) -> None:
         log(f"[calibration] handler {h}")
     log(f"[memory] calibration peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return replay
 
 
 # the platform step: the paper's CNNs on Lambda at its 1024 MB knee, and
@@ -4277,6 +4303,121 @@ def scenario_step(path: str) -> None:
         f"pass {first_s:.2f} s); nothing measured")
     if wall > SCENARIO_MAX_S:
         raise SystemExit(f"scenario: the step took {wall:.1f} s, over {SCENARIO_MAX_S} s")
+
+
+# the replay step: gpu_serverless' winner over about 200 requests, a few of
+# them cold, and baseline over about 40, about half of them cold
+REPLAY_RUNS = (("adaptive", 0.5), ("baseline", 0.1))
+REPLAY_MAX_S = 150.0
+
+
+def replay_step(path: str) -> dict:
+    """The sim-to-real replay (``repro_torch.core.replay_real``) on the cache
+    phase 8 just wrote: ``gpu_serverless``' trace, time-scaled, served by the
+    real ``ContinuousServer`` of deepseek-7b at full width (K1 in each
+    admission, K2 in each decode step; the first serve of each container
+    captures both graphs) and held to the simulator on the card's entry,
+    under ``adaptive`` at scale 0.5 and ``baseline`` at scale 0.1.
+    ``measure_model`` fails if called.  Each run's container class is
+    watched: at each cold no other container may hold a server, and the
+    card's allocated memory after the last cold may exceed that after the
+    first by no more than one server's footprint (the first cold's
+    allocation over the run's start).  Checks: both reports within the
+    reference's tolerances, every request served once with a finite wall,
+    K1 and K2 launched in each run, the memory back under one footprint
+    above the start after each run.  Returns the launches of both runs."""
+    from repro_torch.core import calibration, replay_real
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.decode import flash_decode as fd
+    from repro_torch.kernels.rwkv import wkv
+
+    def refuse(name, **kw):
+        raise SystemExit(f"replay: {name} was measured; the cache phase 8 wrote must hold it")
+
+    card = card_line()
+    t0 = time.perf_counter()
+    launches = {"flash_attention": 0, "flash_decode": 0, "wkv6": 0}
+    for stack, scale in REPLAY_RUNS:
+        made, mem = [], []
+        base = torch.cuda.memory_allocated()
+
+        class Watched(replay_real._RealContainer):
+            def __init__(self, *a, **kw):
+                if any(c.server is not None for c in made):
+                    raise SystemExit("replay: a retired container still holds its server")
+                super().__init__(*a, **kw)
+                self.walls = []
+                made.append(self)
+
+            def serve(self, rid, prompt, n_new):
+                wall = super().serve(rid, prompt, n_new)
+                self.walls.append(wall)
+                if len(self.walls) == 1:
+                    mem.append(torch.cuda.memory_allocated())
+                return wall
+
+        flash.launches = fd.launches = wkv.launches = 0
+        t1 = time.perf_counter()
+        with mock.patch.object(calibration, "measure_model", refuse), \
+                mock.patch.object(replay_real, "_RealContainer", Watched):
+            rep = replay_real.replay("gpu_serverless", stack_name=stack, scale=scale,
+                                     path=path, device="cuda")
+        run_s = time.perf_counter() - t1
+        ran = {"flash_attention": flash.launches, "flash_decode": fd.launches,
+               "wkv6": wkv.launches}
+        after = torch.cuda.memory_allocated()
+        # each capture's warm-up runs on a new side stream, and cuBLAS keeps a
+        # workspace for every stream it has run on: what stays after the run
+        # (freed here, so that the next run starts without them)
+        torch._C._cuda_clearCublasWorkspaces()
+        cleared = torch.cuda.memory_allocated()
+        for name, n in ran.items():
+            launches[name] += n
+        what = f"[replay] gpu_serverless, deepseek-7b full width, {stack} at scale {scale}"
+        log(f"{what}: {rep['n_requests']} requests in {run_s:.2f} s; colds sim "
+            f"{rep['sim']['cold_starts']} real {rep['real']['cold_starts']}; virtual phases "
+            f"{json.dumps(rep['virtual_phases'])}; within tolerance "
+            f"{rep['within_tolerance']} ({card})")
+        for name, m in rep["metrics"].items():
+            log(f"{what}: {name} sim {m['sim']!r} real {m['real']!r} abs err "
+                f"{m['abs_err']!r} rel err {m['rel_err']!r} "
+                f"{'ok' if m['within'] else 'OUT OF TOLERANCE'} ({card})")
+        inits = sorted(c.init_wall_s for c in made)
+        firsts = sorted(c.walls[0] for c in made)
+        warms = sorted(w for c in made for w in c.walls[1:])
+        walls = [w for c in made for w in c.walls]
+        footprint = mem[0] - base
+        log(f"{what}: {len(made)} real colds, construction median "
+            f"{inits[len(inits) // 2]:.4f} s max {inits[-1]:.4f} s, first serve (the "
+            f"graphs' capture) median {firsts[len(firsts) // 2]:.4f} s max {firsts[-1]:.4f} s; "
+            f"{len(warms)} warm serves, median "
+            + ("none" if not warms else
+               f"{warms[len(warms) // 2]:.4f} s p95 "
+               f"{warms[min(len(warms) - 1, round(0.95 * (len(warms) - 1)))]:.4f} s")
+            + f" ({card})")
+        log(f"{what}: launches {ran}; allocated {base / 2**30:.2f} GiB at the run's start, "
+            f"{mem[0] / 2**30:.2f} after the first cold, {mem[-1] / 2**30:.2f} after the last, "
+            f"{after / 2**30:.2f} after the run, {cleared / 2**30:.2f} with cuBLAS's "
+            f"workspaces freed; one server {footprint / 2**30:.2f} GiB ({card})")
+        if not rep["within_tolerance"]:
+            raise SystemExit(f"replay: {stack} at scale {scale} is out of the reference's "
+                             f"tolerances: {json.dumps(rep['metrics'])}")
+        finite = [m[k] for m in rep["metrics"].values() for k in ("sim", "real", "rel_err")]
+        if not (len(walls) == rep["n_requests"] == rep["sim"]["n"]
+                and all(math.isfinite(x) for x in walls + finite)):
+            raise SystemExit(f"replay: {len(walls)} serves for {rep['n_requests']} requests "
+                             f"({rep['sim']['n']} in the trace), or a time is not finite")
+        if not (ran["flash_attention"] and ran["flash_decode"]):
+            raise SystemExit(f"replay: K1 or K2 never launched: {ran}")
+        if mem[-1] - mem[0] > footprint or after - base > footprint:
+            raise SystemExit(f"replay: retired servers stay on the card: {mem[-1] - mem[0]} B "
+                             f"more after the last cold than after the first, {after - base} B "
+                             f"after the run, one server {footprint} B")
+    wall = time.perf_counter() - t0
+    log(f"[replay] step took {wall:.2f} s; launches {launches}; nothing measured ({card})")
+    if wall > REPLAY_MAX_S:
+        raise SystemExit(f"replay: the step took {wall:.1f} s, over {REPLAY_MAX_S} s")
+    return launches
 
 
 def _report_line(name: str, what: str, rep, sla_eval: dict) -> str:
@@ -4523,7 +4664,7 @@ def main() -> int:
     prefills[gcfg.name], steps[gcfg.name] = moe_breakdown(geng, gcfg, dev)
     del geng
     lap("7 breakdowns of deepseek-7b, rwkv6-1.6b, granite")
-    mcfg = get("mistral-nemo-12b").config
+    mcfg = get("mistral-nemo-12b").config.replace(num_layers=MISTRAL_LAYERS)
     e2e[mcfg.name], mlaunches, prefills[mcfg.name], steps[mcfg.name] = mistral_phase(mcfg, dev)
     for name, n in mlaunches.items():
         launches[name] += n
@@ -4533,15 +4674,16 @@ def main() -> int:
     for name, n in llaunches.items():
         launches[name] += n
     lap("4+7 llava-next-mistral-7b")
-    hcfg = get("recurrentgemma-9b").config
+    hcfg = get("recurrentgemma-9b").config.replace(num_layers=HYBRID_LAYERS)
     hruns, prefills[hcfg.name], steps[hcfg.name] = hybrid_phase(hcfg, dev)
     e2e.update(hruns)
     lap("4+7 recurrentgemma-9b")
     wcfg = get("whisper-tiny").config
     e2e[wcfg.name], prefills[wcfg.name], steps[wcfg.name] = whisper_phase(wcfg, dev)
     lap("4+7 whisper-tiny")
-    calibration_phase(dev)
-    lap("8 calibration and platform")
+    for name, n in calibration_phase(dev).items():
+        launches[name] += n
+    lap("8 calibration, platform, scenarios and replay")
     train_runs, tlaunches, otimes, oerrs = train_phase(dev)
     lap("10 training")
     for name, n in tlaunches.items():
@@ -4595,8 +4737,8 @@ def main() -> int:
                      "library_ms": t["library_ms"],
                      "library_device_ms": t["library_device_ms"]})
     log(f"[kernels] launches summed over the deepseek-7b, rwkv6-1.6b, granite-moe-3b-a800m, "
-        f"mistral-nemo-12b and llava-next-mistral-7b paths, the training runs and the "
-        f"gate's kernel paths: {launches}")
+        f"mistral-nemo-12b and llava-next-mistral-7b paths, the replay, the training runs and "
+        f"the gate's kernel paths: {launches}")
     # the replayed step before K5 kept its loads in flight (PERF.md section 5)
     before_k5 = {"deepseek-7b": (223.3, 223.6, 1.001, 55.75, 9172),
                  "rwkv6-1.6b": (148.0, 148.4, 1.002, 19.31, 13836)}
