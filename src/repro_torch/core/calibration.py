@@ -187,8 +187,9 @@ def _measure_batch_curve(cfg: ModelConfig, params: dict, *, device: torch.device
     """Per-request fused-decode cost vs batch size, from the port's
     ``ContinuousServer`` on ``params``: pin exactly ``b`` active slots, take
     one untimed step (on the card it captures the server's decode step, so
-    the capture is never timed), then time ``steps`` steps.  Points are normalized (rel cost at batch 1 = 1.0) and
-    clamped monotone by ``normalize_batch_curve``."""
+    the capture is never timed), then time ``steps`` steps; each server is
+    dropped before the next is made.  Points are normalized (rel cost at
+    batch 1 = 1.0) and clamped monotone by ``normalize_batch_curve``."""
     from repro_torch.serving.continuous import ContinuousServer, Request
     points = []
     for b in batches:
@@ -203,6 +204,7 @@ def _measure_batch_curve(cfg: ModelConfig, params: dict, *, device: torch.device
         srv.step()
         wall = _wall(device, lambda: [srv.step() for _ in range(steps)]) / steps
         points.append((int(b), wall / b))       # per-request share
+        del srv     # its cache and graphs go before the next server's are made
     return [[b, r] for b, r in normalize_batch_curve(points)]
 
 

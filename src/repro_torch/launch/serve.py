@@ -14,9 +14,10 @@ qwen2.5-32b fits one 80 GB card only alone, and qwen3-moe-235b-a22b and
 qwen1.5-110b fit none (their sharded paths are not ported).
 
 The counterpart of ``repro.launch.serve``.  ``--serverless`` then runs the
-paper's question on the measured engine, as the reference's flag does: a
-fresh engine measured (``measure_engine`` at ``--max-batch``, ``--prompt``
-and ``--n-new``), wrapped as a 1536 MB function (``llm_handler``), and a
+paper's question on the measured engine, as the reference's flag does: the
+serving engine dropped (two copies of qwen2.5-32b's weights do not fit one
+card), a fresh engine measured (``measure_engine`` at ``--max-batch``,
+``--prompt`` and ``--n-new``), wrapped as a 1536 MB function (``llm_handler``), and a
 zero-jitter single-function simulation of ``warm_burst(n=10)``
 (``core/simulator.py``'s ``Simulator``, seed 0) prints the cold and the warm response time and
 their ratio.
@@ -90,6 +91,7 @@ def main(argv=None):
         from repro_torch.core.simulator import Simulator
         from repro_torch.core.workload import warm_burst
         from repro_torch.serving.handler import llm_handler, measure_engine
+        del eng     # the fresh engine below is measured alone on the card
         m = measure_engine(cfg, batch=args.max_batch, prompt=args.prompt,
                            n_new=args.n_new, device=args.device)
         fspec = FunctionSpec(handler=llm_handler(cfg, measured=m), memory_mb=1536)

@@ -10,10 +10,10 @@ step (``repro/train/loop.py:37``).
 Each wraps a step that reads and writes only tensors whose addresses never
 change: its own static buffers, the caller's (the server's ``active`` mask;
 a train step's params, moments and step count), and the cache, which every
-family updates in place.  On the card the step is warmed up once on a side
-stream (which builds the kernels' libraries and runs their one-time set-up
-calls, and lets cuDNN and cuBLAS pick their algorithms, outside the
-capture), captured into a ``torch.cuda.CUDAGraph`` and then replayed: one
+family updates in place.  On the card the step is warmed up once on the
+device's warm-up stream (which builds the kernels' libraries and runs their
+one-time set-up calls, and lets cuDNN and cuBLAS pick their algorithms,
+outside the capture), captured into a ``torch.cuda.CUDAGraph`` and then replayed: one
 host call a step in place of every launch of every layer.  On the CPU no
 graph exists, as no kernel does, and ``replay`` runs the same step eagerly
 through the same buffers.  A capture that fails raises; nothing falls back
@@ -41,6 +41,22 @@ BLOCK = 64
 COUNTED = (flash, flash_decode, wkv, flash_bwd, wkv_bwd, adamw.SUMSQ, adamw.UPDATE)
 
 
+# the side stream of every capture's warm-up, one per device, made at the
+# first capture and kept, as ``torch.cuda.graph`` keeps one capture stream:
+# cuBLAS keeps a workspace for every stream it has run on, so a new stream
+# per capture would leave one workspace behind each time
+_WARM_UP: dict[int, torch.cuda.Stream] = {}
+
+
+def warm_up_stream(device) -> torch.cuda.Stream:
+    """The warm-up stream of the CUDA ``device``."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _WARM_UP:
+        _WARM_UP[index] = torch.cuda.Stream(index)
+    return _WARM_UP[index]
+
+
 class CapturedStep:
     """A step over static buffers, and its graph on the card.  A subclass
     gives ``step``, and ``carry``: the buffers whose changes by the
@@ -65,7 +81,7 @@ class CapturedStep:
         return ()
 
     def capture(self) -> None:
-        """On the card, once: warm up on a side stream, then capture one
+        """On the card, once: warm up on the warm-up stream, then capture one
         step (a no-op on the CPU, and once captured).  The warm-up's changes
         to ``carry`` are undone; its writes to the cache are the caller's
         to order (``DecodeGraph.carry``, ``PrefillGraph``)."""
@@ -82,9 +98,9 @@ class CapturedStep:
         self.record(graph, torch.cuda.graph(graph, pool=self.pool))
 
     def warm_up(self) -> None:
-        """One step, eagerly, on a side stream that the current stream
-        then waits for."""
-        side = torch.cuda.Stream(self.device)
+        """One step, eagerly, on the device's warm-up stream
+        (``warm_up_stream``), which the current stream then waits for."""
+        side = warm_up_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             self.step()
@@ -238,7 +254,7 @@ class TrainGraph(CapturedStep):
     and writes them where they lie.
 
     The capture's warm-up is a real step whose results stand: the first
-    step, run eagerly on a side stream.  The capture then runs nothing, and
+    step, run eagerly on the warm-up stream.  The capture then runs nothing, and
     every later step is a replay.  So nothing is carried back (a copy of
     the params and moments would take as much memory again), and ``run``
     returns the warm-up's metrics at its first call.  Between the warm-up

@@ -350,3 +350,28 @@ def test_replayed_hybrid_audio_and_vlm_tokens_equal_the_uncaptured_path(cuda, cf
     vlm = cfg.family == "vlm"
     assert flash.launches - n1 == 2 * cfg.num_layers * vlm
     assert fd.launches - n2 == 40 * cfg.num_layers * vlm
+
+
+@pytest.mark.gpu
+def test_servers_built_captured_and_dropped_leave_no_memory_behind(cuda):
+    """Five smoke-width servers in turn, each seeding its own weights,
+    draining four requests (its admission's and its step's captures) and
+    dropped, as the replay's colds are: the allocated memory after the last
+    is within 64 MiB of that after the first, no cuBLAS workspace cleared in
+    between.  Every capture warms up on the device's one warm-up stream;
+    a new stream a capture would leave a workspace behind each time."""
+    rng = np.random.default_rng(6)
+    reqs = [(i, rng.integers(0, 512, size=int(rng.integers(4, 40))).tolist(), 5)
+            for i in range(4)]
+    after = []
+    for seed in range(5):
+        srv = ContinuousServer(CFGS["dense"], slots=2, max_seq=64, seed=seed, device=cuda)
+        for rid, prompt, n in reqs:
+            srv.submit(Request(rid=rid, prompt=prompt, n_new=n))
+        assert len(srv.run()) == len(reqs)
+        assert srv.compile_stats()["graphs"] == 1 and srv._admissions
+        del srv
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated(cuda))
+    assert graphs.warm_up_stream(cuda) is graphs.warm_up_stream(cuda.index or 0)
+    assert after[-1] - after[0] <= 64 * 2**20, [a / 2**20 for a in after]

@@ -64,6 +64,8 @@ def _close(got: torch.Tensor, want, tol):
     (1, 256, 4, 1, 32),     # MQA
     (1, 300, 2, 2, 64),     # ragged S (reference pads, port masks)
     (1, 384, 2, 1, 32),     # ragged S, several blocks
+    (2, 256, 10, 2, 64),    # GQA, a group of five (qwen2.5's 40/8)
+    (1, 300, 5, 1, 128),    # a group of five, one kv head, ragged S
 ])
 @pytest.mark.parametrize("window", [0, 64])
 def test_flash_attention_plain_matches_pallas(ref, b, s, h, kh, hd, window):
@@ -92,6 +94,8 @@ def test_flash_attention_plain_matches_pallas_bf16(ref, window):
     (1, 512, 8, 8, 128),    # MHA
     (3, 768, 4, 1, 64),     # MQA
     (1, 300, 2, 2, 64),     # ragged S
+    (2, 256, 10, 2, 64),    # GQA, a group of five (qwen2.5's 40/8)
+    (1, 300, 5, 1, 128),    # a group of five, one kv head, ragged S
 ])
 def test_flash_decode_plain_matches_pallas(ref, b, s, h, kh, hd):
     q, tq = _both(ref, _rand((b, 1, h, hd), 1), torch.float32)
@@ -115,6 +119,8 @@ def test_flash_decode_plain_matches_pallas_bf16(ref):
     (3, 48, 4, 4, 32, 0),      # the continuous server's smoke shape
     (4, 300, 8, 2, 64, 0),     # GQA, ragged
     (2, 256, 4, 1, 64, 64),    # MQA, windowed per-row band
+    (2, 256, 10, 2, 64, 64),   # a group of five, windowed per-row band
+    (1, 300, 5, 1, 128, 0),    # a group of five, one kv head, ragged
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
@@ -456,6 +462,10 @@ def _dev(a, dtype, dev):
     (2, 70, 4, 4, 32, 0),       # smoke head dim, ragged
     (1, 300, 8, 2, 64, 0),      # head dim 64, ragged
     (2, 333, 4, 2, 32, 100),    # head dim 32, ragged, window across tiles
+    (4, 128, 40, 8, 128, 0),    # qwen2.5-32b's engine prefill, a group of five
+    (4, 512, 40, 8, 128, 0),    # qwen2.5-32b's server prefill
+    (1, 300, 40, 8, 128, 0),    # qwen2.5-32b at batch 1, ragged S
+    (2, 300, 10, 2, 64, 100),   # a group of five, ragged, window across tiles
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
@@ -477,6 +487,9 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kh, hd, window, dty
     (4, 512, 32, 32, 128, True),    # the server's decode shape, (B,S) mask
     (2, 1024, 8, 2, 64, False),     # GQA
     (3, 300, 4, 1, 64, True),       # MQA, ragged S
+    (4, 256, 40, 8, 128, False),    # qwen2.5-32b's engine decode, 5 of 8 heads a chunk
+    (4, 512, 40, 8, 128, True),     # qwen2.5-32b's server decode
+    (3, 300, 10, 2, 128, True),     # a group of five, ragged S
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, GPU_F32_TOL),
                                        (torch.bfloat16, BF16_TOL)])
