@@ -33,6 +33,15 @@ prefill of tokens alone; so admitting a vlm request raises ``KeyError``
 naming the missing patch embeddings, at the call where the reference raises
 it (its admission hands the vlm prefill no ``patch_embeds`` either).
 Greedy decoding.
+
+Assigning a ``Telemetry`` (``serving/telemetry.py``) to ``telemetry``
+records the server's spans (``admit`` with ``admit.prefill``,
+``admit.scatter``, ``admit.first_tokens`` and ``admit.bookkeeping``;
+``step`` with ``step.launch``, ``step.copy_out`` and ``step.settle``), the
+admission's counters (``admit.rows``, ``admit.padded_rows``,
+``admit.prompt_tokens``, ``admit.prefill_positions``), each request's
+times, and, through its graphs, their captures and the device time of each
+replay, the scatter and the first tokens' argmax.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from repro_torch.models import api
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.engine import bucket_len
 from repro_torch.serving.graphs import BLOCK, DecodeGraph, PrefillGraph
+from repro_torch.serving.telemetry import span, timed
 
 # fused-step chunk cap: step counts decompose into powers of two up to this,
 # which the decode step's token block holds
@@ -133,6 +143,23 @@ class ContinuousServer:
         self._done: list[Completion] = []
         self._steps = 0
         self._shapes = {"prefill": set(), "fused_step": set(), "scatter": set()}
+        self._telemetry = None
+
+    @property
+    def telemetry(self):
+        """The recorder (``serving/telemetry.py::Telemetry``), or None: off."""
+        return self._telemetry
+
+    @telemetry.setter
+    def telemetry(self, tel) -> None:
+        """Record into ``tel`` from now on (None: stop), here and in every
+        graph, those captured later too."""
+        self._telemetry = tel
+        for g in self._graphs():
+            g.telemetry = tel
+
+    def _graphs(self) -> list:
+        return [self._step, *(g for g, _ in self._admissions.values()), *self._exact.values()]
 
     # ------------------------------------------------------------------
     def _staged(self, length: int) -> dict:
@@ -160,6 +187,7 @@ class ContinuousServer:
 
             graph = PrefillGraph(self.slots, bucket, cfg.vocab_size, cfg.cdt, self.device,
                                  prefill, pool=self._pool)
+            graph.telemetry, graph.label = self._telemetry, f"bucket {bucket}"
             graph.capture()
             self._admissions[bucket] = graph, cache
         return self._admissions[bucket]
@@ -187,6 +215,7 @@ class ContinuousServer:
 
             graph = PrefillGraph(1, length, cfg.vocab_size, cfg.cdt, self.device, prefill,
                                  pool=self._pool)
+            graph.telemetry, graph.label = self._telemetry, f"exact {length}"
             graph.capture()
             self._exact[length] = graph
         return self._exact[length]
@@ -211,14 +240,20 @@ class ContinuousServer:
         on the carry admission set); returns the (n_steps, slots) token
         block — the single device-to-host copy."""
         self._shapes["fused_step"].add(n_steps)
-        self._active_dev.copy_(torch.from_numpy(self.active))   # outside the graph
-        self._step.capture()
-        toks = self._step.run(n_steps).cpu().numpy()
+        tel = self._telemetry
+        with span(tel, "step.launch"):
+            self._active_dev.copy_(torch.from_numpy(self.active))   # outside the graph
+            self._step.capture()
+            block = self._step.run(n_steps)
+        with span(tel, "step.copy_out", anchor=True):
+            toks = block.cpu().numpy()
         self._steps += n_steps
         return toks
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
+        if self._telemetry is not None:
+            self._telemetry.submitted(req.rid)
         self.queue.append(req)
 
     def n_active(self) -> int:
@@ -241,6 +276,9 @@ class ContinuousServer:
         bucket."""
         m = len(reqs)
         bucket = min(bucket_len(max(len(r.prompt) for r in reqs)), self.max_seq)
+        if self._telemetry is not None:
+            self._count_admission(m, self.slots, sum(len(r.prompt) for r in reqs),
+                                  self.slots * bucket)
         toks = np.zeros((self.slots, bucket), np.int64)
         last = np.zeros((self.slots,), np.int64)
         for j, r in enumerate(reqs):
@@ -257,6 +295,9 @@ class ContinuousServer:
         replays the graph of its prompt's length into the staging cache's
         row j (each logits row cloned before the next replay); the round's
         rows still merge into one scatter."""
+        if self._telemetry is not None:
+            n = sum(len(r.prompt) for r in reqs)
+            self._count_admission(len(reqs), len(reqs), n, n)
         logits = []
         for j, r in enumerate(reqs):
             self._shapes["prefill"].add(((1, len(r.prompt)), True, self.max_seq))
@@ -266,6 +307,14 @@ class ContinuousServer:
         staging = self._staged(self.max_seq)
         return torch.cat(logits, dim=0), {n: t[:, :len(reqs)] for n, t in staging.items()}
 
+    def _count_admission(self, rows: int, padded_rows: int, prompt_tokens: int,
+                         positions: int) -> None:
+        tel = self._telemetry
+        tel.count("admit.rows", rows)
+        tel.count("admit.padded_rows", padded_rows)
+        tel.count("admit.prompt_tokens", prompt_tokens)
+        tel.count("admit.prefill_positions", positions)
+
     def _admit(self):
         free = [s for s in range(self.slots) if not self.active[s]]
         m = min(len(free), len(self.queue))
@@ -273,28 +322,43 @@ class ContinuousServer:
             return
         reqs = [self.queue.popleft() for _ in range(m)]
         idx = free[:m]
-        if self.cfg.family == "dense":
-            logits, rows = self._prefill_bucketed(reqs)
-        else:
-            logits, rows = self._prefill_exact(reqs)
-        self._scatter(rows, idx)
-        first = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
-        for j, (s, req) in enumerate(zip(idx, reqs)):
-            tok = int(first[j])
-            self.active[s] = True
-            self.rid[s] = req.rid
-            self.pos[s] = len(req.prompt)
-            self.remaining[s] = req.n_new - 1
-            self.last_tok[s] = tok
-            self.out[req.rid] = [tok]
-            if req.n_new == 1:
-                self._finish(s)
-        # resync the device compute state from the host mirrors (H2D only),
-        # into the decode step's static buffers
-        self._step.start(torch.from_numpy(self.last_tok), torch.from_numpy(self.pos))
+        tel = self._telemetry
+        with span(tel, "admit") as top:
+            if tel is not None:
+                top.rids = tuple(r.rid for r in reqs)
+                tel.stamp(top.rids, "admitted", top.t0)
+            with span(tel, "admit.prefill"):
+                if self.cfg.family == "dense":
+                    logits, rows = self._prefill_bucketed(reqs)
+                else:
+                    logits, rows = self._prefill_exact(reqs)
+            with span(tel, "admit.scatter"), timed(tel, "admit.scatter"):
+                self._scatter(rows, idx)
+            with span(tel, "admit.first_tokens", anchor=True) as got:
+                with timed(tel, "admit.first_tokens"):
+                    first = torch.argmax(logits, dim=-1)
+                first = first.cpu().numpy().astype(np.int32)
+            if tel is not None:
+                tel.stamp(top.rids, "first_token_on_host", got.t1)
+            with span(tel, "admit.bookkeeping"):
+                for j, (s, req) in enumerate(zip(idx, reqs)):
+                    tok = int(first[j])
+                    self.active[s] = True
+                    self.rid[s] = req.rid
+                    self.pos[s] = len(req.prompt)
+                    self.remaining[s] = req.n_new - 1
+                    self.last_tok[s] = tok
+                    self.out[req.rid] = [tok]
+                    if req.n_new == 1:
+                        self._finish(s)
+                # resync the device compute state from the host mirrors (H2D
+                # only), into the decode step's static buffers
+                self._step.start(torch.from_numpy(self.last_tok), torch.from_numpy(self.pos))
 
     def _finish(self, s: int):
         rid = self.rid[s]
+        if self._telemetry is not None:
+            self._telemetry.stamp((rid,), "finished")
         self._done.append(Completion(rid, list(self.out[rid]), self._steps))
         self.active[s] = False
         self.rid[s] = -1
@@ -317,7 +381,13 @@ class ContinuousServer:
 
     def step(self):
         """One fused decode step across all active slots."""
-        self._settle(self._run_chunk(1))
+        tel = self._telemetry
+        with span(tel, "step") as top:
+            if tel is not None:
+                top.rids = tuple(r for r, a in zip(self.rid, self.active.tolist()) if a)
+            toks = self._run_chunk(1)
+            with span(tel, "step.settle"):
+                self._settle(toks)
 
     # ------------------------------------------------------------------
     def run(self) -> list:

@@ -24,6 +24,11 @@ The kernel wrappers count their launches at the call, which under capture
 reaches no card.  So the capture's increase of each count is taken back and
 recorded, and every replay adds it: the counts go on counting the kernels
 that reached the card.
+
+A step whose ``telemetry`` is set (``serving/telemetry.py``; the continuous
+server sets it on its graphs) records a ``graph.capture`` span around its
+warm-up and capture, which ends in a synchronize, and times each replay on
+the device with an event pair (``replay.<kind>``).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.kernels.attention import flash, flash_bwd
 from repro_torch.kernels.decode import flash_decode
 from repro_torch.kernels.optim import adamw
 from repro_torch.kernels.rwkv import wkv, wkv_bwd
+from repro_torch.serving.telemetry import NULL, span
 
 # steps whose tokens the block holds before its row index wraps to 0; the
 # continuous server's chunks are at most this long
@@ -60,7 +66,10 @@ def warm_up_stream(device) -> torch.cuda.Stream:
 class CapturedStep:
     """A step over static buffers, and its graph on the card.  A subclass
     gives ``step``, and ``carry``: the buffers whose changes by the
-    capture's warm-up step are undone."""
+    capture's warm-up step are undone.  ``kind`` names its replays' device
+    time, ``label`` its capture span."""
+
+    kind = "step"
 
     def __init__(self, device, *, generator=None, pool=None):
         """``generator``: the CUDA generator a sampling step draws from,
@@ -73,6 +82,8 @@ class CapturedStep:
         self.graph = None
         self.added = {}   # kernel launch count (COUNTED) -> launches one replay adds
         self.replays = 0  # replays since construction (eager steps on the CPU)
+        self.telemetry = None
+        self.label = self.kind
 
     def step(self) -> None:
         raise NotImplementedError
@@ -87,15 +98,17 @@ class CapturedStep:
         to order (``DecodeGraph.carry``, ``PrefillGraph``)."""
         if self.graph is not None or self.device.type != "cuda":
             return
-        keep = self.carry()
-        saved = [t.clone() for t in keep]
-        self.warm_up()
-        for t, s in zip(keep, saved):
-            t.copy_(s)
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        self.record(graph, torch.cuda.graph(graph, pool=self.pool))
+        tel = self.telemetry
+        with span(tel, "graph.capture", detail=self.label, sync=True):
+            keep = self.carry()
+            saved = [t.clone() for t in keep]
+            self.warm_up()
+            for t, s in zip(keep, saved):
+                t.copy_(s)
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            self.record(graph, torch.cuda.graph(graph, pool=self.pool))
 
     def warm_up(self) -> None:
         """One step, eagerly, on the device's warm-up stream
@@ -125,10 +138,12 @@ class CapturedStep:
         """One step: the graph once captured, else ``step`` (on the CPU,
         where there is no graph)."""
         self.replays += 1
-        if self.graph is None:
-            self.step()
-            return
-        self.graph.replay()
+        tel = self.telemetry
+        with (NULL if tel is None else tel.timed(f"replay.{self.kind}")):
+            if self.graph is None:
+                self.step()
+                return
+            self.graph.replay()
         for m, n in self.added.items():
             m.launches += n
 
@@ -138,6 +153,8 @@ class DecodeGraph(CapturedStep):
     the last tokens and positions (B,), and a block of ``BLOCK`` rows where
     each step writes its sampled tokens at a row index that lives on the
     device and advances inside the step."""
+
+    kind = "decode"
 
     def __init__(self, batch: int, device: torch.device, advance, *, generator=None):
         """``advance(tok, pos) -> (sampled, next_tok, next_pos)``: the
@@ -195,6 +212,8 @@ class PrefillGraph(CapturedStep):
     static logits there (B, V).  The family's prefill writes the caller's
     cache in place: its warm-up and every replay reset the cache and fill it
     from the prompt, so a replay is exact whatever ran on the cache before."""
+
+    kind = "prefill"
 
     def __init__(self, batch: int, length: int, vocab: int, dtype, device, prefill,
                  *, pool=None):
